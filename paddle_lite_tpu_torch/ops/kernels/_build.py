@@ -1,0 +1,121 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` into its own shared library with a plain
+C interface, loaded with ``ctypes``.  Libraries go to
+``paddle_lite_tpu_torch/_build/`` (listed in ``.gitignore``) under a name
+that carries the hash of the sources, so an edited source is rebuilt and an
+unchanged one is reused.  Nothing here runs at import time: the CPU tests
+import every module on a machine without ``nvcc``.
+
+Flags: ``sm_90a`` (Hopper), and ``--fmad=false`` so that ``acc*scale`` and
+``+bias`` round separately, as in the reference epilogue.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+SOURCES = {"int8_gemm": "int8_gemm.cu", "dw_conv": "dw_conv.cu"}
+HEADERS = ("epilogue.cuh",)
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
+]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in (SOURCES[name],) + HEADERS:
+        h.update((CSRC / f).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: List[str] = None) -> Dict[str, float]:
+    """Compile every missing library, one ``nvcc`` per source, all started
+    together.  Returns {name: seconds from start to done} for what was
+    compiled."""
+    names = list(SOURCES) if names is None else names
+    todo = [n for n in names if not lib_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    jobs = {}
+    for n in todo:
+        tmp = lib_path(n).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+        jobs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True))
+    secs, errors = {}, []
+    for n, (tmp, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {SOURCES[n]}:\n{log}")
+            continue
+        os.replace(tmp, lib_path(n))
+        (BUILD_DIR / f"{n}.log").write_text(log)
+        secs[n] = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return secs
+
+
+def build_log(name: str) -> str:
+    """nvcc / ptxas output of the last build of `name` (registers, spills)."""
+    p = BUILD_DIR / f"{name}.log"
+    return p.read_text() if p.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for `name`, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(lib_path(name)))
+        _declare(name, lib)
+        _LIBS[name] = lib
+    return lib
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "int8_gemm":
+        fn = lib.plt_int8_gemm
+        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, ci, vp]
+    elif name == "dw_conv":
+        fn = lib.plt_dw_conv
+        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+                       ci, ci, cf, vp]
+    else:
+        raise KeyError(name)
+    fn.restype = ctypes.c_int
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")

@@ -1,0 +1,81 @@
+"""Cross-checks between the ``"cuda"`` kernels and the plain ``"torch"`` ops
+on one optimized graph, used by ``chip_smoke.py`` and the CPU tests.
+
+The two tags compute the same int8 layers with one difference, inherited
+from the JAX package: the kernels requantize with ``y * fp32(1/s)`` (the
+Pallas epilogue, ``int8_matmul.py:38`` there), the torch ops with ``y / s``
+(the XLA path, ``common.py:107`` there).  The two round differently only
+where ``y / s`` sits on a rounding tie, so, fed the same inputs, an op's
+outputs may differ by 1 LSB in a tiny fraction of elements.  Run end to end,
+such a flip changes the next layers' inputs and spreads, so end-to-end int8
+tensors are not held to that bound; :func:`op_local_diffs` feeds every op
+the inputs the kernel run gave it.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Any, Dict, List
+
+import torch
+
+from .core.executor import ExecutionContext, build_callable
+from .core.ir import Graph
+from .core.registry import OPS
+
+# an op fed identical inputs: at most this fraction of its int8 outputs
+# (or TIE_COUNT elements, for small tensors) may differ, each by at most
+# TIE_LSB (rounding ties of y*(1/s) vs y/s; about 1e-6 of elements)
+TIE_FRACTION = 1e-4
+TIE_COUNT = 2
+TIE_LSB = 1
+# the model's softmax output, end to end
+SOFTMAX_ATOL = 1e-3
+
+
+def retag(graph: Graph, src: str, dst: str) -> Graph:
+    """A copy of `graph` with every op tagged `src` tagged `dst`."""
+    g = copy.deepcopy(graph)
+    for op in g.ops:
+        if op.attrs.get("kernel") == src:
+            op.attrs["kernel"] = dst
+    return g
+
+
+def capture_all(graph: Graph, weights: Dict[str, torch.Tensor],
+                feed: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    """Run `graph` and return every graph input and op output by name."""
+    env: Dict[str, torch.Tensor] = {}
+    build_callable(graph, device=device,
+                   capture=lambda n, v: env.__setitem__(n, v))(weights, feed)
+    return env
+
+
+def op_local_diffs(graph: Graph, weights: Dict[str, torch.Tensor],
+                   feed: Dict[str, Any], device: torch.device,
+                   kernel: str = "cuda") -> List[dict]:
+    """Run `graph`; then, for every op tagged `kernel`, run its ``"torch"``
+    impl on the very inputs it got and compare outputs.  Returns one record
+    per output: {"op", "var", "numel", "n_diff", "max_diff"}."""
+    env = capture_all(graph, weights, feed, device)
+    env.update(weights)
+    ctx = ExecutionContext(graph=graph, device=device)
+    out = []
+    for op in graph.topological_order():
+        if op.attrs.get("kernel") != kernel:
+            continue
+        ins = {s: [env[n] for n in ns] for s, ns in op.inputs.items() if ns}
+        ref = OPS.get(op.op_type).impls["torch"](ctx, op, ins)
+        for slot, arrs in ref.items():
+            for name, r in zip(op.outputs[slot], arrs):
+                d = (env[name].to(torch.float64) - r.to(torch.float64)).abs()
+                out.append({"op": op.op_type, "var": name, "numel": d.numel(),
+                            "n_diff": int((d > 0).sum()),
+                            "max_diff": float(d.max())})
+    return out
+
+
+def within_tie_bound(diffs: List[dict]) -> bool:
+    return all(d["max_diff"] <= TIE_LSB
+               and d["n_diff"] <= max(TIE_COUNT, TIE_FRACTION * d["numel"])
+               for d in diffs)
