@@ -30,7 +30,22 @@ Phases:
    kernel op fed identical inputs must agree up to rounding ties and the
    softmax output within 1e-3 (``paddle_lite_tpu_torch/testing.py``).
    img/s for fp32 and int8, and a profiled request, are information.
-4. The last lines: the card (nvidia-smi), the kernels' JSON line, then
+4. SSD-MobileNetV1-300 INT8 at batch 32, 21 classes (``ssd.build`` →
+   ``create_predictor(quant=QuantConfig(), ...)``).  First the kernels at
+   this path's shapes: the GEMM and depthwise kernels as in phase 2, and
+   the NMS kernel on the path's own candidates (G = 32·21 = 672 instances
+   of k = 528, the bucket3@176 tier) and on edge cases (ties, unsorted and
+   sorted input, all-invalid instances, identical boxes, k = 400, 33, 1
+   and 1024), bit-exact against its plain version; its bound is the larger
+   of bytes / 3.35 TB/s and 13 fp32 operations for each pair of valid
+   candidates (counted on this run's scores) / (2 x the FMA rate above).  Then 3 requests: exactly
+   17 GEMM, 13 depthwise and 1 NMS launch a request; every kernel op except
+   ``multiclass_nms`` against its torch op on identical inputs (tie bound);
+   ``multiclass_nms`` with the kernel against the same op with the plain
+   version, exactly.  int8 vs fp32 detections, the largest int8
+   accumulator of the torch-path 3x3 convs, img/s and a profiled request
+   are information.
+5. The last lines: the card (nvidia-smi), the kernels' JSON line, then
    ``{"ok": true, "device": {...}}``.
 
 With ``--json PATH`` the per-shape numbers are also written to PATH.
@@ -50,6 +65,7 @@ import numpy as np
 import torch
 
 BATCH, SIZE = 64, 224
+SSD_BATCH, SSD_SIZE, SSD_CLASSES = 32, 300, 21
 DEV = torch.device("cuda")
 REQUESTS = 3
 HBM_BYTES_PER_S = 3.35e12
@@ -260,7 +276,7 @@ def phase_kernels(fma_per_s: float):
         key = ("gemm", m, k, n, int8_out)
         if key not in seen:
             seen[key] = check_gemm(rng, m, k, n, int8_out, timed=True)
-            seen[key]["per_request"] = 0
+            seen[key].update(per_request=0, path="mobilenet_v1")
             rows.append(seen[key])
         seen[key]["per_request"] += 1
     # the fc with int8 out too, and ragged GEMMs (M, N, K off the tiles)
@@ -271,7 +287,7 @@ def phase_kernels(fma_per_s: float):
         key = ("dw",) + shape
         if key not in seen:
             seen[key] = check_dw(rng, shape, True, True, fma_per_s)
-            seen[key]["per_request"] = 0
+            seen[key].update(per_request=0, path="mobilenet_v1")
             rows.append(seen[key])
         seen[key]["per_request"] += 1
     extra = [((BATCH, 56, 56, 128, 3, 1), True, "dw_conv3x3s1_int8"),
@@ -284,10 +300,16 @@ def phase_kernels(fma_per_s: float):
                              fma_per_s, entry))
     print("phase 2: kernel vs plain version (ms: device time, CUDA-graph "
           "replays, median of 25; eager: the same without the graph)")
+    _report_rows(rows)
+    return rows
+
+
+def _report_rows(rows):
     for r in rows:
+        lib = r.get("library_ms")
         t = "" if "ms" not in r else (
             f" ms {r['ms']:.4f} eager {r['eager_ms']:.4f} plain {r['plain_ms']:.4f} "
-            f"lib {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} "
+            f"lib {lib if lib is None else round(lib, 4)} "
             f"bound {r['bound_ms']:.4f} ({r['bound_by']}) x{r.get('per_request', 0)}")
         print(f"  {r['kernel']:9s} {str(r['shape']):28s} {r['out']:4s} "
               f"acc_mismatch {r['acc_mismatch']} out_mismatch {r['out_mismatch']}{t}")
@@ -301,7 +323,6 @@ def phase_kernels(fma_per_s: float):
     bad = [r for r in rows if r["acc_mismatch"] or r["out_mismatch"]]
     if bad:
         fail(f"{len(bad)} kernel checks disagree with the plain version: {bad}")
-    return rows
 
 
 # ---- phase 3 ---------------------------------------------------------------
@@ -311,14 +332,14 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a @ b) / (a.norm() * b.norm()))
 
 
-def _ips(pred, feed, reps: int = 10) -> float:
+def _ips(pred, feed, reps: int = 10, batch: int = BATCH) -> float:
     pred.run(feed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
         pred.run(feed)
     torch.cuda.synchronize()
-    return reps * BATCH / (time.perf_counter() - t0)
+    return reps * batch / (time.perf_counter() - t0)
 
 
 def _device_breakdown(pred, feed, top: int = 8) -> dict:
@@ -378,11 +399,14 @@ def phase_main_path():
 
     int8_matmul.launches = 0
     depthwise.launches = 0
+    depthwise.launches_by_stride = {1: 0, 2: 0}
     outs = [pred8.run(f) for f in feeds]
     torch.cuda.synchronize()
     launches = {"int8_gemm": int8_matmul.launches, "dw_conv": depthwise.launches}
     print(f"  launches over {REQUESTS} requests: {launches}")
-    if launches != {"int8_gemm": 14 * REQUESTS, "dw_conv": 13 * REQUESTS}:
+    launches.update(dw_conv_s1=depthwise.launches_by_stride[1],
+                    dw_conv_s2=depthwise.launches_by_stride[2])
+    if (launches["int8_gemm"], launches["dw_conv"]) != (14 * REQUESTS, 13 * REQUESTS):
         fail(f"expected 14 GEMM and 13 depthwise launches a request, "
              f"got {launches} over {REQUESTS} requests")
 
@@ -454,25 +478,333 @@ def phase_main_path():
                       "softmax_max_abs_diff": sm_err, "top1_agreement": top1}
 
 
-def _kernel_line(rows, launches):
-    meta = {
-        "int8_gemm": ("paddle_lite_tpu_torch/csrc/int8_gemm.cu",
-                      "paddle_lite_tpu/ops/kernels/int8_matmul.py:122"),
-        "dw_conv": ("paddle_lite_tpu_torch/csrc/dw_conv.cu",
-                    "paddle_lite_tpu/ops/kernels/depthwise.py:293"),
-    }
+# ---- phase 4 ---------------------------------------------------------------
+
+NMS_OPS_PER_PAIR = 13  # csrc/nms.cu: 2 min, 4 max, 3 sub, 2 mul, 1 add, 1 compare
+
+
+def kernel_shapes(g):
+    """(M, K, N, int8 out) of every GEMM op and ((N, H, W, C, k, s), int8
+    out) of every depthwise op that the optimized graph `g` tags "cuda"."""
+    gemm, dw = [], []
+    for op in g.topological_order():
+        if op.attrs.get("kernel") != "cuda":
+            continue
+        int8_out = op.attrs.get("out_scale") is not None
+        if op.op_type in ("conv2d", "depthwise_conv2d"):
+            n, h, w, c = g.vars[op.input("Input")].shape
+            kh, _, _, oc = g.vars[op.input("Filter")].shape
+            if op.op_type == "conv2d":
+                gemm.append((n * h * w, c, oc, int8_out))
+            else:
+                dw.append(((n, h, w, c, kh, int(op.attrs["strides"][0])), int8_out))
+    return gemm, dw
+
+
+def check_nms(case, boxes, scores, iou_t, score_t, fp32_ops_per_s, timed):
+    from paddle_lite_tpu_torch.ops.kernels import nms as kn
+
+    g, k = scores.shape
+    kw = dict(iou_t=iou_t, score_t=score_t)
+    got = kn.nms_keep_scores(boxes, scores, **kw)
+    ref = kn.nms_keep_scores_plain(boxes, scores, **kw)
+    bad = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+    row = {"kernel": "nms", "case": case, "shape": [g, k], "out": "fp32",
+           "acc_mismatch": 0, "out_mismatch": bad,
+           "max_abs_err": float((got - ref).abs().max()),
+           "kept": int((got > 0).sum()),
+           "valid": int((scores > float(np.float32(score_t))).sum())}
+    if timed:
+        row["ms"] = time_ms(lambda: kn.nms_keep_scores(boxes, scores, **kw))
+        row["eager_ms"] = eager_ms(lambda: kn.nms_keep_scores(boxes, scores, **kw))
+        # the plain version syncs on every Jacobi round: no CUDA graph
+        row["plain_ms"] = eager_ms(lambda: kn.nms_keep_scores_plain(boxes, scores, **kw),
+                                   reps=5, warmup=1)
+        row["library_ms"] = None  # no one PyTorch call computes greedy NMS
+        nv = (scores > float(np.float32(score_t))).sum(dim=1).double()
+        pairs = float((nv * (nv - 1) / 2).sum())  # pairs of valid candidates
+        row["pair_tests"] = pairs
+        row.update(bound(24.0 * g * k, NMS_OPS_PER_PAIR * pairs / fp32_ops_per_s))
+    return row
+
+
+def nms_edge_cases(rng):
+    """(case, boxes, scores) on the card: ties, unsorted and sorted input,
+    all-invalid instances, identical boxes, and k off the 32-bit words."""
+    def cand(g, k):
+        c = rng.uniform(0.1, 0.9, (g, k, 2))
+        wh = rng.uniform(0.02, 0.35, (g, k, 2))
+        b = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+        sc = rng.uniform(0, 1, (g, k)).astype(np.float32)
+        sc[:, ::3] *= 0.005
+        return b, sc
+
+    cases = []
+    b, sc = cand(64, 528)
+    sc[:, 40:80] = sc[:, 7:8]
+    cases.append(("ties_unsorted", b, sc))
+    b, sc = cand(16, 528)
+    cases.append(("sorted", b, -np.sort(-sc, axis=1)))
+    b, sc = cand(16, 528)
+    sc[::2] = 0.004
+    cases.append(("all_invalid_every_other", b, sc))
+    b, sc = cand(8, 528)
+    b[:, 100:300] = b[:, 100:101]
+    sc[:, 150:250] = 0.7
+    cases.append(("identical_boxes_and_ties", b, sc))
+    for g, k in ((672, 400), (5, 33), (3, 1), (4, 1024)):
+        b, sc = cand(g, k)
+        cases.append((f"k{k}", b, sc))
+    return [(name, torch.from_numpy(b).to(DEV), torch.from_numpy(sc).to(DEV))
+            for name, b, sc in cases]
+
+
+def _area(r: torch.Tensor) -> torch.Tensor:
+    return (r[:, 4] - r[:, 2]).clamp(min=0) * (r[:, 5] - r[:, 3]).clamp(min=0)
+
+
+def _det_agreement(a: torch.Tensor, b: torch.Tensor, iou_min: float = 0.5) -> float:
+    """Share of a's detections (label >= 0) that b has in the same image:
+    same label and IoU >= iou_min."""
+    a, b = a.double().cpu(), b.double().cpu()
+    hit = tot = 0
+    for ra, rb in zip(a, b):
+        ra, rb = ra[ra[:, 0] >= 0], rb[rb[:, 0] >= 0]
+        tot += len(ra)
+        if not len(ra) or not len(rb):
+            continue
+        lt = torch.maximum(ra[:, None, 2:4], rb[None, :, 2:4])
+        rt = torch.minimum(ra[:, None, 4:6], rb[None, :, 4:6])
+        inter = (rt - lt).clamp(min=0).prod(-1)
+        iou = inter / (_area(ra)[:, None] + _area(rb)[None, :] - inter).clamp(min=1e-12)
+        same = ra[:, None, 0] == rb[None, :, 0]
+        hit += int(((iou >= iou_min) & same).any(dim=1).sum())
+    return hit / max(tot, 1)
+
+
+def _torch_conv_acc(g, env, weights) -> dict:
+    """The int8 3x3 convs left on the torch path (an fp32 conv, exact while
+    every partial sum stays below 2^24): the largest |accumulator| over
+    this request, and the largest sum of |x·w| (a bound on any partial sum
+    in any order), in float64."""
+    from paddle_lite_tpu_torch.ops.common import normalize_2d, normalize_paddings
+    from paddle_lite_tpu_torch.ops.nn import conv_nhwc
+
+    worst = {"max_abs_acc": 0.0, "max_sum_abs": 0.0, "op": None, "n_ops": 0}
+    for op in g.topological_order():
+        if not (op.op_type == "conv2d" and op.attrs.get("enable_int8")
+                and op.attrs.get("kernel") is None):
+            continue
+        x = env[op.input("Input")].to(torch.float64)
+        w = weights[op.input("Filter")].to(torch.float64).permute(3, 2, 0, 1).contiguous()
+        args = (normalize_2d(op.attrs.get("strides", (1, 1))),
+                normalize_paddings(op.attrs.get("paddings", (0, 0))),
+                normalize_2d(op.attrs.get("dilations", (1, 1))), 1)
+        acc = float(conv_nhwc(x, w, *args).abs().max())
+        sab = float(conv_nhwc(x.abs(), w.abs(), *args).max())
+        worst["n_ops"] += 1
+        if sab > worst["max_sum_abs"]:
+            worst.update(max_sum_abs=sab, op=op.outputs["Output"][0],
+                         k=int(w.shape[1] * w.shape[2] * w.shape[3]))
+        worst["max_abs_acc"] = max(worst["max_abs_acc"], acc)
+    return worst
+
+
+def phase_ssd(fma_per_s: float):
+    from paddle_lite_tpu_torch import QuantConfig
+    from paddle_lite_tpu_torch.models import ssd
+    from paddle_lite_tpu_torch.ops.detection import exact_candidates
+    from paddle_lite_tpu_torch.ops.kernels import depthwise, int8_matmul, nms, ops_cuda
+    from paddle_lite_tpu_torch.runtime.predictor import create_predictor
+    from paddle_lite_tpu_torch.testing import (TIE_FRACTION, TIE_LSB, capture_all,
+                                               op_local_diffs, within_tie_bound)
+
+    rng = np.random.default_rng(1)
+    shape = (SSD_BATCH, SSD_SIZE, SSD_SIZE, 3)
+    calib = [{"image": rng.normal(size=shape).astype(np.float32)}]
+    feeds = [{"image": rng.normal(size=shape).astype(np.float32)}
+             for _ in range(REQUESTS)]
+    kw = dict(batch=SSD_BATCH, image_size=SSD_SIZE, num_classes=SSD_CLASSES, seed=0)
+    t0 = time.perf_counter()
+    g8 = ssd.build(**kw)
+    pred8 = create_predictor(g8, quant=QuantConfig(), calib_batches=calib, device=DEV)
+    pred32 = create_predictor(ssd.build(**kw), device=DEV)
+    print(f"phase 4: SSD-MobileNetV1 {SSD_SIZE} px, b{SSD_BATCH}, {SSD_CLASSES} "
+          f"classes: build + optimize + calibrate {time.perf_counter() - t0:.1f} s")
+    tags = {}
+    for op in g8.ops:
+        if op.attrs.get("kernel") == "cuda":
+            tags[op.op_type] = tags.get(op.op_type, 0) + 1
+    print(f"  ops {len(g8.ops)}, kernel='cuda': {tags}")
+    nms_op = next(op for op in g8.ops if op.op_type == "multiclass_nms")
+    box_name, score_name = nms_op.input("BBoxes"), nms_op.input("Scores")
+    out_name = g8.outputs[0]
+    attrs = nms_op.attrs
+    iou_t, score_t = float(attrs["nms_threshold"]), float(attrs["score_threshold"])
+
+    # (a) the kernels at this path's shapes, against their plain versions
+    gemm, dw = kernel_shapes(g8)
+    rows, seen = [], {}
+    for m, k, n, int8_out in gemm:
+        key = ("gemm", m, k, n, int8_out)
+        if key not in seen:
+            seen[key] = check_gemm(rng, m, k, n, int8_out, timed=True)
+            seen[key].update(per_request=0, path="ssd")
+            rows.append(seen[key])
+        seen[key]["per_request"] += 1
+    for shp, int8_out in dw:
+        key = ("dw",) + shp + (int8_out,)
+        if key not in seen:
+            seen[key] = check_dw(rng, shp, int8_out, True, fma_per_s)
+            seen[key].update(per_request=0, path="ssd")
+            rows.append(seen[key])
+        seen[key]["per_request"] += 1
+    env = capture_all(g8, pred8._weights, feeds[0], DEV)
+    boxes, scores = env[box_name], env[score_name]
+    top_s, cand = ops_cuda.select_candidates(boxes, scores, attrs)
+    n, c, k = top_s.shape
+    fp32_ops = 2 * fma_per_s
+    main = check_nms("ssd_bucket3", cand.reshape(n * c, k, 4).contiguous(),
+                     top_s.reshape(n * c, k).contiguous(), iou_t, score_t,
+                     fp32_ops, timed=True)
+    main.update(per_request=1, path="ssd")
+    rows.append(main)
+    top_e, cand_e = exact_candidates(boxes, scores, min(int(attrs["nms_top_k"]),
+                                                        scores.shape[1]))
+    ke = top_e.shape[-1]
+    rows.append(check_nms("ssd_exact_tier", cand_e.reshape(n * c, ke, 4).contiguous(),
+                          top_e.reshape(n * c, ke).contiguous(), iou_t, score_t,
+                          fp32_ops, timed=False))
+    for case, b, sc in nms_edge_cases(rng):
+        rows.append(check_nms(case, b, sc, iou_t, score_t, fp32_ops, timed=False))
+    print(f"  kernels at this path's shapes (NMS: G = {n * c} instances of k = {k}, "
+          f"{main['valid']} valid candidates, {main['pair_tests']:.6g} pair tests)")
+    _report_rows(rows)
+    for r in rows:
+        if r["kernel"] == "nms":
+            print(f"    nms {r['case']}: {r['shape']} kept {r['kept']} of "
+                  f"{r['valid']} valid, out_mismatch {r['out_mismatch']}")
+
+    # (b) the path: 3 requests through the predictor
+    int8_matmul.launches = 0
+    depthwise.launches = 0
+    depthwise.launches_by_stride = {1: 0, 2: 0}
+    nms.launches = 0
+    outs = [pred8.run(f) for f in feeds]
+    torch.cuda.synchronize()
+    launches = {"int8_gemm": int8_matmul.launches, "dw_conv": depthwise.launches,
+                "dw_conv_s1": depthwise.launches_by_stride[1],
+                "dw_conv_s2": depthwise.launches_by_stride[2], "nms": nms.launches}
+    print(f"  launches over {REQUESTS} requests: {launches}")
+    n_s1 = sum(1 for shp, _ in dw if shp[5] == 1)
+    want = {"int8_gemm": 17, "dw_conv": 13, "dw_conv_s1": n_s1,
+            "dw_conv_s2": 13 - n_s1, "nms": 1}
+    if launches != {key: v * REQUESTS for key, v in want.items()}:
+        fail(f"expected {want} launches a request, got {launches} over "
+             f"{REQUESTS} requests")
+    for i, o in enumerate(outs):
+        y = o[out_name]
+        lab = y[..., 0]
+        if (tuple(y.shape) != (SSD_BATCH, 100, 6) or not bool(torch.isfinite(y).all())
+                or not bool(((lab == -1) | ((lab >= 1) & (lab < SSD_CLASSES))).all())):
+            fail(f"request {i}: output {tuple(y.shape)} is not finite "
+                 f"(b, 100, 6) rows with labels in -1 or 1..{SSD_CLASSES - 1}")
+    n_det = int((outs[0][out_name][..., 0] >= 0).sum())
+    if not torch.equal(outs[0][out_name], env[out_name]):
+        fail("the predictor's request and the captured run of the same input differ")
+
+    # (c) kernel ops against torch ops on identical inputs; NMS against its
+    # own impl with the plain version
+    local = op_local_diffs(g8, pred8._weights, feeds[0], DEV)  # skips NMS
+    n_ops_diff = sum(1 for d in local if d["n_diff"])
+    worst_frac = max(d["n_diff"] / d["numel"] for d in local)
+    worst_lsb = max(d["max_diff"] for d in local)
+    print(f"  cuda vs torch op by op (all but multiclass_nms): {len(local)} outputs, "
+          f"{n_ops_diff} with any difference, worst fraction {worst_frac:.3g}, worst "
+          f"{worst_lsb} (bound: {TIE_FRACTION} of elements, {TIE_LSB} LSB)")
+    if len(local) != 30 or not within_tie_bound(local):
+        fail(f"a kernel disagrees with its torch op beyond the tie bound: "
+             f"{[d for d in local if d['n_diff']]}")
+    got = ops_cuda.multiclass_nms(boxes, scores, attrs)
+    ref = ops_cuda.multiclass_nms(boxes, scores, attrs, keep=nms.nms_keep_scores_plain)
+    nms_equal = torch.equal(got, ref) and torch.equal(got, env[out_name])
+    print(f"  multiclass_nms, NMS kernel vs plain version on the same inputs: "
+          f"{'equal' if nms_equal else 'DIFFERENT'} ({n_det} detections in "
+          f"{SSD_BATCH} images)")
+    if not nms_equal:
+        fail("multiclass_nms with the kernel differs from it with the plain version")
+
+    # (d) information: int8 vs fp32 detections, the torch-path accumulators
+    det32 = pred32.run(feeds[0])[out_name]
+    agree = (_det_agreement(env[out_name], det32), _det_agreement(det32, env[out_name]))
+    print(f"  int8 vs fp32 detections (same label, IoU >= 0.5, same image): "
+          f"{agree[0]:.4f} of int8's found in fp32, {agree[1]:.4f} of fp32's in int8")
+    acc = _torch_conv_acc(g8, env, pred8._weights)
+    print(f"  int8 3x3 convs on the torch path ({acc['n_ops']}): largest |acc| "
+          f"{acc['max_abs_acc']:.6g}, largest sum |x·w| {acc['max_sum_abs']:.6g} "
+          f"(at {acc['op']}, K = {acc.get('k')}); exact below 2^24 = {2**24}: "
+          f"{acc['max_sum_abs'] < 2**24}")
+    del env, local
+
+    # (e) information: throughput and where a request's time goes
+    on_dev = {"image": torch.from_numpy(feeds[0]["image"]).to(DEV)}
+    ips8 = _ips(pred8, feeds[0], batch=SSD_BATCH)
+    ips8_d = _ips(pred8, on_dev, batch=SSD_BATCH)
+    ips32 = _ips(pred32, feeds[0], batch=SSD_BATCH)
+    ips32_d = _ips(pred32, on_dev, batch=SSD_BATCH)
+    print(f"  img/s at b{SSD_BATCH} (host clock, 10 requests; numpy input / input "
+          f"already on the card): int8 {ips8:.1f} / {ips8_d:.1f}, fp32 "
+          f"{ips32:.1f} / {ips32_d:.1f}")
+    prof = {}
+    for tag, pred in (("int8", pred8), ("fp32", pred32)):
+        prof[tag] = p = _device_breakdown(pred, on_dev, top=12)
+        print(f"  {tag} request under the profiler (input on the card): wall "
+              f"{p['wall_ms']:.3f} ms, device kernels {p['device_ms']:.3f} ms")
+        for r in p["top"]:
+            print(f"    {r['ms']:.4f} ms x{r['count']} {r['name']}")
+    return rows, launches, {
+        "int8_img_s": ips8, "fp32_img_s": ips32, "int8_img_s_input_on_card": ips8_d,
+        "fp32_img_s_input_on_card": ips32_d, "profile": prof,
+        "op_local_worst_fraction": worst_frac, "op_local_worst_lsb": worst_lsb,
+        "op_local_outputs_with_diff": n_ops_diff, "detections": n_det,
+        "int8_in_fp32_agreement": agree[0], "fp32_in_int8_agreement": agree[1],
+        "torch_conv_acc": acc}
+
+
+# ---- the kernels' line -----------------------------------------------------
+
+KERNELS = [  # name, source, TPU kernel it replaces, rows it covers
+    ("int8_gemm", "paddle_lite_tpu_torch/csrc/int8_gemm.cu",
+     "paddle_lite_tpu/ops/kernels/int8_matmul.py:122",
+     lambda r: r["kernel"] == "int8_gemm"),
+    ("dw_conv_s1", "paddle_lite_tpu_torch/csrc/dw_conv.cu",
+     "paddle_lite_tpu/ops/kernels/depthwise.py:293",
+     lambda r: r["kernel"] == "dw_conv" and r["shape"][5] == 1),
+    ("dw_conv_s2", "paddle_lite_tpu_torch/csrc/dw_conv.cu",
+     "paddle_lite_tpu/ops/kernels/depthwise.py:334",
+     lambda r: r["kernel"] == "dw_conv" and r["shape"][5] == 2),
+    ("nms", "paddle_lite_tpu_torch/csrc/nms.cu",
+     "paddle_lite_tpu/ops/kernels/nms.py:114",
+     lambda r: r["kernel"] == "nms"),
+]
+
+
+def _kernel_line(rows, launches_by_path):
+    """One entry per kernel: launches summed over the paths' runs; times
+    and bounds summed over one request of every path."""
     out = []
-    for name, (src, replaces) in meta.items():
-        mine = [r for r in rows if r["kernel"] == name]
+    for name, src, replaces, covers in KERNELS:
+        mine = [r for r in rows if covers(r)]
         timed = [r for r in mine if r.get("per_request")]
 
         def total(key):
             return sum(r[key] * r["per_request"] for r in timed)
 
         lib = [r["library_ms"] for r in timed]
+        by_path = {p: n.get(name, 0) for p, n in launches_by_path.items()}
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
@@ -500,12 +832,14 @@ def main() -> None:
     card, fma_per_s = phase_device()
     rows = phase_kernels(fma_per_s)
     launches, e2e = phase_main_path()
-    kernels = _kernel_line(rows, launches)
+    ssd_rows, ssd_launches, ssd = phase_ssd(fma_per_s)
+    kernels = _kernel_line(rows + ssd_rows, {"mobilenet_v1": launches,
+                                             "ssd": ssd_launches})
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump({"card": card, "rows": rows, "main_path": e2e,
-                       "kernels": kernels}, f, indent=1)
+            json.dump({"card": card, "rows": rows + ssd_rows, "main_path": e2e,
+                       "ssd": ssd, "kernels": kernels}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ unchanged one is reused.  Nothing here runs at import time: the CPU tests
 import every module on a machine without ``nvcc``.
 
 Flags: ``sm_90a`` (Hopper), and ``--fmad=false`` so that ``acc*scale`` and
-``+bias`` round separately, as in the reference epilogue.
+``+bias`` round separately, as in the reference epilogue (and NMS's
+``(area_j + area_i) - ix*iy`` likewise).
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-SOURCES = {"int8_gemm": "int8_gemm.cu", "dw_conv": "dw_conv.cu"}
+SOURCES = {"int8_gemm": "int8_gemm.cu", "dw_conv": "dw_conv.cu",
+           "nms": "nms.cu"}
 HEADERS = ("epilogue.cuh",)
 
 NVCC_FLAGS = [
@@ -110,6 +112,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn = lib.plt_dw_conv
         fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
                        ci, ci, cf, vp]
+    elif name == "nms":
+        lib.plt_nms_smem_bytes.argtypes = [ci]
+        lib.plt_nms_smem_bytes.restype = ctypes.c_longlong
+        fn = lib.plt_nms_keep
+        fn.argtypes = [vp, vp, vp, ci, ci, cf, cf, vp]
     else:
         raise KeyError(name)
     fn.restype = ctypes.c_int

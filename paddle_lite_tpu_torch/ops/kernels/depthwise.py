@@ -25,8 +25,10 @@ from ..common import f32, normalize_2d, normalize_paddings
 from . import _build
 from .int8_matmul import act_code, epilogue, inv_out_scale
 
-# launches of the CUDA kernel, counted by the wrapper (CPU calls not counted)
+# launches of the CUDA kernel, counted by the wrapper (CPU calls not
+# counted): in all, and by stride (the TPU had one kernel for each)
 launches = 0
+launches_by_stride = {1: 0, 2: 0}
 
 
 def out_size(h: int, k: int, stride: int) -> int:
@@ -98,6 +100,7 @@ def dw_conv_int8(
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "dw_conv")
     launches += 1
+    launches_by_stride[stride] += 1
     return out
 
 

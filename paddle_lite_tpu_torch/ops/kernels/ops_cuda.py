@@ -1,7 +1,10 @@
 """Op implementations registered under the ``"cuda"`` kernel tag.
 
 Port of ``paddle_lite_tpu/ops/kernels/ops_pallas.py``: thin wrappers that
-read quant metadata from the graph and call the hand-written kernels.  One
+read quant metadata from the graph and call the hand-written kernels; and
+of ``multiclass_nms_pallas`` (``ops/detection.py:399-513`` there), whose
+candidate selection and cross-class merge are plain torch around the NMS
+kernel.  One
 change: the reference's impls fall back to the XLA impl when dtypes or
 shapes do not fit (``ops_pallas.py:38-41``, ``:58-61``, ``:94-97``,
 ``:128-131``).  Here the kernel-pick pass (``ops/kernels/select.py``) has
@@ -14,14 +17,19 @@ to (N, K) — are made once per op on its first run (``ctx.const``).
 
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ...core.registry import OPS
 from ..common import normalize_2d
+from ..detection import exact_candidates, nms_attrs, nms_merge
 from ..nn import eff_scale
 from . import depthwise
 from .int8_matmul import int8_matmul
+from .nms import nms_keep_scores
 
 
 def _require(ok: bool, op, why: str) -> None:
@@ -106,3 +114,79 @@ def depthwise_cuda(ctx, op, ins):
         act=op.attrs.get("fuse_act"), act_attrs=op.attrs.get("act_attrs"),
         out_scale=op.attrs.get("out_scale"))
     return {"Output": [y]}
+
+
+# ---------------------------------------------------------------------------
+# multiclass_nms: candidate selection → NMS kernel → cross-class merge
+# ---------------------------------------------------------------------------
+
+def bucket_candidates(boxes: torch.Tensor, scores: torch.Tensor, topn: int,
+                      loc: int):
+    """The ``bucket<N>`` tier: the M priors in ``loc`` buckets of
+    ``bs = ceil(M / loc)`` neighbours (the tail padded with −1e30), and the
+    top ``topn`` of each bucket by successive first-maxes, each further max
+    with the taken entries masked to −inf.  (N, M, 4), (N, M, C) →
+    (N, C, topn·loc) scores and (N, C, topn·loc, 4) boxes, in bucket order.
+
+    The reference takes each max's box by a one-hot sum over the bucket;
+    ``argmax`` returns the same first maximal index, and while the boxes are
+    finite the gather gives the same values as that sum."""
+    n, m, c = scores.shape
+    bs = -(-m // loc)
+    pad = loc * bs - m
+    sc_b = F.pad(scores.transpose(1, 2), (0, pad), value=-1e30)
+    sc_b = sc_b.reshape(n, c, loc, bs)
+    bx_b = F.pad(boxes, (0, 0, 0, pad)).reshape(n, 1, loc, bs, 4)
+    bx_b = bx_b.expand(n, c, loc, bs, 4)
+    tops, cands = [], []
+    for r in range(topn):
+        idx = sc_b.argmax(dim=-1, keepdim=True)  # (N, C, loc, 1): first max
+        tops.append(sc_b.gather(-1, idx).squeeze(-1))
+        cands.append(bx_b.gather(3, idx[..., None].expand(n, c, loc, 1, 4))
+                     .squeeze(3))
+        if r + 1 < topn:
+            sc_b = sc_b.scatter(-1, idx, float("-inf"))
+    return torch.cat(tops, dim=-1), torch.cat(cands, dim=2)
+
+
+def select_candidates(boxes: torch.Tensor, scores: torch.Tensor, attrs: dict):
+    """The candidate tier of ``attrs["approx_top_k"]``: (N, M, 4) boxes and
+    (N, M, C) scores → (N, C, k) scores and (N, C, k, 4) boxes.  False:
+    each class's exact top ``min(nms_top_k, M)``; True: the reference's
+    ``approx_max_k`` (an exact top-k on the CPU, where the reference is
+    tested), so the same exact top-k here; ``"bucket<N>"`` with
+    ``bucket_candidates`` buckets, while M exceeds them:
+    :func:`bucket_candidates`."""
+    n, m, c = scores.shape
+    approx = attrs.get("approx_top_k", False)
+    bucket = isinstance(approx, str) and approx.startswith("bucket")
+    topn = int(approx[6:] or 1) if bucket else 1
+    loc = int(attrs.get("bucket_candidates", 512 // topn))
+    if bucket and topn >= 1 and m > loc:
+        return bucket_candidates(boxes, scores, topn, loc)
+    return exact_candidates(boxes, scores, min(nms_attrs(attrs)["nms_top_k"], m))
+
+
+def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, attrs: dict,
+                   keep: Callable = nms_keep_scores) -> torch.Tensor:
+    """(N, M, 4) boxes, (N, M, C) scores → (N, keep_top_k, 6) rows, the
+    ``multiclass_nms_pallas`` contract: :func:`select_candidates`, the
+    kept scores of every (image, class) instance, then the cross-class
+    merge.  ``keep`` computes the kept scores: the kernel, or
+    :func:`~.nms.nms_keep_scores_plain` to check it."""
+    a = nms_attrs(attrs)
+    top_s, cand = select_candidates(boxes.to(torch.float32),
+                                    scores.to(torch.float32), attrs)
+    n, c, k = top_s.shape
+    kept = keep(cand.reshape(n * c, k, 4).contiguous(),
+                top_s.reshape(n * c, k).contiguous(),
+                iou_t=a["iou_t"], score_t=a["score_t"])
+    return nms_merge(kept.reshape(n, c, k), cand, background=a["background"],
+                     keep_top_k=a["keep_top_k"])
+
+
+@OPS.kernel("multiclass_nms", "cuda")
+@OPS.kernel("multiclass_nms2", "cuda")
+def multiclass_nms_cuda(ctx, op, ins):
+    return {"Out": [multiclass_nms(ins["BBoxes"][0], ins["Scores"][0],
+                                   op.attrs)]}

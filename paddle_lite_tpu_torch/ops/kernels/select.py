@@ -1,4 +1,4 @@
-"""Kernel selection: which int8 ops run on the hand-written CUDA kernels.
+"""Kernel selection: which ops run on the hand-written CUDA kernels.
 
 Counterpart of ``paddle_lite_tpu/ops/kernels/autotune.choose_kernel``
 (``autotune.py:51-92``).  The reference picks by tables measured on a TPU
@@ -13,9 +13,10 @@ kernel takes is tagged ``"cuda"``:
   depthwise kernel;
 
 in both cases only when the fused activation is one the kernels' epilogue
-computes (none, relu, relu6).  Everything else keeps the default
-``"torch"`` impl.  A table measured on the H100 is later work
-(``ROADMAP.md``).
+computes (none, relu, relu6).  Every ``multiclass_nms*`` op, int8 graph or
+not, takes the NMS kernel (``autotune.py:60-65``: NMS runs in the fp32
+island either way).  Everything else keeps the default ``"torch"`` impl.
+A table measured on the H100 is later work (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -44,7 +45,9 @@ def gemm_eligible(graph, op) -> bool:
 
 
 def choose_kernel(graph, op) -> Optional[str]:
-    """'cuda' for an int8 op a kernel takes, else None (default impl)."""
+    """'cuda' for an op a kernel takes, else None (default impl)."""
+    if op.op_type.startswith("multiclass_nms"):
+        return "cuda"
     if not op.attrs.get("enable_int8") or op.attrs.get("fuse_act") not in ACTS:
         return None
     if op.op_type == "depthwise_conv2d":

@@ -1,9 +1,9 @@
 """Kernel-pick pass — port of ``paddle_lite_tpu/passes/kernel_pick.py``
 (analog of ``lite/core/mir/static_kernel_pick_pass.cc``).
 
-Stamps ``kernel="cuda"`` on every int8 op a hand-written kernel takes
-(``ops/kernels/select.py``); every other op keeps the default ``"torch"``
-impl.
+Stamps ``kernel="cuda"`` on every int8 op a hand-written kernel takes and
+on every ``multiclass_nms*`` op (``ops/kernels/select.py``); every other op
+keeps the default ``"torch"`` impl.
 """
 
 from __future__ import annotations

@@ -31,6 +31,11 @@ TIE_COUNT = 2
 TIE_LSB = 1
 # the model's softmax output, end to end
 SOFTMAX_ATOL = 1e-3
+# ops whose "torch" impl computes another function than their "cuda" impl,
+# as in the reference: multiclass_nms under "torch" maps the bucket
+# candidate tiers to an exact top-k and tests ``iou > t`` by division
+# (``detection.py:271,303,373-379`` there), so its outputs are not compared
+OTHER_FUNCTION = ("multiclass_nms", "multiclass_nms2")
 
 
 def retag(graph: Graph, src: str, dst: str) -> Graph:
@@ -54,15 +59,16 @@ def capture_all(graph: Graph, weights: Dict[str, torch.Tensor],
 def op_local_diffs(graph: Graph, weights: Dict[str, torch.Tensor],
                    feed: Dict[str, Any], device: torch.device,
                    kernel: str = "cuda") -> List[dict]:
-    """Run `graph`; then, for every op tagged `kernel`, run its ``"torch"``
-    impl on the very inputs it got and compare outputs.  Returns one record
-    per output: {"op", "var", "numel", "n_diff", "max_diff"}."""
+    """Run `graph`; then, for every op tagged `kernel` except those in
+    :data:`OTHER_FUNCTION`, run its ``"torch"`` impl on the very inputs it
+    got and compare outputs.  Returns one record per output: {"op",
+    "var", "numel", "n_diff", "max_diff"}."""
     env = capture_all(graph, weights, feed, device)
     env.update(weights)
     ctx = ExecutionContext(graph=graph, device=device)
     out = []
     for op in graph.topological_order():
-        if op.attrs.get("kernel") != kernel:
+        if op.attrs.get("kernel") != kernel or op.op_type in OTHER_FUNCTION:
             continue
         ins = {s: [env[n] for n in ns] for s, ns in op.inputs.items() if ns}
         ref = OPS.get(op.op_type).impls["torch"](ctx, op, ins)
