@@ -45,7 +45,26 @@ Phases:
    version, exactly.  int8 vs fp32 detections, the largest int8
    accumulator of the torch-path 3x3 convs, img/s and a profiled request
    are information.
-5. The last lines: the card (nvidia-smi), the kernels' JSON line, then
+5. MobileNetV1 b64/224 with ``QuantConfig(fuse_dw_pw=True)``: the fused
+   dw+pw kernel at the path's two shapes (timed, beside its bound, its plain
+   version and the unfused pair of kernels) and on ragged shapes (W past
+   the strip, C % 4 != 0, O > 128, fp32 out, the new activations), each
+   bit-exact against its plain version and the unfused pair.  Then phase
+   3's 3 requests: exactly 2 fused, 11 depthwise (7 at stride 1) and 12
+   GEMM launches a request; the softmax equal to phase 3's; every fused op
+   equal to the unfused kernels on its own inputs, the other kernel ops
+   within the tie bound of their torch ops.  img/s (also in turns with
+   phase 3's predictor) and a profiled request are information.
+6. MobileNetV3-Large b64/224 INT8 (``with_softmax=False``): no int8 op
+   that a kernel takes is left on the torch path; the GEMM and depthwise
+   kernels at every shape and activation of the path (relu, hard_swish,
+   hard_sigmoid, none) bit-exact against their plain versions; 3 requests
+   with as many launches as the graph has "cuda" ops of each kind; every
+   kernel op within the tie bound of its torch op; int8 logits against
+   the fp32 predictor's, cosine > 0.96 (the bar of
+   ``tests/test_model_zoo_int8.py:38``).  img/s and a profiled request
+   are information.
+7. The last lines: the card (nvidia-smi), the kernels' JSON line, then
    ``{"ok": true, "device": {...}}``.
 
 With ``--json PATH`` the per-shape numbers are also written to PATH.
@@ -188,7 +207,8 @@ def _cmp(a: torch.Tensor, b: torch.Tensor):
     return int((d > 0).sum()), float(d.max()) if d.numel() else 0.0
 
 
-def check_gemm(rng, m, k, n, int8_out: bool, timed: bool):
+def check_gemm(rng, m, k, n, int8_out: bool, timed: bool, act: str = "relu",
+               act_attrs: dict = None):
     from paddle_lite_tpu_torch.ops.kernels import int8_matmul as km
 
     x = _cuda_rand_int8(rng, (m, k))
@@ -201,13 +221,13 @@ def check_gemm(rng, m, k, n, int8_out: bool, timed: bool):
     acc_k = km.int8_matmul(x, w, ones, w_nk=w_nk)
     acc_p = km.int8_matmul_plain(x, w, ones)
     bad_acc, _ = _cmp(acc_k, acc_p)
-    y = km.int8_matmul_plain(x, w, eff, bias, act="relu")
+    y = km.int8_matmul_plain(x, w, eff, bias, act=act, act_attrs=act_attrs)
     out_scale = float(y.abs().max()) / 127 * 0.75 if int8_out else None
-    kw = dict(act="relu", out_scale=out_scale)
+    kw = dict(act=act, act_attrs=act_attrs, out_scale=out_scale)
     got = km.int8_matmul(x, w, eff, bias, w_nk=w_nk, **kw)
     ref = km.int8_matmul_plain(x, w, eff, bias, **kw)
     bad, err = _cmp(got, ref)
-    row = {"kernel": "int8_gemm", "shape": [m, k, n],
+    row = {"kernel": "int8_gemm", "shape": [m, k, n], "act": act,
            "out": "int8" if int8_out else "fp32",
            "acc_mismatch": bad_acc, "out_mismatch": bad, "max_abs_err": err}
     if timed:
@@ -222,7 +242,7 @@ def check_gemm(rng, m, k, n, int8_out: bool, timed: bool):
 
 
 def check_dw(rng, shape, int8_out: bool, timed: bool, fma_per_s: float,
-             entry: str = "dw_conv_int8"):
+             entry: str = "dw_conv_int8", act: str = "relu", act_attrs: dict = None):
     import torch.nn.functional as F
 
     from paddle_lite_tpu_torch.ops.kernels import depthwise as kd
@@ -242,13 +262,13 @@ def check_dw(rng, shape, int8_out: bool, timed: bool, fma_per_s: float,
     acc_k = kern(x, w, ones)
     acc_p = kd.dw_conv_int8_plain(x, w, ones, stride=s)
     bad_acc, _ = _cmp(acc_k, acc_p)
-    y = kd.dw_conv_int8_plain(x, w, eff, bias, stride=s, act="relu")
+    y = kd.dw_conv_int8_plain(x, w, eff, bias, stride=s, act=act, act_attrs=act_attrs)
     out_scale = float(y.abs().max()) / 127 * 0.75 if int8_out else None
-    kw = dict(act="relu", out_scale=out_scale)
+    kw = dict(act=act, act_attrs=act_attrs, out_scale=out_scale)
     got = kern(x, w, eff, bias, **kw)
     ref = kd.dw_conv_int8_plain(x, w, eff, bias, stride=s, **kw)
     bad, err = _cmp(got, ref)
-    row = {"kernel": "dw_conv", "entry": entry, "shape": list(shape),
+    row = {"kernel": "dw_conv", "entry": entry, "shape": list(shape), "act": act,
            "out": "int8" if int8_out else "fp32",
            "acc_mismatch": bad_acc, "out_mismatch": bad, "max_abs_err": err}
     if timed:
@@ -311,7 +331,10 @@ def _report_rows(rows):
             f" ms {r['ms']:.4f} eager {r['eager_ms']:.4f} plain {r['plain_ms']:.4f} "
             f"lib {lib if lib is None else round(lib, 4)} "
             f"bound {r['bound_ms']:.4f} ({r['bound_by']}) x{r.get('per_request', 0)}")
-        print(f"  {r['kernel']:9s} {str(r['shape']):28s} {r['out']:4s} "
+        if r.get("unfused_ms") is not None:
+            t += f" unfused pair {r['unfused_ms']:.4f}"
+        act = r.get("act") or "-"
+        print(f"  {r['kernel']:9s} {str(r['shape']):28s} {r['out']:4s} {act:12s} "
               f"acc_mismatch {r['acc_mismatch']} out_mismatch {r['out_mismatch']}{t}")
     for s in (1, 2):  # the depthwise kernel's time per request, by stride
         mine = [r for r in rows if r["kernel"] == "dw_conv"
@@ -320,7 +343,8 @@ def _report_rows(rows):
                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
         print(f"  dw_conv stride {s}: {sum(r['per_request'] for r in mine)} "
               f"launches a request, " + ", ".join(f"{k} {v:.4f}" for k, v in sums.items()))
-    bad = [r for r in rows if r["acc_mismatch"] or r["out_mismatch"]]
+    bad = [r for r in rows
+           if r["acc_mismatch"] or r["out_mismatch"] or r.get("pair_mismatch")]
     if bad:
         fail(f"{len(bad)} kernel checks disagree with the plain version: {bad}")
 
@@ -354,10 +378,11 @@ def _device_breakdown(pred, feed, top: int = 8) -> dict:
         pred.run(feed)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = []
+    rows, host = [], []
     for e in prof.key_averages():
         # device-side events only: a CPU op also reports its kernels' time
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            host.append((e.self_cpu_time_total / 1e3, e.count, e.key))
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -365,16 +390,64 @@ def _device_breakdown(pred, feed, top: int = 8) -> dict:
         if us > 0:
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
+    host.sort(reverse=True)
     return {"wall_ms": wall_ms, "device_ms": sum(r[0] for r in rows),
             "top": [{"ms": r[0], "count": r[1], "name": r[2][:80]}
-                    for r in rows[:top]]}
+                    for r in rows[:top]],
+            "host_self_ms": sum(r[0] for r in host),
+            "host_top": [{"ms": r[0], "count": r[1], "name": r[2][:80]}
+                         for r in host[:top]]}
+
+
+def _reset_counts():
+    from paddle_lite_tpu_torch.ops.kernels import depthwise, dw_pw_fused, int8_matmul, nms
+
+    int8_matmul.launches = depthwise.launches = dw_pw_fused.launches = nms.launches = 0
+    depthwise.launches_by_stride = {1: 0, 2: 0}
+
+
+def _counts() -> dict:
+    from paddle_lite_tpu_torch.ops.kernels import depthwise, dw_pw_fused, int8_matmul, nms
+
+    return {"int8_gemm": int8_matmul.launches, "dw_conv": depthwise.launches,
+            "dw_conv_s1": depthwise.launches_by_stride[1],
+            "dw_conv_s2": depthwise.launches_by_stride[2],
+            "dw_pw_fused": dw_pw_fused.launches, "nms": nms.launches}
+
+
+def _serving_numbers(pred8, pred32, feed, batch: int, top: int = 8) -> dict:
+    """img/s (host clock, 10 requests; numpy input and input on the card)
+    and one profiled request of each predictor (information)."""
+    on_dev = {k: torch.from_numpy(v).to(DEV) for k, v in feed.items()}
+    out = {}
+    for tag, pred in (("int8", pred8), ("fp32", pred32)):
+        if pred is None:
+            continue
+        out[f"{tag}_img_s"] = _ips(pred, feed, batch=batch)
+        out[f"{tag}_img_s_input_on_card"] = _ips(pred, on_dev, batch=batch)
+    print("  img/s at b%d (host clock, 10 requests; numpy input / input already "
+          "on the card): %s" % (batch, ", ".join(
+              f"{t} {out[f'{t}_img_s']:.1f} / {out[f'{t}_img_s_input_on_card']:.1f}"
+              for t in ("int8", "fp32") if f"{t}_img_s" in out)))
+    out["profile"] = {}
+    for tag, pred in (("int8", pred8), ("fp32", pred32)):
+        if pred is None:
+            continue
+        out["profile"][tag] = p = _device_breakdown(pred, on_dev, top=top)
+        print(f"  {tag} request under the profiler (input on the card): wall "
+              f"{p['wall_ms']:.3f} ms, device kernels {p['device_ms']:.3f} ms, "
+              f"host ops' self time {p['host_self_ms']:.3f} ms")
+        for r in p["top"]:
+            print(f"    {r['ms']:.4f} ms x{r['count']} {r['name']}")
+        for r in p["host_top"][:5]:
+            print(f"    host {r['ms']:.4f} ms x{r['count']} {r['name']}")
+    return out
 
 
 def phase_main_path():
     from paddle_lite_tpu_torch import QuantConfig
     from paddle_lite_tpu_torch.core.executor import build_callable
     from paddle_lite_tpu_torch.models import mobilenet_v1
-    from paddle_lite_tpu_torch.ops.kernels import depthwise, int8_matmul
     from paddle_lite_tpu_torch.runtime.predictor import create_predictor
     from paddle_lite_tpu_torch.testing import (SOFTMAX_ATOL, TIE_FRACTION,
                                                TIE_LSB, capture_all,
@@ -397,16 +470,13 @@ def phase_main_path():
     tags = [op.attrs.get("kernel") for op in g8.ops]
     print(f"  ops {len(g8.ops)}, kernel='cuda' on {tags.count('cuda')}")
 
-    int8_matmul.launches = 0
-    depthwise.launches = 0
-    depthwise.launches_by_stride = {1: 0, 2: 0}
+    _reset_counts()
     outs = [pred8.run(f) for f in feeds]
     torch.cuda.synchronize()
-    launches = {"int8_gemm": int8_matmul.launches, "dw_conv": depthwise.launches}
+    launches = _counts()
     print(f"  launches over {REQUESTS} requests: {launches}")
-    launches.update(dw_conv_s1=depthwise.launches_by_stride[1],
-                    dw_conv_s2=depthwise.launches_by_stride[2])
-    if (launches["int8_gemm"], launches["dw_conv"]) != (14 * REQUESTS, 13 * REQUESTS):
+    if ((launches["int8_gemm"], launches["dw_conv"]) != (14 * REQUESTS, 13 * REQUESTS)
+            or launches["dw_pw_fused"] or launches["nms"]):
         fail(f"expected 14 GEMM and 13 depthwise launches a request, "
              f"got {launches} over {REQUESTS} requests")
 
@@ -455,27 +525,14 @@ def phase_main_path():
         fail(f"softmax differs by {sm_err} between cuda and torch tags")
     del env_k, env_t
 
-    ips8, ips32 = _ips(pred8, feeds[0]), _ips(pred32, feeds[0])
-    on_dev = {"image": torch.from_numpy(feeds[0]["image"]).to(DEV)}
-    ips8_d, ips32_d = _ips(pred8, on_dev), _ips(pred32, on_dev)
-    print(f"  img/s at b{BATCH} (host clock, 10 requests; numpy input / input "
-          f"already on the card): int8 {ips8:.1f} / {ips8_d:.1f}, fp32 "
-          f"{ips32:.1f} / {ips32_d:.1f}")
-    prof = {}
-    for tag, pred in (("int8", pred8), ("fp32", pred32)):
-        prof[tag] = p = _device_breakdown(pred, on_dev)
-        print(f"  {tag} request under the profiler (input on the card): wall "
-              f"{p['wall_ms']:.3f} ms, device kernels {p['device_ms']:.3f} ms")
-        for r in p["top"]:
-            print(f"    {r['ms']:.4f} ms x{r['count']} {r['name']}")
-    return launches, {"int8_img_s": ips8, "fp32_img_s": ips32,
-                      "int8_img_s_input_on_card": ips8_d,
-                      "fp32_img_s_input_on_card": ips32_d, "profile": prof,
-                      "op_local_worst_fraction": worst_frac,
-                      "op_local_worst_lsb": worst_lsb,
-                      "op_local_outputs_with_diff": n_ops_diff,
-                      "e2e_worst_int8_fraction": e2e_frac,
-                      "softmax_max_abs_diff": sm_err, "top1_agreement": top1}
+    serving = _serving_numbers(pred8, pred32, feeds[0], BATCH)
+    unfused = {"calib": calib, "feeds": feeds, "out_name": out_name,
+               "outs": [o[out_name] for o in outs], "pred": pred8}
+    return launches, dict(serving, op_local_worst_fraction=worst_frac,
+                          op_local_worst_lsb=worst_lsb,
+                          op_local_outputs_with_diff=n_ops_diff,
+                          e2e_worst_int8_fraction=e2e_frac,
+                          softmax_max_abs_diff=sm_err, top1_agreement=top1), unfused
 
 
 # ---- phase 4 ---------------------------------------------------------------
@@ -484,21 +541,52 @@ NMS_OPS_PER_PAIR = 13  # csrc/nms.cu: 2 min, 4 max, 3 sub, 2 mul, 1 add, 1 compa
 
 
 def kernel_shapes(g):
-    """(M, K, N, int8 out) of every GEMM op and ((N, H, W, C, k, s), int8
-    out) of every depthwise op that the optimized graph `g` tags "cuda"."""
+    """(M, K, N, int8 out, act, act attrs) of every GEMM op and
+    ((N, H, W, C, k, s), int8 out, act, act attrs) of every depthwise op
+    that the optimized graph `g` tags "cuda"."""
     gemm, dw = [], []
     for op in g.topological_order():
         if op.attrs.get("kernel") != "cuda":
             continue
-        int8_out = op.attrs.get("out_scale") is not None
+        a = op.attrs
+        tail = (a.get("out_scale") is not None, a.get("fuse_act"), a.get("act_attrs") or {})
         if op.op_type in ("conv2d", "depthwise_conv2d"):
             n, h, w, c = g.vars[op.input("Input")].shape
             kh, _, _, oc = g.vars[op.input("Filter")].shape
             if op.op_type == "conv2d":
-                gemm.append((n * h * w, c, oc, int8_out))
+                gemm.append((n * h * w, c, oc) + tail)
             else:
-                dw.append(((n, h, w, c, kh, int(op.attrs["strides"][0])), int8_out))
+                dw.append(((n, h, w, c, kh, int(a["strides"][0])),) + tail)
+        elif op.op_type == "fc":
+            x = g.vars[op.input("Input")].shape
+            ncd = int(a.get("in_num_col_dims", len(x) - 1))
+            k, n = g.vars[op.input("W")].shape
+            gemm.append((int(np.prod(x[:ncd])), k, n) + tail)
     return gemm, dw
+
+
+def path_kernel_rows(rng, g, path: str, fma_per_s: float):
+    """The GEMM and depthwise kernels at every shape, output type and
+    activation the graph `g` gives them, each checked and timed once and
+    counted per request."""
+    gemm, dw = kernel_shapes(g)
+    rows, seen = [], {}
+    for m, k, n, int8_out, act, attrs in gemm:
+        key = ("gemm", m, k, n, int8_out, act, tuple(sorted(attrs.items())))
+        if key not in seen:
+            seen[key] = check_gemm(rng, m, k, n, int8_out, True, act, attrs)
+            seen[key].update(per_request=0, path=path)
+            rows.append(seen[key])
+        seen[key]["per_request"] += 1
+    for shp, int8_out, act, attrs in dw:
+        key = ("dw",) + shp + (int8_out, act, tuple(sorted(attrs.items())))
+        if key not in seen:
+            seen[key] = check_dw(rng, shp, int8_out, True, fma_per_s, act=act,
+                                 act_attrs=attrs)
+            seen[key].update(per_request=0, path=path)
+            rows.append(seen[key])
+        seen[key]["per_request"] += 1
+    return rows, gemm, dw
 
 
 def check_nms(case, boxes, scores, iou_t, score_t, fp32_ops_per_s, timed):
@@ -614,7 +702,7 @@ def phase_ssd(fma_per_s: float):
     from paddle_lite_tpu_torch import QuantConfig
     from paddle_lite_tpu_torch.models import ssd
     from paddle_lite_tpu_torch.ops.detection import exact_candidates
-    from paddle_lite_tpu_torch.ops.kernels import depthwise, int8_matmul, nms, ops_cuda
+    from paddle_lite_tpu_torch.ops.kernels import nms, ops_cuda
     from paddle_lite_tpu_torch.runtime.predictor import create_predictor
     from paddle_lite_tpu_torch.testing import (TIE_FRACTION, TIE_LSB, capture_all,
                                                op_local_diffs, within_tie_bound)
@@ -643,22 +731,7 @@ def phase_ssd(fma_per_s: float):
     iou_t, score_t = float(attrs["nms_threshold"]), float(attrs["score_threshold"])
 
     # (a) the kernels at this path's shapes, against their plain versions
-    gemm, dw = kernel_shapes(g8)
-    rows, seen = [], {}
-    for m, k, n, int8_out in gemm:
-        key = ("gemm", m, k, n, int8_out)
-        if key not in seen:
-            seen[key] = check_gemm(rng, m, k, n, int8_out, timed=True)
-            seen[key].update(per_request=0, path="ssd")
-            rows.append(seen[key])
-        seen[key]["per_request"] += 1
-    for shp, int8_out in dw:
-        key = ("dw",) + shp + (int8_out,)
-        if key not in seen:
-            seen[key] = check_dw(rng, shp, int8_out, True, fma_per_s)
-            seen[key].update(per_request=0, path="ssd")
-            rows.append(seen[key])
-        seen[key]["per_request"] += 1
+    rows, _, dw = path_kernel_rows(rng, g8, "ssd", fma_per_s)
     env = capture_all(g8, pred8._weights, feeds[0], DEV)
     boxes, scores = env[box_name], env[score_name]
     top_s, cand = ops_cuda.select_candidates(boxes, scores, attrs)
@@ -686,19 +759,14 @@ def phase_ssd(fma_per_s: float):
                   f"{r['valid']} valid, out_mismatch {r['out_mismatch']}")
 
     # (b) the path: 3 requests through the predictor
-    int8_matmul.launches = 0
-    depthwise.launches = 0
-    depthwise.launches_by_stride = {1: 0, 2: 0}
-    nms.launches = 0
+    _reset_counts()
     outs = [pred8.run(f) for f in feeds]
     torch.cuda.synchronize()
-    launches = {"int8_gemm": int8_matmul.launches, "dw_conv": depthwise.launches,
-                "dw_conv_s1": depthwise.launches_by_stride[1],
-                "dw_conv_s2": depthwise.launches_by_stride[2], "nms": nms.launches}
+    launches = _counts()
     print(f"  launches over {REQUESTS} requests: {launches}")
-    n_s1 = sum(1 for shp, _ in dw if shp[5] == 1)
+    n_s1 = sum(1 for d in dw if d[0][5] == 1)
     want = {"int8_gemm": 17, "dw_conv": 13, "dw_conv_s1": n_s1,
-            "dw_conv_s2": 13 - n_s1, "nms": 1}
+            "dw_conv_s2": 13 - n_s1, "dw_pw_fused": 0, "nms": 1}
     if launches != {key: v * REQUESTS for key, v in want.items()}:
         fail(f"expected {want} launches a request, got {launches} over "
              f"{REQUESTS} requests")
@@ -747,28 +815,242 @@ def phase_ssd(fma_per_s: float):
     del env, local
 
     # (e) information: throughput and where a request's time goes
-    on_dev = {"image": torch.from_numpy(feeds[0]["image"]).to(DEV)}
-    ips8 = _ips(pred8, feeds[0], batch=SSD_BATCH)
-    ips8_d = _ips(pred8, on_dev, batch=SSD_BATCH)
-    ips32 = _ips(pred32, feeds[0], batch=SSD_BATCH)
-    ips32_d = _ips(pred32, on_dev, batch=SSD_BATCH)
-    print(f"  img/s at b{SSD_BATCH} (host clock, 10 requests; numpy input / input "
-          f"already on the card): int8 {ips8:.1f} / {ips8_d:.1f}, fp32 "
-          f"{ips32:.1f} / {ips32_d:.1f}")
-    prof = {}
-    for tag, pred in (("int8", pred8), ("fp32", pred32)):
-        prof[tag] = p = _device_breakdown(pred, on_dev, top=12)
-        print(f"  {tag} request under the profiler (input on the card): wall "
-              f"{p['wall_ms']:.3f} ms, device kernels {p['device_ms']:.3f} ms")
-        for r in p["top"]:
-            print(f"    {r['ms']:.4f} ms x{r['count']} {r['name']}")
+    serving = _serving_numbers(pred8, pred32, feeds[0], SSD_BATCH, top=12)
     return rows, launches, {
-        "int8_img_s": ips8, "fp32_img_s": ips32, "int8_img_s_input_on_card": ips8_d,
-        "fp32_img_s_input_on_card": ips32_d, "profile": prof,
+        **serving,
         "op_local_worst_fraction": worst_frac, "op_local_worst_lsb": worst_lsb,
         "op_local_outputs_with_diff": n_ops_diff, "detections": n_det,
         "int8_in_fp32_agreement": agree[0], "fp32_in_int8_agreement": agree[1],
         "torch_conv_acc": acc}
+
+
+# ---- phase 5 ---------------------------------------------------------------
+
+def check_fused(rng, shape, int8_out: bool, timed: bool, fma_per_s: float,
+                dw_act: str = "relu", pw_act: str = "relu"):
+    """The fused dw+pw kernel at (N, H, W, C, O) against its plain version
+    and against the unfused pair of kernels (depthwise, then GEMM) on the
+    same inputs: both must agree exactly."""
+    from paddle_lite_tpu_torch.ops.kernels import depthwise as kd
+    from paddle_lite_tpu_torch.ops.kernels import dw_pw_fused as kf
+    from paddle_lite_tpu_torch.ops.kernels import int8_matmul as km
+
+    n, h, w, c, o = shape
+    x = _cuda_rand_int8(rng, (n, h, w, c))
+    dw = _cuda_rand_int8(rng, (3, 3, 1, c))
+    pw = _cuda_rand_int8(rng, (c, o))
+    pw_nk = pw.t().contiguous()
+    dw_eff = torch.from_numpy(rng.uniform(1e-3, 2e-3, c).astype(np.float32)).to(DEV)
+    dw_b = torch.from_numpy(rng.normal(0, 0.5, c).astype(np.float32)).to(DEV)
+    pw_eff = torch.from_numpy(rng.uniform(1e-3, 2e-3, o).astype(np.float32)).to(DEV)
+    pw_b = torch.from_numpy(rng.normal(0, 0.5, o).astype(np.float32)).to(DEV)
+    d = kd.dw_conv_int8_plain(x, dw, dw_eff, dw_b, act=dw_act)
+    dw_s = float(d.abs().max()) / 127 * 0.75
+    y = kf.fused_dw_pw_int8_plain(x, dw, dw_eff, dw_b, dw_s, pw, pw_eff, pw_b,
+                                  dw_act=dw_act, pw_act=pw_act)
+    kw = dict(dw_act=dw_act, pw_act=pw_act,
+              pw_out_scale=float(y.abs().max()) / 127 * 0.75 if int8_out else None)
+    args = (x, dw, dw_eff, dw_b, dw_s, pw, pw_eff, pw_b)
+
+    def pair():
+        q = kd.dw_conv_int8(x, dw, dw_eff, dw_b, act=dw_act, out_scale=dw_s)
+        return km.int8_matmul(q.reshape(n * h * w, c), pw, pw_eff, pw_b, act=pw_act,
+                              out_scale=kw["pw_out_scale"], w_nk=pw_nk)
+
+    got = kf.fused_dw_pw_int8(*args, pw_w_nk=pw_nk, **kw)
+    bad, err = _cmp(got, kf.fused_dw_pw_int8_plain(*args, **kw))
+    bad_pair, _ = _cmp(got, pair().reshape(got.shape))
+    row = {"kernel": "dw_pw_fused", "shape": list(shape), "act": f"{dw_act}/{pw_act}",
+           "out": "int8" if int8_out else "fp32", "tiling": list(kf.tiling(h, w, c)),
+           "acc_mismatch": 0, "out_mismatch": bad, "pair_mismatch": bad_pair,
+           "max_abs_err": err}
+    if timed:
+        row["ms"] = time_ms(lambda: kf.fused_dw_pw_int8(*args, pw_w_nk=pw_nk, **kw))
+        row["eager_ms"] = eager_ms(lambda: kf.fused_dw_pw_int8(*args, pw_w_nk=pw_nk, **kw))
+        row["plain_ms"] = time_ms(lambda: kf.fused_dw_pw_int8_plain(*args, **kw))
+        row["unfused_ms"] = time_ms(pair)
+        row["library_ms"] = None  # no one PyTorch call computes this block
+        nbytes = (n * h * w * c + 9 * c + c * o + 8 * c + 8 * o
+                  + n * h * w * o * (1 if int8_out else 4))
+        ops_s = max(9 * n * h * w * c / fma_per_s, 2 * n * h * w * c * o / INT8_TC_OPS_PER_S)
+        row.update(bound(nbytes, ops_s))
+    return row
+
+
+def fused_shapes(g):
+    """(N, H, W, C, O) of every "cuda" fused_dw_pw op of `g`."""
+    out = []
+    for op in g.topological_order():
+        if op.op_type == "fused_dw_pw" and op.attrs.get("kernel") == "cuda":
+            out.append(tuple(g.vars[op.input("Input")].shape)
+                       + (g.vars[op.input("PwFilter")].shape[3],))
+    return out
+
+
+def phase_fused(fma_per_s: float, unfused: dict):
+    """MobileNetV1 b64/224 with QuantConfig(fuse_dw_pw=True): the fused
+    kernel at the path's shapes and ragged ones, then 3 requests."""
+    from paddle_lite_tpu_torch import QuantConfig
+    from paddle_lite_tpu_torch.models import mobilenet_v1
+    from paddle_lite_tpu_torch.runtime.predictor import create_predictor
+    from paddle_lite_tpu_torch.testing import (TIE_FRACTION, TIE_LSB,
+                                               fused_local_diffs, op_local_diffs,
+                                               within_tie_bound)
+
+    rng = np.random.default_rng(5)
+    t0 = time.perf_counter()
+    g = mobilenet_v1.build(batch=BATCH, image_size=SIZE, seed=0)
+    pred = create_predictor(g, quant=QuantConfig(fuse_dw_pw=True),
+                            calib_batches=unfused["calib"], device=DEV)
+    print(f"phase 5: MobileNetV1 b{BATCH}/{SIZE} with fuse_dw_pw: build + optimize + "
+          f"calibrate {time.perf_counter() - t0:.1f} s")
+    shapes = fused_shapes(g)
+    print(f"  ops {len(g.ops)}, fused_dw_pw (cuda) at {shapes}")
+    if len(shapes) != 2:
+        fail(f"expected 2 fused_dw_pw ops, got {shapes}")
+
+    # (a) the kernel against its plain version and the unfused pair
+    rows = []
+    for shp in shapes:
+        rows.append(check_fused(rng, shp, True, True, fma_per_s))
+        rows[-1].update(per_request=1, path="mobilenet_v1_fused")
+    for shp, int8_out, acts in (((4, 9, 150, 16, 32), True, ("relu", "relu")),  # W past the strip
+                                ((4, 7, 13, 30, 20), False, ("relu", "relu6")),  # C % 4 != 0
+                                ((2, 8, 8, 32, 160), True, ("relu", "relu")),    # O > 128
+                                ((4, 14, 14, 64, 96), False, ("hard_swish", "relu")),
+                                ((4, 14, 14, 64, 96), True, ("relu", "hard_swish")),
+                                ((2, 11, 11, 128, 128), True, ("leaky_relu", "hard_sigmoid"))):
+        rows.append(check_fused(rng, shp, int8_out, False, fma_per_s, *acts))
+    print("  the fused kernel vs its plain version and the unfused pair "
+          "(ms as in phase 2; unfused pair: the depthwise then the GEMM kernel)")
+    _report_rows(rows)
+
+    # (b) 3 requests through the predictor
+    _reset_counts()
+    outs = [pred.run(f) for f in unfused["feeds"]]
+    torch.cuda.synchronize()
+    launches = _counts()
+    print(f"  launches over {REQUESTS} requests: {launches}")
+    want = {"int8_gemm": 12, "dw_conv": 11, "dw_conv_s1": 7, "dw_conv_s2": 4,
+            "dw_pw_fused": 2, "nms": 0}
+    if launches != {k: v * REQUESTS for k, v in want.items()}:
+        fail(f"expected {want} launches a request, got {launches} over {REQUESTS}")
+    out_name = unfused["out_name"]
+    same = [torch.equal(o[out_name], u) for o, u in zip(outs, unfused["outs"])]
+    print(f"  softmax equal to phase 3's unfused int8 predictor: {same}")
+    if not all(same):
+        fail("the fused predictor's softmax differs from the unfused one's")
+
+    # (c) the fused ops against the unfused kernels, the others against torch
+    fused = fused_local_diffs(g, pred._weights, unfused["feeds"][0], DEV)
+    print(f"  fused ops vs the unfused pair and the plain version on their own "
+          f"inputs: {[(d['against'], d['n_diff']) for d in fused]}")
+    if len(fused) != 4 or any(d["n_diff"] for d in fused):
+        fail(f"a fused op differs from the unfused kernels: {fused}")
+    local = op_local_diffs(g, pred._weights, unfused["feeds"][0], DEV)
+    worst = max(d["n_diff"] / d["numel"] for d in local)
+    print(f"  other kernel ops vs torch op by op: {len(local)} outputs, worst "
+          f"fraction {worst:.3g} (bound {TIE_FRACTION}, {TIE_LSB} LSB)")
+    if len(local) != 23 or not within_tie_bound(local):
+        fail(f"a kernel disagrees with its torch op beyond the tie bound: {local}")
+    serving = _serving_numbers(pred, None, unfused["feeds"][0], BATCH)
+    # the two int8 predictors in turns (unfused, fused, fused, unfused),
+    # input on the card: the host clock moves between calls, so only this
+    # comparison says what the fusion does to a request
+    on_dev = {"image": torch.from_numpy(unfused["feeds"][0]["image"]).to(DEV)}
+    turns = {"unfused": [], "fused": []}
+    for tag in ("unfused", "fused", "fused", "unfused"):
+        turns[tag].append(_ips(pred if tag == "fused" else unfused["pred"], on_dev,
+                               batch=BATCH))
+    print(f"  img/s in turns, input on the card: {turns}")
+    return rows, launches, dict(serving, op_local_worst_fraction=worst,
+                                img_s_in_turns=turns)
+
+
+# ---- phase 6 ---------------------------------------------------------------
+
+def phase_mnv3(fma_per_s: float):
+    """MobileNetV3-Large b64/224 INT8 (QuantConfig() defaults, fp32 islands)."""
+    from paddle_lite_tpu_torch import QuantConfig
+    from paddle_lite_tpu_torch.models import mobilenet_v3
+    from paddle_lite_tpu_torch.ops.kernels import depthwise
+    from paddle_lite_tpu_torch.ops.kernels.int8_matmul import ACTS
+    from paddle_lite_tpu_torch.ops.kernels.select import gemm_eligible
+    from paddle_lite_tpu_torch.runtime.predictor import create_predictor
+    from paddle_lite_tpu_torch.testing import (TIE_FRACTION, TIE_LSB, op_local_diffs,
+                                               within_tie_bound)
+
+    rng = np.random.default_rng(6)
+    shape = (BATCH, SIZE, SIZE, 3)
+    calib = [{"image": rng.normal(size=shape).astype(np.float32)}]
+    feeds = [{"image": rng.normal(size=shape).astype(np.float32)} for _ in range(REQUESTS)]
+    kw = dict(batch=BATCH, image_size=SIZE, seed=0, with_softmax=False)
+    t0 = time.perf_counter()
+    g8 = mobilenet_v3.build(**kw)
+    pred8 = create_predictor(g8, quant=QuantConfig(), calib_batches=calib, device=DEV)
+    pred32 = create_predictor(mobilenet_v3.build(**kw), device=DEV)
+    print(f"phase 6: MobileNetV3-Large b{BATCH}/{SIZE} INT8: build + optimize + "
+          f"calibrate {time.perf_counter() - t0:.1f} s")
+
+    # (a) no int8 op that a kernel takes is left on the torch path
+    left = []
+    for op in g8.ops:
+        if not op.attrs.get("enable_int8") or op.attrs.get("kernel") == "cuda":
+            continue
+        if op.op_type == "depthwise_conv2d":
+            takes = depthwise.supported_general(
+                op.attrs, g8.vars[op.input("Input")].shape,
+                g8.vars[op.input("Filter")].shape)
+        else:
+            takes = gemm_eligible(g8, op)
+        if takes and op.attrs.get("fuse_act") in ACTS and not op.maybe_input("ResidualData"):
+            fail(f"{op.op_type} {op.outputs} is left on the torch path")
+        left.append(op.op_type + ("+residual" if op.maybe_input("ResidualData") else ""))
+    print(f"  ops {len(g8.ops)}; int8 ops on the torch path: {len(left)} {sorted(set(left))}")
+
+    # (b) the kernels at this path's shapes and activations
+    rows, gemm, dw = path_kernel_rows(rng, g8, "mobilenet_v3", fma_per_s)
+    n_s1 = sum(1 for d in dw if d[0][5] == 1)
+    print(f"  kernels at this path's shapes: {len(gemm)} GEMM ops "
+          f"({ {a: sum(1 for q in gemm if str(q[4]) == a) for a in sorted({str(q[4]) for q in gemm})} }"
+          f" by activation), {len(dw)} depthwise ({n_s1} at stride 1)")
+    _report_rows(rows)
+
+    # (c) 3 requests: launches equal the "cuda" ops of each kind
+    _reset_counts()
+    outs = [pred8.run(f) for f in feeds]
+    torch.cuda.synchronize()
+    launches = _counts()
+    print(f"  launches over {REQUESTS} requests: {launches}")
+    want = {"int8_gemm": len(gemm), "dw_conv": len(dw), "dw_conv_s1": n_s1,
+            "dw_conv_s2": len(dw) - n_s1, "dw_pw_fused": 0, "nms": 0}
+    if launches != {k: v * REQUESTS for k, v in want.items()}:
+        fail(f"expected {want} launches a request, got {launches} over {REQUESTS}")
+    out_name = g8.outputs[0]
+    coss = []
+    for i, (f, o) in enumerate(zip(feeds, outs)):
+        y = o[out_name]
+        if tuple(y.shape) != (BATCH, 1000) or not bool(torch.isfinite(y).all()):
+            fail(f"request {i}: logits {tuple(y.shape)} not finite (b, 1000)")
+        coss.append(_cosine(y, pred32.run(f)[out_name]))
+        print(f"  request {i}: int8 vs fp32 logits cosine {coss[-1]:.6f}")
+        if not coss[-1] > 0.96:
+            fail(f"request {i}: int8 vs fp32 cosine {coss[-1]} <= 0.96")
+
+    # (d) every kernel op against its torch op on identical inputs
+    local = op_local_diffs(g8, pred8._weights, feeds[0], DEV)
+    n_diff = sum(1 for d in local if d["n_diff"])
+    worst = max(d["n_diff"] / d["numel"] for d in local)
+    print(f"  cuda vs torch op by op: {len(local)} outputs, {n_diff} with any "
+          f"difference, worst fraction {worst:.3g}, worst "
+          f"{max(d['max_diff'] for d in local)} (bound {TIE_FRACTION}, {TIE_LSB} LSB)")
+    if len(local) != len(gemm) + len(dw) or not within_tie_bound(local):
+        fail(f"a kernel disagrees with its torch op beyond the tie bound: "
+             f"{[d for d in local if d['n_diff']]}")
+    serving = _serving_numbers(pred8, pred32, feeds[0], BATCH, top=12)
+    return rows, launches, dict(serving, cosine=coss, op_local_worst_fraction=worst,
+                                op_local_outputs_with_diff=n_diff,
+                                torch_path_int8_ops=len(left))
 
 
 # ---- the kernels' line -----------------------------------------------------
@@ -786,23 +1068,31 @@ KERNELS = [  # name, source, TPU kernel it replaces, rows it covers
     ("nms", "paddle_lite_tpu_torch/csrc/nms.cu",
      "paddle_lite_tpu/ops/kernels/nms.py:114",
      lambda r: r["kernel"] == "nms"),
+    ("dw_pw_fused", "paddle_lite_tpu_torch/csrc/dw_pw_fused.cu",
+     "paddle_lite_tpu/ops/kernels/dw_pw_fused.py:114",
+     lambda r: r["kernel"] == "dw_pw_fused"),
 ]
 
 
 def _kernel_line(rows, launches_by_path):
     """One entry per kernel: launches summed over the paths' runs; times
-    and bounds summed over one request of every path."""
+    and bounds summed over one request of every path that has its own
+    shape rows (phase 5's GEMM and depthwise shapes are phase 2's).
+    ``library_ms`` is null where some shape has no PyTorch call (the
+    GEMM's ``torch._int_mm`` needs K, N % 8 == 0); ``library_ms_where_
+    available`` and ``ms_where_available`` compare the shapes that do.
+    The fused kernel's ``unfused_ms`` is the unfused pair of kernels'."""
     out = []
     for name, src, replaces, covers in KERNELS:
         mine = [r for r in rows if covers(r)]
         timed = [r for r in mine if r.get("per_request")]
 
-        def total(key):
-            return sum(r[key] * r["per_request"] for r in timed)
+        def total(key, rs=timed):
+            return sum(r[key] * r["per_request"] for r in rs)
 
-        lib = [r["library_ms"] for r in timed]
+        with_lib = [r for r in timed if r["library_ms"] is not None]
         by_path = {p: n.get(name, 0) for p, n in launches_by_path.items()}
-        out.append({
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -810,8 +1100,14 @@ def _kernel_line(rows, launches_by_path):
             "bound_ms": total("bound_ms"),
             "bound_by": ("bytes" if total("bytes_ms") >= total("ops_ms")
                          else "operations"),
-            "library_ms": None if any(v is None for v in lib) else total("library_ms"),
-        })
+            "library_ms": total("library_ms") if len(with_lib) == len(timed) else None,
+        }
+        if with_lib and len(with_lib) < len(timed):
+            entry.update(library_ms_where_available=total("library_ms", with_lib),
+                         ms_where_available=total("ms", with_lib))
+        if name == "dw_pw_fused":
+            entry["unfused_ms"] = total("unfused_ms")
+        out.append(entry)
     return out
 
 
@@ -829,17 +1125,24 @@ def main() -> None:
            or m.startswith("paddle_lite_tpu.") for m in sys.modules):
         fail("jax or the JAX package was imported")
 
+    t0 = time.perf_counter()
     card, fma_per_s = phase_device()
     rows = phase_kernels(fma_per_s)
-    launches, e2e = phase_main_path()
+    launches, e2e, unfused = phase_main_path()
     ssd_rows, ssd_launches, ssd = phase_ssd(fma_per_s)
-    kernels = _kernel_line(rows + ssd_rows, {"mobilenet_v1": launches,
-                                             "ssd": ssd_launches})
+    fused_rows, fused_launches, fused = phase_fused(fma_per_s, unfused)
+    v3_rows, v3_launches, v3 = phase_mnv3(fma_per_s)
+    all_rows = rows + ssd_rows + fused_rows + v3_rows
+    kernels = _kernel_line(all_rows, {"mobilenet_v1": launches, "ssd": ssd_launches,
+                                      "mobilenet_v1_fused": fused_launches,
+                                      "mobilenet_v3": v3_launches})
+    print(f"all phases: {time.perf_counter() - t0:.1f} s")
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump({"card": card, "rows": rows + ssd_rows, "main_path": e2e,
-                       "ssd": ssd, "kernels": kernels}, f, indent=1)
+            json.dump({"card": card, "rows": all_rows, "main_path": e2e,
+                       "ssd": ssd, "mobilenet_v1_fused": fused,
+                       "mobilenet_v3": v3, "kernels": kernels}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

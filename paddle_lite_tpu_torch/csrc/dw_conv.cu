@@ -50,7 +50,8 @@ __global__ void __launch_bounds__(THREADS)
 dw_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                const float* __restrict__ scale, const float* __restrict__ bias,
                void* __restrict__ out, int N, int H, int W, int C, int OH,
-               int OW, int act, float inv_out_scale) {
+               int OW, plt::ActParams act,
+               float inv_out_scale) {
   constexpr int PAD = (KS - 1) / 2;
   constexpr int SPAN = (P - 1) * S + KS;
   const int C4 = (C + 3) / 4;
@@ -137,8 +138,8 @@ dw_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
 template <int KS, int S, bool VEC, bool OUT_I8, bool HAS_BIAS>
 void launch(const int8_t* x, const int8_t* w, const float* sc, const float* bi,
-            void* out, int N, int H, int W, int C, int OH, int OW, int act,
-            float inv, cudaStream_t stream) {
+            void* out, int N, int H, int W, int C, int OH, int OW,
+            plt::ActParams act, float inv, cudaStream_t stream) {
   const long long total =
       (long long)N * OH * ((OW + P - 1) / P) * ((C + 3) / 4);
   const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
@@ -149,7 +150,8 @@ void launch(const int8_t* x, const int8_t* w, const float* sc, const float* bi,
 template <int KS, int S>
 void dispatch(const int8_t* x, const int8_t* w, const float* sc,
               const float* bi, void* out, int N, int H, int W, int C, int OH,
-              int OW, int act, int out_i8, float inv, cudaStream_t s) {
+              int OW, plt::ActParams act, int out_i8, float inv,
+              cudaStream_t s) {
   const bool vec = (C % 4) == 0;
 #define PLT_DW(V, O, B) \
   launch<KS, S, V, O, B>(x, w, sc, bi, out, N, H, W, C, OH, OW, act, inv, s)
@@ -166,26 +168,29 @@ void dispatch(const int8_t* x, const int8_t* w, const float* sc,
 }  // namespace
 
 // C interface, bound with ctypes.  Device pointers; `bias` may be null.
+// `act` is a plt::Act code and p0..p2 its parameters (epilogue.cuh).
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
 // (1) for a kernel size or stride the kernel does not take.
 extern "C" int plt_dw_conv(const void* x, const void* w, const void* scale,
                            const void* bias, void* out, int N, int H, int W,
                            int C, int OH, int OW, int k, int stride, int act,
-                           int out_i8, float inv_out_scale, void* stream) {
+                           float p0, float p1, float p2, int out_i8,
+                           float inv_out_scale, void* stream) {
   const int8_t* xp = static_cast<const int8_t*>(x);
   const int8_t* wp = static_cast<const int8_t*>(w);
   const float* sc = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const plt::ActParams act_p{act, p0, p1, p2};
   if ((long long)N * OH * OW * C == 0) return static_cast<int>(cudaGetLastError());
   if (k == 3 && stride == 1)
-    dispatch<3, 1>(xp, wp, sc, bi, out, N, H, W, C, OH, OW, act, out_i8, inv_out_scale, s);
+    dispatch<3, 1>(xp, wp, sc, bi, out, N, H, W, C, OH, OW, act_p, out_i8, inv_out_scale, s);
   else if (k == 3 && stride == 2)
-    dispatch<3, 2>(xp, wp, sc, bi, out, N, H, W, C, OH, OW, act, out_i8, inv_out_scale, s);
+    dispatch<3, 2>(xp, wp, sc, bi, out, N, H, W, C, OH, OW, act_p, out_i8, inv_out_scale, s);
   else if (k == 5 && stride == 1)
-    dispatch<5, 1>(xp, wp, sc, bi, out, N, H, W, C, OH, OW, act, out_i8, inv_out_scale, s);
+    dispatch<5, 1>(xp, wp, sc, bi, out, N, H, W, C, OH, OW, act_p, out_i8, inv_out_scale, s);
   else if (k == 5 && stride == 2)
-    dispatch<5, 2>(xp, wp, sc, bi, out, N, H, W, C, OH, OW, act, out_i8, inv_out_scale, s);
+    dispatch<5, 2>(xp, wp, sc, bi, out, N, H, W, C, OH, OW, act_p, out_i8, inv_out_scale, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

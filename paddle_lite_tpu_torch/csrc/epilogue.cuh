@@ -1,4 +1,4 @@
-// Fused int8 epilogue shared by the GEMM and depthwise kernels.
+// Fused int8 epilogue shared by the GEMM, depthwise and fused dw+pw kernels.
 //
 // y = acc * scale[c]; y = y + bias[c]; y = act(y); then either fp32 out or
 // int8 clip(rint(y * inv_out_scale), -127, 127).
@@ -7,18 +7,47 @@
 // so these sources are compiled with --fmad=false: an FMA would round once
 // and can flip a requant tie.  rintf / __float2int_rn round half to even,
 // as jnp.round does; roundf would round half away from zero.
+//
+// The activations are those of paddle_lite_tpu/ops/common.py:36-61 whose
+// fp32 arithmetic is exact to reproduce (no transcendental): each formula
+// below is the reference's, operation for operation, with its parameters as
+// fp32 (a Python float applied to an fp32 array is fp32 there too).
+// hard_swish divides with IEEE division (plain `/` without fast-math).
 #pragma once
 
 #include <stdint.h>
 
 namespace plt {
 
-enum Act : int { ACT_NONE = 0, ACT_RELU = 1, ACT_RELU6 = 2 };
+enum Act : int {
+  ACT_NONE = 0,
+  ACT_RELU = 1,
+  ACT_RELU6 = 2,
+  ACT_LEAKY_RELU = 3,    // p0 = alpha
+  ACT_HARD_SWISH = 4,    // p0 = threshold, p1 = scale, p2 = offset
+  ACT_HARD_SIGMOID = 5,  // p0 = slope, p1 = offset
+};
 
-__device__ __forceinline__ float apply_act(float y, int act) {
-  if (act == ACT_RELU) return fmaxf(y, 0.0f);
-  if (act == ACT_RELU6) return fminf(fmaxf(y, 0.0f), 6.0f);
-  return y;
+struct ActParams {
+  int code;
+  float p0, p1, p2;
+};
+
+__device__ __forceinline__ float apply_act(float y, const ActParams& a) {
+  switch (a.code) {
+    case ACT_RELU:
+      return fmaxf(y, 0.0f);
+    case ACT_RELU6:
+      return fminf(fmaxf(y, 0.0f), 6.0f);
+    case ACT_LEAKY_RELU:  // where(y >= 0, y, alpha * y)
+      return y >= 0.0f ? y : a.p0 * y;
+    case ACT_HARD_SWISH:  // y * clip(y + offset, 0, threshold) / scale
+      return y * fminf(fmaxf(y + a.p2, 0.0f), a.p0) / a.p1;
+    case ACT_HARD_SIGMOID:  // clip(slope * y + offset, 0, 1)
+      return fminf(fmaxf(a.p0 * y + a.p1, 0.0f), 1.0f);
+    default:
+      return y;
+  }
 }
 
 __device__ __forceinline__ int8_t requant(float y, float inv_out_scale) {
@@ -27,13 +56,20 @@ __device__ __forceinline__ int8_t requant(float y, float inv_out_scale) {
   return static_cast<int8_t>(static_cast<int>(q));
 }
 
+// acc * scale (+ bias) -> act, with the channel's scale and bias in hand
+__device__ __forceinline__ float scale_bias_act(float acc, float scale,
+                                                float bias, bool has_bias,
+                                                const ActParams& act) {
+  float y = acc * scale;
+  if (has_bias) y = y + bias;
+  return apply_act(y, act);
+}
+
 template <bool HAS_BIAS>
 __device__ __forceinline__ float scale_bias_act(float acc, const float* scale,
                                                 const float* bias, int c,
-                                                int act) {
-  float y = acc * scale[c];
-  if (HAS_BIAS) y = y + bias[c];
-  return apply_act(y, act);
+                                                const ActParams& act) {
+  return scale_bias_act(acc, scale[c], HAS_BIAS ? bias[c] : 0.0f, HAS_BIAS, act);
 }
 
 }  // namespace plt

@@ -11,9 +11,10 @@
 // N, 32x32 each).  K is walked in 64-byte slabs: the block copies an A and
 // a Bt slab into shared memory (16-byte vector loads when K % 16 == 0,
 // bytes otherwise, zero-filled past M, N and K), then each warp issues
-// mma.sync.m16n8k32 s8.s8.s32 on its 32x32 sub-tile.  Rows of the shared
-// slabs are padded by 16 bytes so the fragment reads of one warp touch 32
-// distinct banks.  The epilogue runs on the int32 accumulators in registers
+// mma.sync.m16n8k32 s8.s8.s32 on its 32x32 sub-tile (the fragment code is
+// in mma_s8.cuh, shared with dw_pw_fused.cu).  Rows of the shared slabs are
+// padded by 16 bytes so the fragment reads of one warp touch 32 distinct
+// banks.  The epilogue runs on the int32 accumulators in registers
 // and writes each output element once.
 //
 // What bounds it on an H100: the MobileNetV1 pointwise layers have K, N of
@@ -27,6 +28,7 @@
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "mma_s8.cuh"
 
 namespace {
 
@@ -35,15 +37,6 @@ constexpr int BN = 64;
 constexpr int BK = 64;
 constexpr int LDS = BK + 16;  // shared-memory row stride in bytes
 constexpr int THREADS = 256;
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // Copy a rows x BK slab of a (R, K) row-major int8 matrix into shared memory.
 template <bool VEC, int ROWS>
@@ -74,12 +67,12 @@ __global__ void __launch_bounds__(THREADS)
 int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
                  const float* __restrict__ scale,
                  const float* __restrict__ bias, void* __restrict__ out,
-                 int M, int N, int K, int act, float inv_out_scale) {
+                 int M, int N, int K, plt::ActParams act,
+                 float inv_out_scale) {
   __shared__ __align__(16) int8_t As[BM * LDS];
   __shared__ __align__(16) int8_t Bs[BN * LDS];
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 1, wn = warp & 1;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
 
@@ -95,41 +88,19 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
     load_slab<VEC, BM>(As, A, m0, M, k0, K);
     load_slab<VEC, BN>(Bs, Bt, n0, N, k0, K);
     __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int8_t* p = As + (wm * 32 + mi * 16 + g) * LDS + ks + 4 * t;
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* p = Bs + (wn * 32 + ni * 8 + g) * LDS + ks + 4 * t;
-        b[ni][0] = *reinterpret_cast<const uint32_t*>(p);
-        b[ni][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
-    }
+    plt::warp_mma_32x32(acc, As + wm * 32 * LDS, LDS, Bs + wn * 32 * LDS, LDS,
+                        BK, lane);
     __syncthreads();
   }
 
-  // accumulator element e of tile (mi, ni): row g (+8 for e >= 2),
-  // column 2t + (e & 1)
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * 32 + mi * 16 + g + (e >> 1) * 8;
-        const int col = n0 + wn * 32 + ni * 8 + 2 * t + (e & 1);
+        const int row = m0 + wm * 32 + mi * 16 + plt::acc_row(lane, e);
+        const int col = n0 + wn * 32 + ni * 8 + plt::acc_col(lane, e);
         if (row >= M || col >= N) continue;
         const float y = plt::scale_bias_act<HAS_BIAS>(
             static_cast<float>(acc[mi][ni][e]), scale, bias, col, act);
@@ -145,8 +116,8 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
 
 template <bool VEC, bool OUT_I8, bool HAS_BIAS>
 void launch(const int8_t* A, const int8_t* Bt, const float* scale,
-            const float* bias, void* out, int M, int N, int K, int act,
-            float inv, cudaStream_t stream) {
+            const float* bias, void* out, int M, int N, int K,
+            plt::ActParams act, float inv, cudaStream_t stream) {
   dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
   int8_gemm_kernel<VEC, OUT_I8, HAS_BIAS>
       <<<grid, THREADS, 0, stream>>>(A, Bt, scale, bias, out, M, N, K, act,
@@ -155,8 +126,8 @@ void launch(const int8_t* A, const int8_t* Bt, const float* scale,
 
 template <bool VEC>
 void dispatch(const int8_t* A, const int8_t* Bt, const float* scale,
-              const float* bias, void* out, int M, int N, int K, int act,
-              int out_i8, float inv, cudaStream_t s) {
+              const float* bias, void* out, int M, int N, int K,
+              plt::ActParams act, int out_i8, float inv, cudaStream_t s) {
   if (out_i8) {
     if (bias) launch<VEC, true, true>(A, Bt, scale, bias, out, M, N, K, act, inv, s);
     else launch<VEC, true, false>(A, Bt, scale, bias, out, M, N, K, act, inv, s);
@@ -169,21 +140,23 @@ void dispatch(const int8_t* A, const int8_t* Bt, const float* scale,
 }  // namespace
 
 // C interface, bound with ctypes.  Pointers are device pointers; `bias` may
-// be null.  `vec` selects 16-byte loads (the caller checks K % 16 == 0 and
-// 16-byte alignment of A and Bt).  Returns cudaGetLastError() after the
-// launch.
+// be null.  `act` is a plt::Act code and p0..p2 its parameters
+// (epilogue.cuh).  `vec` selects 16-byte loads (the caller checks
+// K % 16 == 0 and 16-byte alignment of A and Bt).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int plt_int8_gemm(const void* A, const void* Bt, const void* scale,
                              const void* bias, void* out, int M, int N, int K,
-                             int act, int out_i8, float inv_out_scale, int vec,
-                             void* stream) {
+                             int act, float p0, float p1, float p2, int out_i8,
+                             float inv_out_scale, int vec, void* stream) {
   const int8_t* a = static_cast<const int8_t*>(A);
   const int8_t* b = static_cast<const int8_t*>(Bt);
   const float* sc = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const plt::ActParams ap{act, p0, p1, p2};
   if (M > 0 && N > 0) {
-    if (vec) dispatch<true>(a, b, sc, bi, out, M, N, K, act, out_i8, inv_out_scale, s);
-    else dispatch<false>(a, b, sc, bi, out, M, N, K, act, out_i8, inv_out_scale, s);
+    if (vec) dispatch<true>(a, b, sc, bi, out, M, N, K, ap, out_i8, inv_out_scale, s);
+    else dispatch<false>(a, b, sc, bi, out, M, N, K, ap, out_i8, inv_out_scale, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

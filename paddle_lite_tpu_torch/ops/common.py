@@ -33,8 +33,27 @@ def f32(value, device: torch.device) -> torch.Tensor:
 
 # ---- activations ----------------------------------------------------------
 
+# the parameters of the activations the CUDA epilogue computes, in the order
+# it takes them, with the reference's defaults (``common.py:45-61`` there)
+ACT_PARAMS = {
+    "leaky_relu": (("alpha", 0.01),),
+    "hard_swish": (("threshold", 6.0), ("scale", 6.0), ("offset", 3.0)),
+    "hard_sigmoid": (("slope", 0.2), ("offset", 0.5)),
+}
+
+
+def act_params(act: Optional[str], attrs=None) -> Tuple[float, ...]:
+    """The parameters of `act` from its attrs, defaults filled in."""
+    attrs = attrs or {}
+    return tuple(float(attrs.get(k, d)) for k, d in ACT_PARAMS.get(act, ()))
+
+
 def apply_activation(x: torch.Tensor, act: Optional[str], attrs=None) -> torch.Tensor:
-    """Fused-activation epilogue (``common.apply_activation`` there)."""
+    """Fused-activation epilogue (``common.apply_activation`` there).
+
+    hard_swish divides by its scale as a tensor on x's device: PyTorch
+    turns a CUDA tensor divided by a Python scalar into a multiply by the
+    reciprocal, which is not the reference's (nor the kernels') division."""
     if act is None or act == "" or act == "linear":
         return x
     attrs = attrs or {}
@@ -43,7 +62,7 @@ def apply_activation(x: torch.Tensor, act: Optional[str], attrs=None) -> torch.T
     if act == "relu6":
         return torch.clamp(x, 0.0, 6.0)
     if act == "leaky_relu":
-        alpha = attrs.get("alpha", 0.01)
+        (alpha,) = act_params(act, attrs)
         return torch.where(x >= 0, x, alpha * x)
     if act == "sigmoid":
         return torch.sigmoid(x)
@@ -53,13 +72,10 @@ def apply_activation(x: torch.Tensor, act: Optional[str], attrs=None) -> torch.T
         beta = attrs.get("beta", 1.0)
         return x * torch.sigmoid(beta * x)
     if act == "hard_swish":
-        thr = attrs.get("threshold", 6.0)
-        scl = attrs.get("scale", 6.0)
-        off = attrs.get("offset", 3.0)
-        return x * torch.clamp(x + off, 0.0, thr) / scl
+        thr, scl, off = act_params(act, attrs)
+        return x * torch.clamp(x + off, 0.0, thr) / f32(scl, x.device)
     if act == "hard_sigmoid":
-        slope = attrs.get("slope", 0.2)
-        off = attrs.get("offset", 0.5)
+        slope, off = act_params(act, attrs)
         return torch.clamp(slope * x + off, 0.0, 1.0)
     if act == "relu_clipped":
         return torch.clamp(x, 0.0, attrs.get("Relu_clipped_coef", 6.0))

@@ -28,8 +28,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 SOURCES = {"int8_gemm": "int8_gemm.cu", "dw_conv": "dw_conv.cu",
-           "nms": "nms.cu"}
-HEADERS = ("epilogue.cuh",)
+           "nms": "nms.cu", "dw_pw_fused": "dw_pw_fused.cu"}
+HEADERS = ("epilogue.cuh", "mma_s8.cuh")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -105,13 +105,21 @@ def load(name: str) -> ctypes.CDLL:
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    act = [ci, cf, cf, cf]  # a plt::Act code and its three parameters
     if name == "int8_gemm":
         fn = lib.plt_int8_gemm
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, ci, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, *act, ci, cf, ci, vp]
     elif name == "dw_conv":
         fn = lib.plt_dw_conv
         fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
-                       ci, ci, cf, vp]
+                       *act, ci, cf, vp]
+    elif name == "dw_pw_fused":
+        pi, pll = ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_longlong)
+        lib.plt_dw_pw_fused_tiling.argtypes = [ci, ci, ci, pi, pi, pll]
+        lib.plt_dw_pw_fused_tiling.restype = ci
+        fn = lib.plt_dw_pw_fused
+        fn.argtypes = [vp, vp, vp, vp, *act, cf, vp, vp, vp, *act, ci, cf,
+                       vp, ci, ci, ci, ci, ci, ci, vp]
     elif name == "nms":
         lib.plt_nms_smem_bytes.argtypes = [ci]
         lib.plt_nms_smem_bytes.restype = ctypes.c_longlong

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from ..common import f32, normalize_2d, normalize_paddings
 from . import _build
-from .int8_matmul import act_code, epilogue, inv_out_scale
+from .int8_matmul import act_args, epilogue, inv_out_scale
 
 # launches of the CUDA kernel, counted by the wrapper (CPU calls not
 # counted): in all, and by stride (the TPU had one kernel for each)
@@ -87,7 +87,7 @@ def dw_conv_int8(
     scale = f32(eff_scale, dev).expand(c).contiguous()
     if bias is not None:
         _check(bias, "bias", torch.float32, (c,), dev)
-    code = act_code(act)
+    act_c = act_args(act, act_attrs)
     oh, ow = out_size(h, k, stride), out_size(wd, k, stride)
     out = torch.empty((n, oh, ow, c), device=dev,
                       dtype=torch.float32 if out_scale is None else torch.int8)
@@ -95,7 +95,7 @@ def dw_conv_int8(
     rc = lib.plt_dw_conv(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        n, h, wd, c, oh, ow, k, stride, code, int(out_scale is not None),
+        n, h, wd, c, oh, ow, k, stride, *act_c, int(out_scale is not None),
         0.0 if out_scale is None else inv_out_scale(out_scale),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "dw_conv")
@@ -114,6 +114,20 @@ def dw_conv3x3s1_int8(x, w, eff_scale, bias=None, *, act=None,
                          f"{tuple(w.shape)}")
     return dw_conv_int8(x, w, eff_scale, bias, stride=1, act=act,
                         act_attrs=act_attrs, out_scale=out_scale)
+
+
+def supported(op_attrs, x_shape, w_shape) -> bool:
+    """3x3 / stride 1 / SAME / no dilation / channel multiplier 1: the
+    domain of ``dw_conv3x3s1_int8`` and of the fused dw+pw kernel
+    (``supported`` ``:182-199`` there; the ``dw_pw_fuse`` pass's gate)."""
+    if w_shape[-1] != x_shape[-1]:  # multiplier != 1
+        return False
+    return (
+        tuple(w_shape[:2]) == (3, 3)
+        and normalize_2d(op_attrs.get("strides", (1, 1))) == (1, 1)
+        and normalize_2d(op_attrs.get("dilations", (1, 1))) == (1, 1)
+        and normalize_paddings(op_attrs.get("paddings", (0, 0))) == ((1, 1), (1, 1))
+    )
 
 
 def supported_general(op_attrs, x_shape, w_shape) -> bool:

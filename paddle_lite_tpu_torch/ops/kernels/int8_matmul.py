@@ -26,21 +26,32 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..common import apply_activation, f32
+from ..common import act_params, apply_activation, f32
 from . import _build
 
 # launches of the CUDA kernel, counted by the wrapper (CPU calls not counted)
 launches = 0
 
-ACTS = {None: 0, "": 0, "linear": 0, "relu": 1, "relu6": 2}
+# the activations of the CUDA epilogue (``csrc/epilogue.cuh``, ``plt::Act``):
+# those whose fp32 arithmetic the kernels reproduce exactly.  sigmoid,
+# swish, tanh, gelu and the other transcendental ones are not here.
+ACTS = {None: 0, "": 0, "linear": 0, "relu": 1, "relu6": 2, "leaky_relu": 3,
+        "hard_swish": 4, "hard_sigmoid": 5}
 
 
 def act_code(act: Optional[str]) -> int:
     if act not in ACTS:
         raise NotImplementedError(
             f"activation {act!r} is not in the CUDA epilogue (supported: "
-            f"relu, relu6, none)")
+            f"{', '.join(a for a in ACTS if a)}, none)")
     return ACTS[act]
+
+
+def act_args(act: Optional[str], act_attrs=None):
+    """(code, p0, p1, p2): the activation as the C entry points take it,
+    each parameter rounded once to fp32 as the reference applies it."""
+    p = act_params(act, act_attrs) + (0.0, 0.0, 0.0)
+    return (act_code(act),) + tuple(float(np.float32(v)) for v in p[:3])
 
 
 def inv_out_scale(out_scale: float) -> float:
@@ -113,7 +124,7 @@ def int8_matmul(
     scale = f32(eff_scale, dev).expand(n).contiguous()
     if bias is not None:
         _check(bias, "bias", torch.float32, (n,), dev)
-    code = act_code(act)
+    act_c = act_args(act, act_attrs)
     out = torch.empty((m, n), device=dev,
                       dtype=torch.float32 if out_scale is None else torch.int8)
     vec = int(k % 16 == 0 and x_q.data_ptr() % 16 == 0
@@ -122,7 +133,7 @@ def int8_matmul(
     rc = lib.plt_int8_gemm(
         x_q.data_ptr(), w_nk.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        m, n, k, code, int(out_scale is not None),
+        m, n, k, *act_c, int(out_scale is not None),
         0.0 if out_scale is None else inv_out_scale(out_scale), vec,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "int8_gemm")

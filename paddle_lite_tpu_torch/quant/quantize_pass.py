@@ -43,8 +43,8 @@ class QuantConfig:
     options + PaddleSlim's strategy knobs).  The same fields and defaults
     as the JAX package's; ``tools/opt.optimize`` raises
     ``NotImplementedError`` for the options the port does not run yet
-    (``weight_only``, ``fuse_dw_pw``, ``conv1x1_dot``, ``bias_correction``,
-    a bf16 ``island_dtype``, and methods other than abs-max)."""
+    (``weight_only``, ``conv1x1_dot``, ``bias_correction``, a bf16
+    ``island_dtype``, and methods other than abs-max)."""
 
     method: CalibMethod = CalibMethod.ABS_MAX
     per_channel_weights: bool = True

@@ -10,6 +10,12 @@ outputs may differ by 1 LSB in a tiny fraction of elements.  Run end to end,
 such a flip changes the next layers' inputs and spreads, so end-to-end int8
 tensors are not held to that bound; :func:`op_local_diffs` feeds every op
 the inputs the kernel run gave it.
+
+The fused dw+pw op is the exception: its ``"torch"`` form requantizes the
+internal depthwise output by division and its kernel by the reciprocal, and
+one tie there moves the pointwise output by more than 1 LSB.  So
+:func:`fused_local_diffs` holds the fused kernel to the unfused pair of
+kernels and to its plain version instead, bit for bit.
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ SOFTMAX_ATOL = 1e-3
 # candidate tiers to an exact top-k and tests ``iou > t`` by division
 # (``detection.py:271,303,373-379`` there), so its outputs are not compared
 OTHER_FUNCTION = ("multiclass_nms", "multiclass_nms2")
+# ops held to the unfused kernels instead of their "torch" impl
+HELD_TO_UNFUSED = ("fused_dw_pw",)
 
 
 def retag(graph: Graph, src: str, dst: str) -> Graph:
@@ -60,24 +68,70 @@ def op_local_diffs(graph: Graph, weights: Dict[str, torch.Tensor],
                    feed: Dict[str, Any], device: torch.device,
                    kernel: str = "cuda") -> List[dict]:
     """Run `graph`; then, for every op tagged `kernel` except those in
-    :data:`OTHER_FUNCTION`, run its ``"torch"`` impl on the very inputs it
-    got and compare outputs.  Returns one record per output: {"op",
-    "var", "numel", "n_diff", "max_diff"}."""
+    :data:`OTHER_FUNCTION` and :data:`HELD_TO_UNFUSED`, run its ``"torch"``
+    impl on the very inputs it got and compare outputs.  Returns one record
+    per output: {"op", "var", "numel", "n_diff", "max_diff"}."""
     env = capture_all(graph, weights, feed, device)
     env.update(weights)
     ctx = ExecutionContext(graph=graph, device=device)
     out = []
     for op in graph.topological_order():
-        if op.attrs.get("kernel") != kernel or op.op_type in OTHER_FUNCTION:
+        if (op.attrs.get("kernel") != kernel
+                or op.op_type in OTHER_FUNCTION + HELD_TO_UNFUSED):
             continue
         ins = {s: [env[n] for n in ns] for s, ns in op.inputs.items() if ns}
         ref = OPS.get(op.op_type).impls["torch"](ctx, op, ins)
         for slot, arrs in ref.items():
             for name, r in zip(op.outputs[slot], arrs):
-                d = (env[name].to(torch.float64) - r.to(torch.float64)).abs()
-                out.append({"op": op.op_type, "var": name, "numel": d.numel(),
-                            "n_diff": int((d > 0).sum()),
-                            "max_diff": float(d.max())})
+                out.append(dict(_diff(env[name], r), op=op.op_type, var=name))
+    return out
+
+
+def _diff(a: torch.Tensor, b: torch.Tensor) -> dict:
+    d = (a.to(torch.float64) - b.to(torch.float64)).abs()
+    return {"numel": d.numel(), "n_diff": int((d > 0).sum()),
+            "max_diff": float(d.max()) if d.numel() else 0.0}
+
+
+def fused_local_diffs(graph: Graph, weights: Dict[str, torch.Tensor],
+                      feed: Dict[str, Any], device: torch.device) -> List[dict]:
+    """Run `graph`; then hold every ``"cuda"`` ``fused_dw_pw`` op's output,
+    on the input it got, to the unfused pair of kernels (depthwise, then
+    the GEMM: ``against="unfused"``) and to the fused kernel's plain
+    version (``against="plain"``).  Records as :func:`op_local_diffs`
+    gives, plus "against"; both must have no difference."""
+    from .ops.fused import block_scales
+    from .ops.kernels import depthwise, dw_pw_fused, int8_matmul
+
+    env = capture_all(graph, weights, feed, device)
+    env.update(weights)
+    ctx = ExecutionContext(graph=graph, device=device)
+    out = []
+    for op in graph.topological_order():
+        if op.op_type not in HELD_TO_UNFUSED or op.attrs.get("kernel") != "cuda":
+            continue
+        a = op.attrs
+        x, dw_w, pw_w = (env[op.input(s)] for s in ("Input", "DwFilter", "PwFilter"))
+        dw_b = env[op.input("DwBias")] if op.maybe_input("DwBias") else None
+        pw_b = env[op.input("PwBias")] if op.maybe_input("PwBias") else None
+        dw_eff, pw_eff = block_scales(ctx, op)
+        n, h, w, c = x.shape
+        d = depthwise.dw_conv_int8(x, dw_w, dw_eff, dw_b, stride=1,
+                                   act=a.get("dw_act"), act_attrs=a.get("dw_act_attrs"),
+                                   out_scale=a["dw_out_scale"])
+        pair = int8_matmul.int8_matmul(
+            d.reshape(n * h * w, c), pw_w.reshape(c, -1), pw_eff, pw_b,
+            act=a.get("pw_act"), act_attrs=a.get("pw_act_attrs"),
+            out_scale=a.get("out_scale")).reshape(n, h, w, -1)
+        plain = dw_pw_fused.fused_dw_pw_int8_plain(
+            x, dw_w, dw_eff, dw_b, a["dw_out_scale"], pw_w, pw_eff, pw_b,
+            dw_act=a.get("dw_act"), dw_act_attrs=a.get("dw_act_attrs"),
+            pw_act=a.get("pw_act"), pw_act_attrs=a.get("pw_act_attrs"),
+            pw_out_scale=a.get("out_scale"))
+        name = op.output("Output")
+        for against, ref in (("unfused", pair), ("plain", plain)):
+            out.append(dict(_diff(env[name], ref), op=op.op_type, var=name,
+                            against=against))
     return out
 
 

@@ -2,8 +2,9 @@
 
 Port of ``paddle_lite_tpu/tools/opt.py`` (analog of the reference's ``opt``
 CLI, ``lite/api/model_optimize_tool.cc``): fusions → (with ``quant``)
-calibration of the fp32 graph on ``device`` → PTQ quantize → precision-cast
-insertion → kernel pick.  The output is the optimized :class:`Graph`.
+calibration of the fp32 graph on ``device`` → PTQ quantize → (with
+``fuse_dw_pw``) the dw+pw block fusion → precision-cast insertion → kernel
+pick.  The output is the optimized :class:`Graph`.
 
 Options of :class:`QuantConfig` that are off by default and not on the
 ported path raise ``NotImplementedError`` rather than being ignored.
@@ -40,11 +41,9 @@ FINALIZE_PASSES = [
 ]
 
 
-def _unported(quant: QuantConfig, fuse_dw_pw: bool) -> Optional[str]:
+def _unported(quant: QuantConfig) -> Optional[str]:
     if quant.weight_only:
         return "weight_only"
-    if fuse_dw_pw or quant.fuse_dw_pw:
-        return "fuse_dw_pw"
     if quant.conv1x1_dot:
         return "conv1x1_dot"
     if quant.bias_correction:
@@ -73,7 +72,7 @@ def optimize(
     """
     dev = resolve_device(device)
     if quant is not None:
-        what = _unported(quant, fuse_dw_pw)
+        what = _unported(quant)
         if what:
             raise NotImplementedError(f"QuantConfig {what} is not ported yet")
     PassManager(FUSION_PASSES).run(graph, verbose=verbose)
@@ -85,5 +84,8 @@ def optimize(
                 graph, calib_batches, method=quant.method, device=dev,
                 observer_kwargs=quant.observer_kwargs)
         ptq_quantize(graph, calib_result, quant)
+        if fuse_dw_pw or quant.fuse_dw_pw:
+            # dw + pw int8 blocks as one kernel (ops/fused.py)
+            PassManager(["dw_pw_fuse"]).run(graph, verbose=verbose)
     PassManager(FINALIZE_PASSES).run(graph, verbose=verbose)
     return graph

@@ -64,6 +64,7 @@ def test_import_loads_neither_jax_nor_reference():
         "import paddle_lite_tpu_torch.tools.opt\n"
         "import paddle_lite_tpu_torch.formats.interop\n"
         "import paddle_lite_tpu_torch.models.mobilenet_v1\n"
+        "import paddle_lite_tpu_torch.models.mobilenet_v3\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'paddle_lite_tpu' or m.startswith('paddle_lite_tpu.')]\n"
         "assert 'paddle_lite_tpu_torch' in sys.modules\n"

@@ -98,8 +98,10 @@ def test_reciprocal_is_rounded_from_double():
 
 def test_epilogue_rejects_unported_activation():
     assert p_mm.act_code("relu6") == 2
-    with pytest.raises(NotImplementedError, match="hard_swish"):
-        p_mm.act_code("hard_swish")
+    assert p_mm.act_args("hard_swish", {"scale": 6}) == (4, 6.0, 6.0, 3.0)
+    assert p_mm.act_args("hard_sigmoid", {"slope": 0.2})[:2] == (5, float(np.float32(0.2)))
+    with pytest.raises(NotImplementedError, match="sigmoid"):
+        p_mm.act_code("sigmoid")
 
 
 def _dw_problem(rng, n, h, w, c, k):
@@ -200,7 +202,9 @@ def test_dw_kernel_vs_plain_on_card(cuda_device, shape):
 
 
 @pytest.mark.parametrize("act,tag", [("relu", "cuda"), ("relu6", "cuda"),
-                                     (None, "cuda"), ("hard_swish", None)])
+                                     (None, "cuda"), ("hard_swish", "cuda"),
+                                     ("hard_sigmoid", "cuda"), ("leaky_relu", "cuda"),
+                                     ("sigmoid", None), ("swish", None)])
 def test_kernel_pick_only_what_the_epilogue_computes(act, tag):
     from paddle_lite_tpu_torch.core.ir import Graph
     from paddle_lite_tpu_torch.ops.kernels.select import choose_kernel

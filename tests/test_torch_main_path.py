@@ -178,7 +178,7 @@ def test_predictor_validation_and_clone():
 
 
 @pytest.mark.parametrize("cfg", [
-    dict(weight_only=8), dict(fuse_dw_pw=True), dict(conv1x1_dot=True),
+    dict(weight_only=8), dict(method=P.CalibMethod.ENTROPY), dict(conv1x1_dot=True),
     dict(bias_correction=True), dict(island_dtype="bfloat16"),
     dict(method=P.CalibMethod.PERCENTILE),
 ])
