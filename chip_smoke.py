@@ -9,18 +9,25 @@ printing no result, if any phase fails or no card is present.
 
 Phases:
 1. Device: the card's name and power limit, torch / CUDA versions, the
-   kernels' build (one nvcc per source, started together) and its time.
+   kernels' build (one nvcc per source, started together) and its time;
+   the depthwise kernel's instantiations must not spill registers; the
+   timing floor (a 16-element add timed as the kernels are).
 2. Kernels against their plain PyTorch versions on the card, at every shape
    the main path gives them (MobileNetV1, batch 64, 224 px), plus a k=5
-   case and ragged cases: the int32 accumulators and the int8 outputs must
-   match exactly (0 differing elements).  Each shape is timed with CUDA
-   events around CUDA-graph replays of one call (median of 25, after
-   warm-up; "eager" repeats it without the graph, dispatch time included),
-   beside its plain version, one PyTorch library call computing the same
-   product (a yardstick the port never calls), and its bound: the larger of
-   bytes / 3.35 TB/s and operations / peak (1,979 int8 tensor-core TOP/s
-   for the GEMM; for the depthwise kernel, which does fp32 FMAs, SMs x 128
-   FMA/clk x the max SM clock nvidia-smi reports).
+   case and ragged cases (for the depthwise kernel: H and W off its tiles,
+   8-byte and byte copies, N = 1, C = 8, fp32 out with hard_swish and
+   hard_sigmoid): the int32 accumulators and the int8 outputs must match
+   exactly (0 differing elements).  Each shape is timed with CUDA events
+   around CUDA-graph replays of one call (median of 25, after warm-up;
+   "eager" repeats it without the graph, dispatch time included), beside
+   its plain version, one PyTorch library call computing the same product
+   (a yardstick the port never calls), and its bound: the larger of bytes
+   / 3.35 TB/s and operations / peak (1,979 int8 tensor-core TOP/s for the
+   GEMM; for the depthwise kernel, which does fp32 FMAs, SMs x 128 FMA/clk
+   x the max SM clock nvidia-smi reports).  Each timed depthwise shape
+   prints its tiling plan; each path's depthwise time a request prints
+   beside its cuDNN time and bound, with their ratios (also in the kernels
+   line, `by_path`).
 3. The main path end to end at full width: ``mobilenet_v1.build`` →
    ``create_predictor(quant=QuantConfig(), calib_batches=..., device="cuda")``
    → 3 requests.  The launch counters must show 14 GEMM and 13 depthwise
@@ -75,6 +82,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -161,7 +169,17 @@ def phase_device():
     print(f"kernel build: {time.perf_counter() - t0:.1f} s wall "
           f"({ {k: round(v, 1) for k, v in secs.items()} })")
     for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
+        log = _build.build_log(name)
+        if name == "dw_conv":  # its many instantiations: one line for all
+            regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
+            spills = sum(int(a) + int(b) for a, b in re.findall(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
+            print(f"  ptxas dw_conv: {len(regs)} instantiations, {min(regs)}-{max(regs)} "
+                  f"registers a thread, {spills} bytes of spill stores and loads")
+            if spills or not regs:
+                fail(f"dw_conv spills ({spills} bytes) or reported no instantiation")
+            continue
+        for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     with fp32_exact():
@@ -172,6 +190,11 @@ def phase_device():
     fma_per_s = props.multi_processor_count * 128 * clock_mhz * 1e6
     print(f"SMs {props.multi_processor_count}, max SM clock {clock_mhz} MHz "
           f"-> fp32 FMA rate {fma_per_s:.4g}/s")
+    from paddle_lite_tpu_torch.ops.kernels import depthwise as kd
+    for k in (3, 5):
+        print(f"  dw_conv layout, k={k}: {kd.layout(k)}")
+    t = torch.zeros(16, device=DEV)
+    print(f"timing floor: a 16-element add reads {time_ms(lambda: t.add_(1)):.4f} ms")
     return card, fma_per_s
 
 
@@ -242,7 +265,8 @@ def check_gemm(rng, m, k, n, int8_out: bool, timed: bool, act: str = "relu",
 
 
 def check_dw(rng, shape, int8_out: bool, timed: bool, fma_per_s: float,
-             entry: str = "dw_conv_int8", act: str = "relu", act_attrs: dict = None):
+             entry: str = "dw_conv_int8", act: str = "relu", act_attrs: dict = None,
+             eff_mul: float = 1.0):
     import torch.nn.functional as F
 
     from paddle_lite_tpu_torch.ops.kernels import depthwise as kd
@@ -250,7 +274,7 @@ def check_dw(rng, shape, int8_out: bool, timed: bool, fma_per_s: float,
     n, h, wd, c, k, s = shape
     x = _cuda_rand_int8(rng, (n, h, wd, c))
     w = _cuda_rand_int8(rng, (k, k, 1, c))
-    eff = torch.from_numpy(rng.uniform(1e-3, 2e-3, c).astype(np.float32)).to(DEV)
+    eff = torch.from_numpy((rng.uniform(1e-3, 2e-3, c) * eff_mul).astype(np.float32)).to(DEV)
     bias = torch.from_numpy(rng.normal(0, 0.5, c).astype(np.float32)).to(DEV)
     ones = torch.ones(c, device=DEV)
     if entry == "dw_conv3x3s1_int8":
@@ -270,7 +294,10 @@ def check_dw(rng, shape, int8_out: bool, timed: bool, fma_per_s: float,
     bad, err = _cmp(got, ref)
     row = {"kernel": "dw_conv", "entry": entry, "shape": list(shape), "act": act,
            "out": "int8" if int8_out else "fp32",
+           "plan": kd.plan(*shape, kd.layout(k))._asdict() if x.is_cuda else None,
            "acc_mismatch": bad_acc, "out_mismatch": bad, "max_abs_err": err}
+    if eff_mul != 1.0 or act_attrs:
+        row["act"] = f"{act} {act_attrs or ''} eff x{eff_mul:g}"
     if timed:
         row["ms"] = time_ms(lambda: kern(x, w, eff, bias, **kw))
         row["eager_ms"] = eager_ms(lambda: kern(x, w, eff, bias, **kw))
@@ -318,6 +345,25 @@ def phase_kernels(fma_per_s: float):
     for shape, int8_out, entry in extra:
         rows.append(check_dw(rng, shape, int8_out, entry == "dw_conv3x3s1_int8",
                              fma_per_s, entry))
+    # the tiled kernel's edges: H and W off the tiles, 8-byte copies (C =
+    # 72, 24), N = 1, C = 8, fp32 out with hard_swish and hard_sigmoid, and
+    # hard_swish at extreme magnitudes (a divisor of 1e30, dividends past
+    # 2^60 and below 2^-60)
+    for shape, int8_out, act, attrs, eff_mul in (
+            ((4, 29, 31, 72, 3, 2), True, "relu", None, 1.0),
+            ((2, 15, 9, 24, 5, 1), True, "relu6", None, 1.0),
+            ((1, 33, 40, 48, 5, 2), True, "leaky_relu", None, 1.0),
+            ((1, 9, 9, 8, 3, 1), True, "relu", None, 1.0),
+            ((4, 19, 23, 64, 3, 2), False, "hard_swish", None, 1.0),
+            ((2, 15, 9, 40, 5, 1), False, "hard_sigmoid", None, 1.0),
+            ((3, 14, 14, 184, 3, 1), True, "hard_swish", None, 1.0),
+            ((2, 14, 14, 64, 3, 1), False, "hard_swish", {"scale": 1e30}, 1.0),
+            ((2, 9, 11, 40, 5, 2), False, "hard_swish", None, 1e19),
+            ((2, 9, 11, 40, 5, 2), False, "hard_swish", None, 1e-32),
+            ((2, 9, 11, 40, 5, 2), True, "hard_swish", None, 1e19),
+            ((2, 9, 11, 40, 5, 2), True, "hard_swish", None, 1e-32)):
+        rows.append(check_dw(rng, shape, int8_out, False, fma_per_s, act=act,
+                             act_attrs=attrs, eff_mul=eff_mul))
     print("phase 2: kernel vs plain version (ms: device time, CUDA-graph "
           "replays, median of 25; eager: the same without the graph)")
     _report_rows(rows)
@@ -333,20 +379,34 @@ def _report_rows(rows):
             f"bound {r['bound_ms']:.4f} ({r['bound_by']}) x{r.get('per_request', 0)}")
         if r.get("unfused_ms") is not None:
             t += f" unfused pair {r['unfused_ms']:.4f}"
+        if r["kernel"] == "dw_conv" and "ms" in r and r["plan"]:
+            t += " | plan " + " ".join(f"{k}={v}" for k, v in r["plan"].items())
         act = r.get("act") or "-"
         print(f"  {r['kernel']:9s} {str(r['shape']):28s} {r['out']:4s} {act:12s} "
               f"acc_mismatch {r['acc_mismatch']} out_mismatch {r['out_mismatch']}{t}")
     for s in (1, 2):  # the depthwise kernel's time per request, by stride
         mine = [r for r in rows if r["kernel"] == "dw_conv"
                 and r.get("per_request") and r["shape"][5] == s]
-        sums = {k: sum(r[k] * r["per_request"] for r in mine)
-                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        if not mine:
+            continue
+        sums = _dw_sums(mine)
         print(f"  dw_conv stride {s}: {sum(r['per_request'] for r in mine)} "
               f"launches a request, " + ", ".join(f"{k} {v:.4f}" for k, v in sums.items()))
     bad = [r for r in rows
            if r["acc_mismatch"] or r["out_mismatch"] or r.get("pair_mismatch")]
     if bad:
         fail(f"{len(bad)} kernel checks disagree with the plain version: {bad}")
+
+
+def _dw_sums(rows) -> dict:
+    """One request's depthwise times (rows counted per request), their
+    ratios to the cuDNN call and to the bound."""
+    out = {k: sum(r[k] * r["per_request"] for r in rows)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["ms_over_library"] = out["ms"] / out["library_ms"]
+    out["ms_over_bound"] = out["ms"] / out["bound_ms"]
+    out["shapes_slower_than_library"] = sum(r["ms"] > r["library_ms"] for r in rows)
+    return out
 
 
 # ---- phase 3 ---------------------------------------------------------------
@@ -1107,6 +1167,12 @@ def _kernel_line(rows, launches_by_path):
                          ms_where_available=total("ms", with_lib))
         if name == "dw_pw_fused":
             entry["unfused_ms"] = total("unfused_ms")
+        if name.startswith("dw_conv_s"):
+            by = {p: _dw_sums([r for r in timed if r["path"] == p])
+                  for p in sorted({r["path"] for r in timed})}
+            entry["by_path"] = by
+            entry["ms_over_library"] = entry["ms"] / entry["library_ms"]
+            entry["ms_over_bound"] = entry["ms"] / entry["bound_ms"]
         out.append(entry)
     return out
 

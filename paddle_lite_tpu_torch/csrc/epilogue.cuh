@@ -33,20 +33,29 @@ struct ActParams {
   float p0, p1, p2;
 };
 
+// The activation fixed at compile time (the depthwise kernel instantiates
+// one kernel per code); the runtime form below switches into these.
+template <int ACT>
+__device__ __forceinline__ float apply_act(float y, const ActParams& a) {
+  if (ACT == ACT_RELU) return fmaxf(y, 0.0f);
+  if (ACT == ACT_RELU6) return fminf(fmaxf(y, 0.0f), 6.0f);
+  // where(y >= 0, y, alpha * y)
+  if (ACT == ACT_LEAKY_RELU) return y >= 0.0f ? y : a.p0 * y;
+  // y * clip(y + offset, 0, threshold) / scale
+  if (ACT == ACT_HARD_SWISH) return y * fminf(fmaxf(y + a.p2, 0.0f), a.p0) / a.p1;
+  // clip(slope * y + offset, 0, 1)
+  if (ACT == ACT_HARD_SIGMOID) return fminf(fmaxf(a.p0 * y + a.p1, 0.0f), 1.0f);
+  return y;
+}
+
 __device__ __forceinline__ float apply_act(float y, const ActParams& a) {
   switch (a.code) {
-    case ACT_RELU:
-      return fmaxf(y, 0.0f);
-    case ACT_RELU6:
-      return fminf(fmaxf(y, 0.0f), 6.0f);
-    case ACT_LEAKY_RELU:  // where(y >= 0, y, alpha * y)
-      return y >= 0.0f ? y : a.p0 * y;
-    case ACT_HARD_SWISH:  // y * clip(y + offset, 0, threshold) / scale
-      return y * fminf(fmaxf(y + a.p2, 0.0f), a.p0) / a.p1;
-    case ACT_HARD_SIGMOID:  // clip(slope * y + offset, 0, 1)
-      return fminf(fmaxf(a.p0 * y + a.p1, 0.0f), 1.0f);
-    default:
-      return y;
+    case ACT_RELU: return apply_act<ACT_RELU>(y, a);
+    case ACT_RELU6: return apply_act<ACT_RELU6>(y, a);
+    case ACT_LEAKY_RELU: return apply_act<ACT_LEAKY_RELU>(y, a);
+    case ACT_HARD_SWISH: return apply_act<ACT_HARD_SWISH>(y, a);
+    case ACT_HARD_SIGMOID: return apply_act<ACT_HARD_SIGMOID>(y, a);
+    default: return y;
   }
 }
 

@@ -7,9 +7,10 @@ that carries the hash of the sources, so an edited source is rebuilt and an
 unchanged one is reused.  Nothing here runs at import time: the CPU tests
 import every module on a machine without ``nvcc``.
 
-Flags: ``sm_90a`` (Hopper), and ``--fmad=false`` so that ``acc*scale`` and
+Flags: ``sm_90a`` (Hopper), ``--fmad=false`` so that ``acc*scale`` and
 ``+bias`` round separately, as in the reference epilogue (and NMS's
-``(area_j + area_i) - ix*iy`` likewise).
+``(area_j + area_i) - ix*iy`` likewise), and ``--split-compile=0`` so that
+the depthwise kernel's 48 instantiations compile on all cores.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ HEADERS = ("epilogue.cuh", "mma_s8.cuh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
+    "--split-compile=0",  # each source's kernels optimized in parallel
 ]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -99,6 +101,8 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = ctypes.CDLL(str(lib_path(name)))
         _declare(name, lib)
+        if name == "dw_conv":  # shared-memory limits, set once at load
+            check(lib.plt_dw_conv_prepare(), "dw_conv prepare")
         _LIBS[name] = lib
     return lib
 
@@ -110,9 +114,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn = lib.plt_int8_gemm
         fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, *act, ci, cf, ci, vp]
     elif name == "dw_conv":
+        lib.plt_dw_conv_prepare.argtypes = []
+        lib.plt_dw_conv_prepare.restype = ci
+        lib.plt_dw_conv_layout.argtypes = [ci] + [ctypes.POINTER(ci)] * 5
+        lib.plt_dw_conv_layout.restype = ci
         fn = lib.plt_dw_conv
+        # ... act, out_i8, inv_out_scale, then the plan: th, tw, cv, vec,
+        # images per block, shared bytes, tiles x, tiles y
         fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
-                       *act, ci, cf, vp]
+                       *act, ci, cf, ci, ci, ci, ci, ci,
+                       ctypes.c_longlong, ci, ci, vp]
     elif name == "dw_pw_fused":
         pi, pll = ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_longlong)
         lib.plt_dw_pw_fused_tiling.argtypes = [ci, ci, ci, pi, pi, pll]
