@@ -10,8 +10,9 @@ printing no result, if any phase fails or no card is present.
 Phases:
 1. Device: the card's name and power limit, torch / CUDA versions, the
    kernels' build (one nvcc per source, started together) and its time;
-   the depthwise kernel's instantiations must not spill registers; the
-   timing floor (a 16-element add timed as the kernels are).
+   the depthwise and GEMM kernels' instantiations must not spill
+   registers; the timing floor (a 16-element add timed as the kernels
+   are).
 2. Kernels against their plain PyTorch versions on the card, at every shape
    the main path gives them (MobileNetV1, batch 64, 224 px), plus a k=5
    case and ragged cases (for the depthwise kernel: H and W off its tiles,
@@ -170,14 +171,16 @@ def phase_device():
           f"({ {k: round(v, 1) for k, v in secs.items()} })")
     for name in _build.SOURCES:
         log = _build.build_log(name)
-        if name == "dw_conv":  # its many instantiations: one line for all
+        if name in ("dw_conv", "int8_gemm"):  # many instantiations: one line for all
             regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
             spills = sum(int(a) + int(b) for a, b in re.findall(
                 r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
-            print(f"  ptxas dw_conv: {len(regs)} instantiations, {min(regs)}-{max(regs)} "
-                  f"registers a thread, {spills} bytes of spill stores and loads")
+            advice = len(re.findall(r"Potential Performance Loss", log))
+            print(f"  ptxas {name}: {len(regs)} instantiations, {min(regs)}-{max(regs)} "
+                  f"registers a thread, {spills} bytes of spill stores and loads, "
+                  f"{advice} performance advisories")
             if spills or not regs:
-                fail(f"dw_conv spills ({spills} bytes) or reported no instantiation")
+                fail(f"{name} spills ({spills} bytes) or reported no instantiation")
             continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -231,13 +234,13 @@ def _cmp(a: torch.Tensor, b: torch.Tensor):
 
 
 def check_gemm(rng, m, k, n, int8_out: bool, timed: bool, act: str = "relu",
-               act_attrs: dict = None):
+               act_attrs: dict = None, eff_mul: float = 1.0):
     from paddle_lite_tpu_torch.ops.kernels import int8_matmul as km
 
     x = _cuda_rand_int8(rng, (m, k))
     w = _cuda_rand_int8(rng, (k, n))
     w_nk = w.t().contiguous()
-    eff = torch.from_numpy(rng.uniform(1e-4, 2e-4, n).astype(np.float32)).to(DEV)
+    eff = torch.from_numpy((rng.uniform(1e-4, 2e-4, n) * eff_mul).astype(np.float32)).to(DEV)
     bias = torch.from_numpy(rng.normal(0, 0.5, n).astype(np.float32)).to(DEV)
     ones = torch.ones(n, device=DEV)
     # int32 accumulators: unit scale, no bias, fp32 out (exact below 2^24)
@@ -252,13 +255,20 @@ def check_gemm(rng, m, k, n, int8_out: bool, timed: bool, act: str = "relu",
     bad, err = _cmp(got, ref)
     row = {"kernel": "int8_gemm", "shape": [m, k, n], "act": act,
            "out": "int8" if int8_out else "fp32",
+           "plan": km.plan(m, k, n, int8_out)._asdict(),
            "acc_mismatch": bad_acc, "out_mismatch": bad, "max_abs_err": err}
+    if eff_mul != 1.0 or act_attrs:
+        row["act"] = f"{act} {act_attrs or ''} eff x{eff_mul:g}"
     if timed:
         row["ms"] = time_ms(lambda: km.int8_matmul(x, w, eff, bias, w_nk=w_nk, **kw))
         row["eager_ms"] = eager_ms(lambda: km.int8_matmul(x, w, eff, bias, w_nk=w_nk, **kw))
         row["plain_ms"] = time_ms(lambda: km.int8_matmul_plain(x, w, eff, bias, **kw))
         row["library_ms"] = (time_ms(lambda: torch._int_mm(x, w))
                              if m > 16 and k % 8 == 0 and n % 8 == 0 else None)
+        # the same call on the repacked (N, K) weight, transposed: cuBLAS's
+        # preferred operand order (information; the yardstick is the above)
+        row["library_nk_ms"] = (time_ms(lambda: torch._int_mm(x, w_nk.t()))
+                                if row["library_ms"] is not None else None)
         nbytes = m * k + k * n + m * n * (1 if int8_out else 4) + 8 * n
         row.update(bound(nbytes, 2 * m * k * n / INT8_TC_OPS_PER_S))
     return row
@@ -314,6 +324,42 @@ def check_dw(rng, shape, int8_out: bool, timed: bool, fma_per_s: float,
     return row
 
 
+def gemm_edge_rows(rng):
+    """The GEMM kernel at its edges, bit-exact against the plain version:
+    K = 16, 18, 24, 30 (2-, 8- and 16-byte copies, one slab) and 2048; N =
+    18, 30, 1000, 1280; M = 1, 63, 65; every activation of ACTS at K < 256
+    and K >= 256 (the epilogue's two conversion paths), int8 and fp32 out;
+    hard_swish and relu at extreme magnitudes (requant's clipping).  Then a
+    wrapper call on a view misaligned for the plan's copies must raise."""
+    from paddle_lite_tpu_torch.ops.kernels import int8_matmul as km
+
+    rows = []
+    for m, k, n, int8_out in ((64, 16, 64, True), (64, 18, 72, True), (200, 24, 72, True),
+                              (100, 30, 120, False), (64, 2048, 256, True),
+                              (500, 64, 18, True), (500, 64, 30, False), (65, 256, 1000, True),
+                              (63, 512, 1280, True), (1, 128, 64, True), (63, 40, 100, True),
+                              (65, 72, 130, False)):
+        rows.append(check_gemm(rng, m, k, n, int8_out, timed=False))
+    rows.append(check_gemm(rng, 129, 96, 72, False, False, "hard_sigmoid",
+                           {"slope": 0.2, "offset": 0.5}))
+    for act in sorted(a for a in km.ACTS if a) + [None]:
+        for k in (80, 320):
+            for int8_out in (True, False):
+                rows.append(check_gemm(rng, 300, k, 96, int8_out, False, act))
+    for act, mul in (("hard_swish", 1e19), ("relu", 1e-32), ("hard_swish", 1e-32)):
+        for int8_out in (True, False):
+            rows.append(check_gemm(rng, 256, 64, 64, int8_out, False, act, eff_mul=mul))
+    buf = _cuda_rand_int8(rng, (64 * 64 + 1,))
+    try:
+        km.int8_matmul(buf[1:].view(64, 64), _cuda_rand_int8(rng, (64, 32)),
+                       torch.ones(32, device=DEV))
+    except ValueError as e:
+        print(f"  int8_gemm on a misaligned view raises: {e}")
+    else:
+        fail("int8_matmul took a view misaligned for the plan's copies")
+    return rows
+
+
 def phase_kernels(fma_per_s: float):
     rng = np.random.default_rng(0)
     gemm, dw = main_path_shapes()
@@ -330,6 +376,7 @@ def phase_kernels(fma_per_s: float):
     rows.append(check_gemm(rng, BATCH, 1024, 1000, True, timed=False))
     rows.append(check_gemm(rng, 1000, 96, 200, True, timed=False))
     rows.append(check_gemm(rng, 333, 40, 70, False, timed=False))
+    rows += gemm_edge_rows(rng)
     for shape in dw:
         key = ("dw",) + shape
         if key not in seen:
@@ -426,6 +473,11 @@ def _ips(pred, feed, reps: int = 10, batch: int = BATCH) -> float:
     return reps * batch / (time.perf_counter() - t0)
 
 
+# the port's kernels by a substring of their symbols, for the profiler's sums
+KERNEL_SYMBOLS = {"int8_gemm": "int8_gemm_kernel", "dw_conv": "dw_conv_kernel",
+                  "nms": "nms_keep_kernel", "dw_pw_fused": "dw_pw_fused_kernel"}
+
+
 def _device_breakdown(pred, feed, top: int = 8) -> dict:
     """One request under torch.profiler: host wall time, summed device
     kernel time, and the kernels that take most of it (information)."""
@@ -451,7 +503,10 @@ def _device_breakdown(pred, feed, top: int = 8) -> dict:
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     host.sort(reverse=True)
+    by_kernel = {name: sum(r[0] for r in rows if symbol in r[2])
+                 for name, symbol in KERNEL_SYMBOLS.items()}
     return {"wall_ms": wall_ms, "device_ms": sum(r[0] for r in rows),
+            "by_kernel_ms": by_kernel,
             "top": [{"ms": r[0], "count": r[1], "name": r[2][:80]}
                     for r in rows[:top]],
             "host_self_ms": sum(r[0] for r in host),
@@ -496,7 +551,8 @@ def _serving_numbers(pred8, pred32, feed, batch: int, top: int = 8) -> dict:
         out["profile"][tag] = p = _device_breakdown(pred, on_dev, top=top)
         print(f"  {tag} request under the profiler (input on the card): wall "
               f"{p['wall_ms']:.3f} ms, device kernels {p['device_ms']:.3f} ms, "
-              f"host ops' self time {p['host_self_ms']:.3f} ms")
+              f"host ops' self time {p['host_self_ms']:.3f} ms; by kernel, every "
+              f"instantiation: {p['by_kernel_ms']}")
         for r in p["top"]:
             print(f"    {r['ms']:.4f} ms x{r['count']} {r['name']}")
         for r in p["host_top"][:5]:
@@ -630,6 +686,10 @@ def path_kernel_rows(rng, g, path: str, fma_per_s: float):
     activation the graph `g` gives them, each checked and timed once and
     counted per request."""
     gemm, dw = kernel_shapes(g)
+    t = torch.zeros(16, device=DEV)
+    # the floor moves within a run: read it beside each path's rows
+    print(f"  timing floor before the {path} rows: a 16-element add reads "
+          f"{time_ms(lambda: t.add_(1)):.4f} ms")
     rows, seen = [], {}
     for m, k, n, int8_out, act, attrs in gemm:
         key = ("gemm", m, k, n, int8_out, act, tuple(sorted(attrs.items())))
@@ -1134,7 +1194,24 @@ KERNELS = [  # name, source, TPU kernel it replaces, rows it covers
 ]
 
 
-def _kernel_line(rows, launches_by_path):
+def _gemm_sums(rows) -> dict:
+    """One request's GEMM times (rows counted per request): in all and
+    beside the bound; over the shapes torch._int_mm takes, beside it and
+    its ratio; the shapes with M >= 3136 that read behind it."""
+    def total(key, rs):
+        return sum(r[key] * r["per_request"] for r in rs)
+
+    lib = [r for r in rows if r["library_ms"] is not None]
+    out = {"ms": total("ms", rows), "bound_ms": total("bound_ms", rows),
+           "ms_where_library": total("ms", lib), "library_ms": total("library_ms", lib),
+           "library_nk_ms": total("library_nk_ms", lib)}
+    out["ms_over_library"] = out["ms_where_library"] / out["library_ms"] if lib else None
+    out["m3136_shapes_behind_library"] = [
+        r["shape"] for r in lib if r["shape"][0] >= 3136 and r["ms"] > r["library_ms"]]
+    return out
+
+
+def _kernel_line(rows, launches_by_path, profiles):
     """One entry per kernel: launches summed over the paths' runs; times
     and bounds summed over one request of every path that has its own
     shape rows (phase 5's GEMM and depthwise shapes are phase 2's).
@@ -1167,6 +1244,14 @@ def _kernel_line(rows, launches_by_path):
                          ms_where_available=total("ms", with_lib))
         if name == "dw_pw_fused":
             entry["unfused_ms"] = total("unfused_ms")
+        if name == "int8_gemm":
+            by = {p: _gemm_sums([r for r in timed if r["path"] == p])
+                  for p in sorted({r["path"] for r in timed})}
+            entry["by_path"] = by
+            entry["profiled_ms_by_path"] = {
+                p: {"ms": prof["by_kernel_ms"]["int8_gemm"],
+                    "bound_ms": by[p]["bound_ms"] if p in by else None}
+                for p, prof in profiles.items()}
         if name.startswith("dw_conv_s"):
             by = {p: _dw_sums([r for r in timed if r["path"] == p])
                   for p in sorted({r["path"] for r in timed})}
@@ -1201,7 +1286,19 @@ def main() -> None:
     all_rows = rows + ssd_rows + fused_rows + v3_rows
     kernels = _kernel_line(all_rows, {"mobilenet_v1": launches, "ssd": ssd_launches,
                                       "mobilenet_v1_fused": fused_launches,
-                                      "mobilenet_v3": v3_launches})
+                                      "mobilenet_v3": v3_launches},
+                           {"mobilenet_v1": e2e["profile"]["int8"],
+                            "ssd": ssd["profile"]["int8"],
+                            "mobilenet_v1_fused": fused["profile"]["int8"],
+                            "mobilenet_v3": v3["profile"]["int8"]})
+    gemm = next(k for k in kernels if k["name"] == "int8_gemm")
+    for p, v in gemm["by_path"].items():
+        print(f"int8_gemm a {p} request: {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}); "
+              f"where torch._int_mm takes the shape {v['ms_where_library']:.4f} vs "
+              f"{v['library_ms']:.4f} (x{v['ms_over_library']:.3f}; on the (N, K) "
+              f"weight {v['library_nk_ms']:.4f}); M >= 3136 shapes behind it: "
+              f"{v['m3136_shapes_behind_library']}")
+    print(f"int8_gemm profiled a request, every instantiation: {gemm['profiled_ms_by_path']}")
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

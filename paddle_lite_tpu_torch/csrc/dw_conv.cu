@@ -230,32 +230,8 @@ __device__ __forceinline__ void to_f32x4(uint32_t v, float f[4]) {
   f[3] = __int_as_float(__byte_perm(v, 0x4B000000u, 0x7543)) - 8388736.0f;
 }
 
-// The activation of y.  hard_swish with FAST: its division n / p1 as
-// q = n * rb with rb = 1/p1 (itself an IEEE quotient), then
-// q + (n - p1*q) * rb, the remainder exact in one FMA: the correctly
-// rounded quotient while n and p1 lie in [2^-60, 2^60] (Markstein); zero
-// keeps its sign.  A dividend outside that range sets `bad`, and the caller
-// redoes the unit without FAST.
-template <int ACT, bool FAST>
-__device__ __forceinline__ float act_value(float y, const plt::ActParams& a, float rb,
-                                           bool& bad) {
-  if constexpr (ACT == plt::ACT_HARD_SWISH && FAST) {
-    const float n = y * fminf(fmaxf(y + a.p2, 0.0f), a.p0);
-    const float q = n * rb;
-    const uint32_t m = __float_as_uint(n) & 0x7fffffffu;
-    bad |= m != 0u && m - 0x21800000u > 0x5D800000u - 0x21800000u;
-    return m == 0u ? q : __fmaf_rn(__fmaf_rn(-q, a.p1, n), rb, q);
-  }
-  return plt::apply_act<ACT>(y, a);
-}
-
-// plt::requant's int8 in the low byte: clip(rint(t)) == rint(clip(t)) for
-// integer bounds, and t + 1.5 * 2^23 rounds t to an integer, half to even,
-// with the integer's two's complement in the low byte of the sum's bits
-__device__ __forceinline__ uint32_t requant_lo(float y, float inv) {
-  const float t = fminf(fmaxf(y * inv, -127.0f), 127.0f);
-  return __float_as_uint(t + 12582912.0f);
-}
+using plt::act_value;
+using plt::requant_lo;
 
 template <int B>
 __device__ __forceinline__ void copy_piece(int8_t* dst, const int8_t* src) {

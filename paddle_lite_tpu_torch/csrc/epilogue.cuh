@@ -81,4 +81,31 @@ __device__ __forceinline__ float scale_bias_act(float acc, const float* scale,
   return scale_bias_act(acc, scale[c], HAS_BIAS ? bias[c] : 0.0f, HAS_BIAS, act);
 }
 
+// The activation of y, for the depthwise and GEMM kernels.  hard_swish with
+// FAST: its division n / p1 as q = n * rb with rb = 1/p1 (itself an IEEE
+// quotient), then q + (n - p1*q) * rb, the remainder exact in one FMA: the
+// correctly rounded quotient while n and p1 lie in [2^-60, 2^60]
+// (Markstein); zero keeps its sign.  A dividend outside that range sets
+// `bad`, and the caller redoes the unit without FAST.
+template <int ACT, bool FAST>
+__device__ __forceinline__ float act_value(float y, const plt::ActParams& a, float rb,
+                                           bool& bad) {
+  if constexpr (ACT == plt::ACT_HARD_SWISH && FAST) {
+    const float n = y * fminf(fmaxf(y + a.p2, 0.0f), a.p0);
+    const float q = n * rb;
+    const uint32_t m = __float_as_uint(n) & 0x7fffffffu;
+    bad |= m != 0u && m - 0x21800000u > 0x5D800000u - 0x21800000u;
+    return m == 0u ? q : __fmaf_rn(__fmaf_rn(-q, a.p1, n), rb, q);
+  }
+  return plt::apply_act<ACT>(y, a);
+}
+
+// plt::requant's int8 in the low byte: clip(rint(t)) == rint(clip(t)) for
+// integer bounds, and t + 1.5 * 2^23 rounds t to an integer, half to even,
+// with the integer's two's complement in the low byte of the sum's bits
+__device__ __forceinline__ uint32_t requant_lo(float y, float inv) {
+  const float t = fminf(fmaxf(y * inv, -127.0f), 127.0f);
+  return __float_as_uint(t + 12582912.0f);
+}
+
 }  // namespace plt

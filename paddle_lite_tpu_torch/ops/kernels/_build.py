@@ -22,7 +22,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional, Set, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -30,7 +32,10 @@ BUILD_DIR = _PKG / "_build"
 
 SOURCES = {"int8_gemm": "int8_gemm.cu", "dw_conv": "dw_conv.cu",
            "nms": "nms.cu", "dw_pw_fused": "dw_pw_fused.cu"}
-HEADERS = ("epilogue.cuh", "mma_s8.cuh")
+HEADERS = ("epilogue.cuh", "mma_s8.cuh", "wgmma_s8.cuh")
+# per-device set-up a library needs before its first launch on a device
+# (shared-memory limits of its kernels), by C function
+PREPARE = {"dw_conv": "plt_dw_conv_prepare", "int8_gemm": "plt_int8_gemm_prepare"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,6 +44,7 @@ NVCC_FLAGS = [
 ]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_PREPARED: Set[Tuple[str, int]] = set()  # (library, device index)
 
 
 def _nvcc() -> str:
@@ -95,24 +101,49 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `name`, built first if needed."""
+    """The loaded library for `name`, built first if needed, and set up
+    (:data:`PREPARE`) for the current CUDA device."""
     lib = _LIBS.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(lib_path(name)))
         _declare(name, lib)
-        if name == "dw_conv":  # shared-memory limits, set once at load
-            check(lib.plt_dw_conv_prepare(), "dw_conv prepare")
         _LIBS[name] = lib
+    if name in PREPARE:
+        key = (name, torch.cuda.current_device())
+        if key not in _PREPARED:
+            check(getattr(lib, PREPARE[name])(), f"{name} prepare")
+            _PREPARED.add(key)
     return lib
+
+
+def require_current_device(device: torch.device, what: str,
+                           current: Optional[int] = None) -> None:
+    """Raise ValueError unless `device` is the current CUDA device
+    (`current`, by default ``torch.cuda.current_device()``): the kernels
+    take raw pointers and launch on the current device and its stream, so a
+    tensor on another card must be run under ``torch.cuda.device`` of its
+    own."""
+    cur = torch.cuda.current_device() if current is None else current
+    if device.type != "cuda" or device.index != cur:
+        raise ValueError(f"{what}: the tensors are on {device}, but the kernels "
+                         f"launch on the current CUDA device, cuda:{cur}; run "
+                         f"under torch.cuda.device({device})")
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     act = [ci, cf, cf, cf]  # a plt::Act code and its three parameters
     if name == "int8_gemm":
+        lib.plt_int8_gemm_prepare.argtypes = []
+        lib.plt_int8_gemm_prepare.restype = ci
+        lib.plt_int8_gemm_occupancy.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
+        lib.plt_int8_gemm_occupancy.restype = ci
         fn = lib.plt_int8_gemm
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, *act, ci, cf, ci, vp]
+        # ... act, out_i8, inv_out_scale, then the plan: bn, bk, warpgroups,
+        # width, out_width, shared bytes, blocks
+        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, *act, ci, cf,
+                       ci, ci, ci, ci, ci, ci, ci, vp]
     elif name == "dw_conv":
         lib.plt_dw_conv_prepare.argtypes = []
         lib.plt_dw_conv_prepare.restype = ci

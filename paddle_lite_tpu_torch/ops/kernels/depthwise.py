@@ -58,15 +58,21 @@ class Layout(NamedTuple):
     smem_per_block: int
 
 
+def layout(k: int, device: Optional[int] = None) -> Layout:
+    """:class:`Layout` of the k×k kernel on CUDA device `device` (the
+    current one by default)."""
+    return _layout(torch.cuda.current_device() if device is None else device, k)
+
+
 @functools.lru_cache(maxsize=None)
-def layout(k: int) -> Layout:
-    """:class:`Layout` of the k×k kernel on the current card."""
+def _layout(device: int, k: int) -> Layout:
     import ctypes
 
-    lib = _build.load("dw_conv")
-    vals = [ctypes.c_int() for _ in Layout._fields]
-    _build.check(lib.plt_dw_conv_layout(k, *[ctypes.byref(v) for v in vals]),
-                 "dw_conv layout")
+    with torch.cuda.device(device):
+        lib = _build.load("dw_conv")
+        vals = [ctypes.c_int() for _ in Layout._fields]
+        _build.check(lib.plt_dw_conv_layout(k, *[ctypes.byref(v) for v in vals]),
+                     "dw_conv layout")
     return Layout(*(v.value for v in vals))
 
 
@@ -234,6 +240,7 @@ def dw_conv_int8(
                                   out_scale=out_scale)
     global launches
     dev = x.device
+    _build.require_current_device(dev, "dw_conv_int8")
     if x.ndim != 4 or w.ndim != 4:
         raise ValueError("dw_conv_int8: x must be NHWC and w (k, k, 1, C)")
     n, h, wd, c = x.shape
@@ -248,7 +255,7 @@ def dw_conv_int8(
         _check(bias, "bias", torch.float32, (c,), dev)
     act_c = act_args(act, act_attrs)
     oh, ow = out_size(h, k, stride), out_size(wd, k, stride)
-    p = plan(n, h, wd, c, k, stride, layout(k))
+    p = plan(n, h, wd, c, k, stride, layout(k, dev.index))
     for t, name in ((x, "x"), (w, "w")):
         if t.data_ptr() % p.vec_bytes:
             raise ValueError(f"dw_conv_int8: {name}'s data is not {p.vec_bytes}-byte "

@@ -95,6 +95,7 @@ def fused_dw_pw_int8(
             pw_act_attrs=pw_act_attrs, pw_out_scale=pw_out_scale)
     global launches
     dev = x.device
+    _build.require_current_device(dev, "fused_dw_pw_int8")
     if x.ndim != 4:
         raise ValueError("fused_dw_pw_int8: x must be NHWC")
     n, h, w, c = x.shape

@@ -3,10 +3,12 @@
 Port of ``paddle_lite_tpu/ops/kernels/int8_matmul.py`` (``int8_matmul``
 ``:169``; Pallas kernel ``_matmul_kernel`` ``:43``, epilogue ``_epilogue``
 ``:31``).  On a CUDA tensor :func:`int8_matmul` launches the hand-written
-kernel ``csrc/int8_gemm.cu`` (``mma.sync`` s8·s8→s32, epilogue in
-registers; its header says what bounds it on an H100 and how the design
-answers that).  On a CPU tensor it runs :func:`int8_matmul_plain`, the same
-function in plain PyTorch.  There is no fallback from one to the other.
+kernel ``csrc/int8_gemm.cu`` (``wgmma`` s8·s8→s32 from a ring of
+``cp.async`` slabs, epilogue in registers, output staged and stored in
+whole rows; its header says what bounds it on an H100 and how the design
+answers that), with the tiling :func:`plan` picks.  On a CPU tensor it runs
+:func:`int8_matmul_plain`, the same function in plain PyTorch.  There is no
+fallback from one to the other.
 
 Weights: the kernel reads B transposed, (N, K) with K contiguous.  Callers
 that run the same weight many times pass it repacked once as ``w_nk`` (the
@@ -21,7 +23,8 @@ Python double precision and applied as an fp32 constant
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -82,6 +85,125 @@ def int8_matmul_plain(x_q, w_q, eff_scale, bias=None, *, act=None,
     return epilogue(acc, eff_scale, bias, act, act_attrs, out_scale)
 
 
+# ---- the kernel's tiling (csrc/int8_gemm.cu takes these numbers as given) ----
+
+BN_CHOICES = (8, 16, 32, 64, 128, 256)  # tile widths int8_gemm.cu instantiates
+STAGES = 4            # slabs in the kernel's shared-memory ring (STAGES there)
+SMEM_LIMIT = 232448   # shared bytes a block may use on sm_90
+SMS = 132             # the H100's SMs: small problems spread over them
+
+
+class Plan(NamedTuple):
+    """One launch's tiling.  A tile is (64·``warpgroups``) × ``bn`` outputs;
+    K is walked in ``bk``-byte slabs copied in ``width``-byte pieces; a
+    tile's rows are stored in ``out_width``-byte pieces.  A block takes
+    ``smem_bytes`` of shared memory; the launch's blocks (:func:`blocks`)
+    walk the problem's ``tiles`` tiles between them."""
+    bn: int
+    bk: int
+    warpgroups: int
+    width: int
+    out_width: int
+    smem_bytes: int
+    tiles: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def copy_width(k: int) -> int:
+    """The widest copy K's rows allow: 16, 8, 4 or 2 bytes (cp.async has 16,
+    8 and 4; 2 goes through registers).  An odd K has none."""
+    for w in (16, 8, 4, 2):
+        if k % w == 0:
+            return w
+    raise ValueError(f"int8_matmul: K={k} is odd; the kernel copies rows in "
+                     f"pieces of 2 bytes or more")
+
+
+def slab_depths(k: int):
+    """BK candidates, best first: 32, 64 or 128 bytes (the kernel's three
+    swizzle widths) by the K they pad to (a K <= 128 is one slab, rounded
+    up to wgmma's 32-byte depth, where it can be), the deeper first among
+    equals."""
+    return sorted((32, 64, 128), key=lambda bk: (_cdiv(k, bk) * bk, -bk))
+
+
+def smem_bytes(bm: int, bn: int, bk: int, out_i8: bool) -> int:
+    """Shared bytes of a block, as int8_gemm.cu lays them out: the ring of
+    STAGES A and Bt slabs, the staged output tile (rows padded by 16 bytes,
+    32 for fp32), then BN scales and BN biases."""
+    return (STAGES * (bm + bn) * bk + bm * (bn + 16 if out_i8 else 4 * bn + 32)
+            + 8 * bn)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(m: int, k: int, n: int, out_i8: bool) -> Plan:
+    """The tiling of one (M, K) · (K, N) int8 GEMM: pure Python, so the CPU
+    tests check it; the kernel checks what it is given and refuses a plan
+    it cannot take.  Raises ValueError for a problem it cannot take.
+
+    BN is the narrowest tile width that covers N up to 256 (so A is read
+    from device memory once), 256 past that; two warpgroups (BM = 128) a
+    tile.  Where that leaves fewer tiles than the card has SMs (M ≤ a few
+    thousand rows), a wide N takes BN = 128 at BM = 128 if that gives
+    every SM a tile; otherwise BM is 64 and BN halves, down to 8, until
+    every SM has a tile or halving adds no tile.  BK is the first of
+    :func:`slab_depths` whose ring fits the block's shared memory."""
+    if m < 1 or n < 1 or k < 1:
+        raise ValueError(f"int8_matmul: empty problem {(m, k, n)}")
+    width = copy_width(k)
+    bn = next((b for b in BN_CHOICES if b >= n), BN_CHOICES[-1])
+
+    def tiles(wgs, bn):
+        return _cdiv(m, 64 * wgs) * _cdiv(n, bn)
+
+    wgs = 2 if m > 64 and tiles(2, bn) >= SMS else 1
+    if wgs == 1 and n > 256 and tiles(2, 128) >= SMS:  # A is re-read anyway
+        wgs, bn = 2, 128
+    while tiles(wgs, bn) < SMS and bn > BN_CHOICES[0] and _cdiv(n, bn) < _cdiv(n, bn // 2):
+        bn //= 2
+    if tiles(wgs, bn) >= 2 ** 31:
+        raise ValueError(f"int8_matmul: {(m, k, n)} has 2^31 tiles or more")
+    es = 1 if out_i8 else 4
+    out_width = next(w for w in (16, 8, 4, 2, 1) if (n * es) % w == 0 and (bn * es) % w == 0)
+    bk = next(bk for bk in slab_depths(k)
+              if smem_bytes(64 * wgs, bn, bk, out_i8) <= SMEM_LIMIT)
+    return Plan(bn, bk, wgs, width, out_width, smem_bytes(64 * wgs, bn, bk, out_i8),
+                tiles(wgs, bn))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device: int, bn: int, wgs: int, out_i8: bool, smem: int) -> int:
+    """Blocks of one instantiation the card `device` holds at once, as the
+    built library reports its occupancy."""
+    import ctypes
+
+    with torch.cuda.device(device):
+        per_sm = ctypes.c_int()
+        _build.check(_build.load("int8_gemm").plt_int8_gemm_occupancy(
+            bn, wgs, int(out_i8), smem, ctypes.byref(per_sm)), "int8_gemm occupancy")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, per_sm.value) * sms
+
+
+def blocks(p: Plan, out_i8: bool, device: int) -> int:
+    """The launch's blocks: as many as the card holds at once, at most one
+    a tile; each walks its tiles (csrc/int8_gemm.cu)."""
+    return min(p.tiles, _resident(device, p.bn, p.warpgroups, out_i8, p.smem_bytes))
+
+
+def check_aligned(p: Plan, k: int, **operands: torch.Tensor) -> None:
+    """Raise ValueError unless every operand's data is aligned to the
+    plan's copy width (the kernel's copies read ``p.width`` bytes at a
+    time); nothing is narrowed silently."""
+    for name, t in operands.items():
+        if t.data_ptr() % p.width:
+            raise ValueError(f"int8_matmul: {name}'s data is not {p.width}-byte "
+                             f"aligned, as the plan's copies need for K={k}")
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or t.device != device or not t.is_contiguous():
@@ -111,6 +233,7 @@ def int8_matmul(
                                  act_attrs=act_attrs, out_scale=out_scale)
     global launches
     dev = x_q.device
+    _build.require_current_device(dev, "int8_matmul")
     if x_q.ndim != 2 or w_q.ndim != 2 or x_q.shape[1] != w_q.shape[0]:
         raise ValueError(f"int8_matmul: shapes {tuple(x_q.shape)} @ "
                          f"{tuple(w_q.shape)} do not compose")
@@ -127,15 +250,17 @@ def int8_matmul(
     act_c = act_args(act, act_attrs)
     out = torch.empty((m, n), device=dev,
                       dtype=torch.float32 if out_scale is None else torch.int8)
-    vec = int(k % 16 == 0 and x_q.data_ptr() % 16 == 0
-              and w_nk.data_ptr() % 16 == 0)
+    out_i8 = out_scale is not None
+    p = plan(m, k, n, out_i8)
+    check_aligned(p, k, x_q=x_q, w_nk=w_nk)
     lib = _build.load("int8_gemm")
     rc = lib.plt_int8_gemm(
         x_q.data_ptr(), w_nk.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        m, n, k, *act_c, int(out_scale is not None),
-        0.0 if out_scale is None else inv_out_scale(out_scale), vec,
-        torch.cuda.current_stream(dev).cuda_stream)
+        m, n, k, *act_c, int(out_i8),
+        0.0 if out_scale is None else inv_out_scale(out_scale),
+        p.bn, p.bk, p.warpgroups, p.width, p.out_width, p.smem_bytes,
+        blocks(p, out_i8, dev.index), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "int8_gemm")
     launches += 1
     return out

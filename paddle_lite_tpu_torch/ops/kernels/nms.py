@@ -82,6 +82,7 @@ def nms_keep_scores(cand_boxes: torch.Tensor, cand_scores: torch.Tensor, *,
                                      score_t=score_t)
     global launches
     dev = cand_boxes.device
+    _build.require_current_device(dev, "nms_keep_scores")
     if cand_boxes.ndim != 3 or cand_scores.ndim != 2:
         raise ValueError("nms_keep_scores: boxes must be (G, k, 4) and "
                          "scores (G, k)")

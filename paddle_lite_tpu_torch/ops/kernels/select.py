@@ -8,7 +8,8 @@ that describes this card, so the port reads neither: every int8 op that a
 kernel takes is tagged ``"cuda"``:
 
 - 1x1 / stride 1 / group 1 / no-residual ``conv2d``, ``fc`` and ``mul``
-  (the ``_gemm_problem`` rule, ``autotune.py:31-48``) → the int8 GEMM;
+  (the ``_gemm_problem`` rule, ``autotune.py:31-48``) with an even K →
+  the int8 GEMM;
 - ``depthwise_conv2d`` inside ``depthwise.supported_general`` → the
   depthwise kernel;
 
@@ -23,23 +24,28 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
+
 from ..common import normalize_2d
 from . import depthwise
 from .int8_matmul import ACTS
 
-_GEMM_OPS = ("fc", "mul")
-
-
 def gemm_eligible(graph, op) -> bool:
-    if op.op_type in _GEMM_OPS:
-        return True
+    """A GEMM the kernel takes: its K is even (the kernel copies rows in
+    pieces of 2 bytes or more, ``int8_matmul.copy_width``)."""
+    if op.op_type == "fc":
+        return graph.vars[op.input("W")].shape[0] % 2 == 0
+    if op.op_type == "mul":
+        yd = int(op.attrs.get("y_num_col_dims", 1))
+        return int(np.prod(graph.vars[op.input("Y")].shape[:yd])) % 2 == 0
     if op.op_type == "conv2d":
-        kh, kw = graph.vars[op.input("Filter")].shape[:2]
+        kh, kw, c = graph.vars[op.input("Filter")].shape[:3]
         return (
             (kh, kw) == (1, 1)
             and normalize_2d(op.attrs.get("strides", (1, 1))) == (1, 1)
             and int(op.attrs.get("groups", 1)) == 1
             and not op.maybe_input("ResidualData")
+            and c % 2 == 0
         )
     return False
 

@@ -177,7 +177,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("m,k,n", [(1000, 96, 200), (333, 40, 70), (64, 1024, 1000)])
+@pytest.mark.parametrize("m,k,n", [
+    (1000, 96, 200), (333, 40, 70), (64, 1024, 1000),
+    # the redesigned kernel's edges: K = 16, 18, 24, 30 (2-, 8- and 16-byte
+    # copies) and 2048; N = 18, 30, 1280; M = 1, 63, 65
+    (64, 16, 64), (64, 18, 72), (200, 24, 72), (100, 30, 120), (64, 2048, 256),
+    (500, 64, 18), (500, 64, 30), (63, 512, 1280), (1, 128, 64), (65, 72, 130)])
 def test_int8_gemm_kernel_vs_plain_on_card(cuda_device, m, k, n):
     rng = np.random.default_rng(0)
     x, w, eff, bias = (_t(a).to(cuda_device) for a in _gemm_problem(rng, m, k, n))
