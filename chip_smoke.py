@@ -10,9 +10,9 @@ printing no result, if any phase fails or no card is present.
 Phases:
 1. Device: the card's name and power limit, torch / CUDA versions, the
    kernels' build (one nvcc per source, started together) and its time;
-   the depthwise and GEMM kernels' instantiations must not spill
-   registers; the timing floor (a 16-element add timed as the kernels
-   are).
+   the depthwise, GEMM and fused dw+pw kernels' instantiations must not
+   spill registers; the timing floor (a 16-element add timed as the
+   kernels are).
 2. Kernels against their plain PyTorch versions on the card, at every shape
    the main path gives them (MobileNetV1, batch 64, 224 px), plus a k=5
    case and ragged cases (for the depthwise kernel: H and W off its tiles,
@@ -54,10 +54,13 @@ Phases:
    accumulator of the torch-path 3x3 convs, img/s and a profiled request
    are information.
 5. MobileNetV1 b64/224 with ``QuantConfig(fuse_dw_pw=True)``: the fused
-   dw+pw kernel at the path's two shapes (timed, beside its bound, its plain
-   version and the unfused pair of kernels) and on ragged shapes (W past
-   the strip, C % 4 != 0, O > 128, fp32 out, the new activations), each
-   bit-exact against its plain version and the unfused pair.  Then phase
+   dw+pw kernel at the path's two shapes (timed with one call a graph and
+   with ten, beside its bound, its plain version and the unfused pair of
+   kernels read the same two ways; each shape prints its plan) and on
+   ragged and edge shapes (W > 128, C % 4 != 0 and C = 8, 24, 40, 72, O >
+   128 and odd O, O in chunks, H off the band, several sub-tiles a band,
+   fp32 out, every activation), each bit-exact against its plain version
+   and the unfused pair.  Then phase
    3's 3 requests: exactly 2 fused, 11 depthwise (7 at stride 1) and 12
    GEMM launches a request; the softmax equal to phase 3's; every fused op
    equal to the unfused kernels on its own inputs, the other kernel ops
@@ -123,10 +126,11 @@ def _median_ms(call, reps: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+def time_ms(fn, reps: int = 25, warmup: int = 3, calls: int = 1) -> float:
     """Median device time of one call of `fn`: CUDA events around each of
-    `reps` replays of a CUDA graph holding the call, so the host's dispatch
-    time between launches is not counted."""
+    `reps` replays of a CUDA graph holding `calls` calls (the reading over
+    `calls`), so the host's dispatch time between launches is not counted
+    and, with several calls, the graph's launch floor is spread."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -135,9 +139,10 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(calls):
+            fn()
     graph.replay()
-    return _median_ms(graph.replay, reps)
+    return _median_ms(graph.replay, reps) / calls
 
 
 def eager_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -171,7 +176,7 @@ def phase_device():
           f"({ {k: round(v, 1) for k, v in secs.items()} })")
     for name in _build.SOURCES:
         log = _build.build_log(name)
-        if name in ("dw_conv", "int8_gemm"):  # many instantiations: one line for all
+        if name in ("dw_conv", "int8_gemm", "dw_pw_fused"):  # many instantiations: one line
             regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
             spills = sum(int(a) + int(b) for a, b in re.findall(
                 r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
@@ -194,8 +199,10 @@ def phase_device():
     print(f"SMs {props.multi_processor_count}, max SM clock {clock_mhz} MHz "
           f"-> fp32 FMA rate {fma_per_s:.4g}/s")
     from paddle_lite_tpu_torch.ops.kernels import depthwise as kd
+    from paddle_lite_tpu_torch.ops.kernels import dw_pw_fused as kf
     for k in (3, 5):
         print(f"  dw_conv layout, k={k}: {kd.layout(k)}")
+    print(f"  dw_pw_fused layout: {kf.layout()}")
     t = torch.zeros(16, device=DEV)
     print(f"timing floor: a 16-element add reads {time_ms(lambda: t.add_(1)):.4f} ms")
     return card, fma_per_s
@@ -425,8 +432,9 @@ def _report_rows(rows):
             f"lib {lib if lib is None else round(lib, 4)} "
             f"bound {r['bound_ms']:.4f} ({r['bound_by']}) x{r.get('per_request', 0)}")
         if r.get("unfused_ms") is not None:
-            t += f" unfused pair {r['unfused_ms']:.4f}"
-        if r["kernel"] == "dw_conv" and "ms" in r and r["plan"]:
+            t += (f" unfused pair {r['unfused_ms']:.4f} | ten a graph: {r['ms_10']:.4f}, "
+                  f"pair {r['unfused_ms_10']:.4f}")
+        if r["kernel"] in ("dw_conv", "dw_pw_fused") and "ms" in r and r["plan"]:
             t += " | plan " + " ".join(f"{k}={v}" for k, v in r["plan"].items())
         act = r.get("act") or "-"
         print(f"  {r['kernel']:9s} {str(r['shape']):28s} {r['out']:4s} {act:12s} "
@@ -981,14 +989,21 @@ def check_fused(rng, shape, int8_out: bool, timed: bool, fma_per_s: float,
     bad, err = _cmp(got, kf.fused_dw_pw_int8_plain(*args, **kw))
     bad_pair, _ = _cmp(got, pair().reshape(got.shape))
     row = {"kernel": "dw_pw_fused", "shape": list(shape), "act": f"{dw_act}/{pw_act}",
-           "out": "int8" if int8_out else "fp32", "tiling": list(kf.tiling(h, w, c)),
+           "out": "int8" if int8_out else "fp32",
+           "plan": kf.plan(n, h, w, c, o, int8_out, kf.layout())._asdict() if x.is_cuda else None,
            "acc_mismatch": 0, "out_mismatch": bad, "pair_mismatch": bad_pair,
            "max_abs_err": err}
     if timed:
-        row["ms"] = time_ms(lambda: kf.fused_dw_pw_int8(*args, pw_w_nk=pw_nk, **kw))
-        row["eager_ms"] = eager_ms(lambda: kf.fused_dw_pw_int8(*args, pw_w_nk=pw_nk, **kw))
-        row["plain_ms"] = time_ms(lambda: kf.fused_dw_pw_int8_plain(*args, **kw))
+        def fused():
+            return kf.fused_dw_pw_int8(*args, pw_w_nk=pw_nk, **kw)
+
+        # in turns: fused, pair, pair, fused (one call a graph, then ten)
+        row["ms"] = time_ms(fused)
         row["unfused_ms"] = time_ms(pair)
+        row["unfused_ms_10"] = time_ms(pair, calls=10)
+        row["ms_10"] = time_ms(fused, calls=10)
+        row["eager_ms"] = eager_ms(fused)
+        row["plain_ms"] = time_ms(lambda: kf.fused_dw_pw_int8_plain(*args, **kw))
         row["library_ms"] = None  # no one PyTorch call computes this block
         nbytes = (n * h * w * c + 9 * c + c * o + 8 * c + 8 * o
                   + n * h * w * o * (1 if int8_out else 4))
@@ -1034,12 +1049,21 @@ def phase_fused(fma_per_s: float, unfused: dict):
     for shp in shapes:
         rows.append(check_fused(rng, shp, True, True, fma_per_s))
         rows[-1].update(per_request=1, path="mobilenet_v1_fused")
-    for shp, int8_out, acts in (((4, 9, 150, 16, 32), True, ("relu", "relu")),  # W past the strip
+    for shp, int8_out, acts in (((4, 9, 150, 16, 32), True, ("relu", "relu")),  # W > 128
                                 ((4, 7, 13, 30, 20), False, ("relu", "relu6")),  # C % 4 != 0
                                 ((2, 8, 8, 32, 160), True, ("relu", "relu")),    # O > 128
                                 ((4, 14, 14, 64, 96), False, ("hard_swish", "relu")),
                                 ((4, 14, 14, 64, 96), True, ("relu", "hard_swish")),
-                                ((2, 11, 11, 128, 128), True, ("leaky_relu", "hard_sigmoid"))):
+                                ((2, 11, 11, 128, 128), True, ("leaky_relu", "hard_sigmoid")),
+                                # C = 8, 24, 40, 72 (8-byte copies) and odd O
+                                ((2, 13, 17, 8, 33), True, ("relu", "relu")),
+                                ((2, 13, 17, 24, 31), False, ("relu", "relu6")),
+                                ((2, 13, 17, 40, 33), True, ("hard_swish", "hard_sigmoid")),
+                                ((2, 19, 130, 72, 24), True, (None, "leaky_relu")),
+                                ((8, 57, 56, 128, 128), True, ("relu", "relu")),  # H off the band
+                                ((4, 45, 45, 64, 96), False, ("relu6", None)),   # W off the runs
+                                ((2, 9, 20, 128, 1000), True, ("relu", "relu")),  # O in chunks
+                                ((8, 112, 112, 32, 64), False, ("relu", "relu"))):  # 2 sub-tiles
         rows.append(check_fused(rng, shp, int8_out, False, fma_per_s, *acts))
     print("  the fused kernel vs its plain version and the unfused pair "
           "(ms as in phase 2; unfused pair: the depthwise then the GEMM kernel)")
@@ -1243,7 +1267,13 @@ def _kernel_line(rows, launches_by_path, profiles):
             entry.update(library_ms_where_available=total("library_ms", with_lib),
                          ms_where_available=total("ms", with_lib))
         if name == "dw_pw_fused":
-            entry["unfused_ms"] = total("unfused_ms")
+            entry.update(unfused_ms=total("unfused_ms"), ms_10=total("ms_10"),
+                         unfused_ms_10=total("unfused_ms_10"))
+            entry.update(ms_over_bound=entry["ms"] / entry["bound_ms"],
+                         ms_over_pair=entry["ms"] / entry["unfused_ms"],
+                         ms_10_over_bound=entry["ms_10"] / entry["bound_ms"],
+                         ms_10_over_pair=entry["ms_10"] / entry["unfused_ms_10"],
+                         profiled_ms=profiles["mobilenet_v1_fused"]["by_kernel_ms"]["dw_pw_fused"])
         if name == "int8_gemm":
             by = {p: _gemm_sums([r for r in timed if r["path"] == p])
                   for p in sorted({r["path"] for r in timed})}
@@ -1299,6 +1329,12 @@ def main() -> None:
               f"weight {v['library_nk_ms']:.4f}); M >= 3136 shapes behind it: "
               f"{v['m3136_shapes_behind_library']}")
     print(f"int8_gemm profiled a request, every instantiation: {gemm['profiled_ms_by_path']}")
+    fu = next(k for k in kernels if k["name"] == "dw_pw_fused")
+    print(f"dw_pw_fused a request: one call a graph {fu['ms']:.4f} ms (pair {fu['unfused_ms']:.4f}, "
+          f"x{fu['ms_over_pair']:.3f}; bound {fu['bound_ms']:.4f}, x{fu['ms_over_bound']:.2f}); "
+          f"ten a graph {fu['ms_10']:.4f} (pair {fu['unfused_ms_10']:.4f}, "
+          f"x{fu['ms_10_over_pair']:.3f}; x{fu['ms_10_over_bound']:.2f} the bound); "
+          f"profiled {fu['profiled_ms']:.4f} ms")
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

@@ -73,16 +73,7 @@ int g_sms = 0, g_smem_sm = 0, g_smem_block = 0, g_smem_reserved = 0;
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int up(int a, int b) { return cdiv(a, b) * b; }
 
-// a / d for a < 2^20 and d < 2^12 by a multiply: m = ceil(2^32 / d), exact
-// while a * d < 2^32 (m = 0 stands for d = 1)
-struct FastDiv {
-  uint32_t d, m;
-  __host__ __device__ explicit FastDiv(uint32_t d_ = 1)
-      : d(d_), m(d_ == 1 ? 0u : (uint32_t)((0x100000000ull + d_ - 1) / d_)) {}
-  __device__ __forceinline__ uint32_t div(uint32_t a) const {
-    return m ? __umulhi(a, m) : a;
-  }
-};
+using plt::FastDiv;
 
 struct Args {
   const int8_t* x;
@@ -220,17 +211,8 @@ __device__ __forceinline__ void fetch(const Args& a, int8_t* buf, int t) {
   }
 }
 
-// four int8 in a word -> four exact floats: 0x4B0000xx is 2^23 + xx, and
-// xx = b + 128 after flipping the sign bits
-__device__ __forceinline__ void to_f32x4(uint32_t v, float f[4]) {
-  v ^= 0x80808080u;
-  f[0] = __int_as_float(__byte_perm(v, 0x4B000000u, 0x7540)) - 8388736.0f;
-  f[1] = __int_as_float(__byte_perm(v, 0x4B000000u, 0x7541)) - 8388736.0f;
-  f[2] = __int_as_float(__byte_perm(v, 0x4B000000u, 0x7542)) - 8388736.0f;
-  f[3] = __int_as_float(__byte_perm(v, 0x4B000000u, 0x7543)) - 8388736.0f;
-}
-
 using plt::act_value;
+using plt::to_f32x4;
 using plt::requant_lo;
 
 template <int B>

@@ -1,4 +1,6 @@
-// Fused int8 epilogue shared by the GEMM, depthwise and fused dw+pw kernels.
+// Fused int8 epilogue shared by the GEMM, depthwise and fused dw+pw kernels,
+// and the conversion-free int8 / int32 -> float helpers and the index
+// division they share.
 //
 // y = acc * scale[c]; y = y + bias[c]; y = act(y); then either fp32 out or
 // int8 clip(rint(y * inv_out_scale), -127, 127).
@@ -107,5 +109,40 @@ __device__ __forceinline__ uint32_t requant_lo(float y, float inv) {
   const float t = fminf(fmaxf(y * inv, -127.0f), 127.0f);
   return __float_as_uint(t + 12582912.0f);
 }
+
+// four int8 in a word -> four exact floats: 0x4B0000xx is 2^23 + xx, and
+// xx = b + 128 after flipping the sign bits
+__device__ __forceinline__ void to_f32x4(uint32_t v, float f[4]) {
+  v ^= 0x80808080u;
+  f[0] = __int_as_float(__byte_perm(v, 0x4B000000u, 0x7540)) - 8388736.0f;
+  f[1] = __int_as_float(__byte_perm(v, 0x4B000000u, 0x7541)) - 8388736.0f;
+  f[2] = __int_as_float(__byte_perm(v, 0x4B000000u, 0x7542)) - 8388736.0f;
+  f[3] = __int_as_float(__byte_perm(v, 0x4B000000u, 0x7543)) - 8388736.0f;
+}
+
+// int -> float without a conversion instruction (those run at a sixteenth
+// of the FP32 rate on sm_90 and bound the epilogue of the streaming
+// shapes), exact for a in [-SMALL_OFFSET, 2^23 - SMALL_OFFSET): the bits of
+// 2^23 plus a + SMALL_OFFSET are the float 2^23 + a + SMALL_OFFSET (one ulp
+// is 1 in that binade), and subtracting 2^23 + SMALL_OFFSET leaves a.  For
+// K <= 256 every int8 x int8 accumulator lies in [-K * 128 * 127,
+// K * 128 * 128] inside that window.  (tests/test_torch_gemm_plan.py checks
+// it in float32, bit for bit.)
+constexpr int SMALL_OFFSET = 256 * 128 * 127;
+
+__device__ __forceinline__ float small_int_to_float(int a) {
+  return __int_as_float(0x4B000000 + SMALL_OFFSET + a) - (8388608.0f + SMALL_OFFSET);
+}
+
+// a / d for a < 2^20 and d < 2^12 by a multiply: m = ceil(2^32 / d), exact
+// while a * d < 2^32 (m = 0 stands for d = 1)
+struct FastDiv {
+  uint32_t d, m;
+  __host__ __device__ explicit FastDiv(uint32_t d_ = 1)
+      : d(d_), m(d_ == 1 ? 0u : (uint32_t)((0x100000000ull + d_ - 1) / d_)) {}
+  __device__ __forceinline__ uint32_t div(uint32_t a) const {
+    return m ? __umulhi(a, m) : a;
+  }
+};
 
 }  // namespace plt

@@ -138,20 +138,9 @@ __host__ __device__ inline int smem_bytes(int bm, int bn, int bk, int out_i8) {
   return STAGES * (bm + bn) * bk + bm * (out_i8 ? bn + 16 : 4 * bn + 32) + 8 * bn;
 }
 
-// int -> float without a conversion instruction (those run at a sixteenth
-// of the FP32 rate on sm_90 and bound the epilogue of the streaming
-// shapes), exact for a in [-SMALL_OFFSET, 2^23 - SMALL_OFFSET): the bits of
-// 2^23 plus a + SMALL_OFFSET are the float 2^23 + a + SMALL_OFFSET (one ulp
-// is 1 in that binade), and subtracting 2^23 + SMALL_OFFSET leaves a.  For
-// K <= 256 every int8 x int8 accumulator lies in [-K * 128 * 127,
-// K * 128 * 128] inside that window.  (tests/test_torch_gemm_plan.py checks
-// it in float32, bit for bit.)
-constexpr int SMALL_OFFSET = 256 * 128 * 127;
+// plt::small_int_to_float is exact for every accumulator of a K <= 256
+// product (epilogue.cuh); past that the conversion instruction
 constexpr int SMALL_K = 256;
-
-__device__ __forceinline__ float small_int_to_float(int a) {
-  return __int_as_float(0x4B000000 + SMALL_OFFSET + a) - (8388608.0f + SMALL_OFFSET);
-}
 
 // The accumulators as float bits, in place: one uniform branch for the
 // tile, so the epilogue's code exists once for both conversions.
@@ -159,7 +148,7 @@ template <int R>
 __device__ __forceinline__ void to_float_bits(int (&acc)[R], bool small) {
   if (small) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = __float_as_int(small_int_to_float(acc[r]));
+    for (int r = 0; r < R; ++r) acc[r] = __float_as_int(plt::small_int_to_float(acc[r]));
   } else {
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[r] = __float_as_int(static_cast<float>(acc[r]));

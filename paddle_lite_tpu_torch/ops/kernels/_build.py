@@ -35,7 +35,8 @@ SOURCES = {"int8_gemm": "int8_gemm.cu", "dw_conv": "dw_conv.cu",
 HEADERS = ("epilogue.cuh", "mma_s8.cuh", "wgmma_s8.cuh")
 # per-device set-up a library needs before its first launch on a device
 # (shared-memory limits of its kernels), by C function
-PREPARE = {"dw_conv": "plt_dw_conv_prepare", "int8_gemm": "plt_int8_gemm_prepare"}
+PREPARE = {"dw_conv": "plt_dw_conv_prepare", "int8_gemm": "plt_int8_gemm_prepare",
+           "dw_pw_fused": "plt_dw_pw_fused_prepare"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -156,12 +157,17 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                        *act, ci, cf, ci, ci, ci, ci, ci,
                        ctypes.c_longlong, ci, ci, vp]
     elif name == "dw_pw_fused":
-        pi, pll = ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_longlong)
-        lib.plt_dw_pw_fused_tiling.argtypes = [ci, ci, ci, pi, pi, pll]
-        lib.plt_dw_pw_fused_tiling.restype = ci
+        lib.plt_dw_pw_fused_prepare.argtypes = []
+        lib.plt_dw_pw_fused_prepare.restype = ci
+        lib.plt_dw_pw_fused_layout.argtypes = [ctypes.POINTER(ci)] * 6
+        lib.plt_dw_pw_fused_layout.restype = ci
         fn = lib.plt_dw_pw_fused
+        # x, dw_w, dw scale, dw bias, dw act, inv_dw, pw_w, pw scale, pw
+        # bias, pw act, out_i8, inv_out, out, N, H, W, C, O, then the plan:
+        # rows, tw, twp, sub, oc, vec, out_width, shared bytes, tiles, blocks
         fn.argtypes = [vp, vp, vp, vp, *act, cf, vp, vp, vp, *act, ci, cf,
-                       vp, ci, ci, ci, ci, ci, ci, vp]
+                       vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
+                       ctypes.c_longlong, ci, ci, vp]
     elif name == "nms":
         lib.plt_nms_smem_bytes.argtypes = [ci]
         lib.plt_nms_smem_bytes.restype = ctypes.c_longlong

@@ -133,7 +133,7 @@ def test_odd_k_is_not_tagged_for_the_kernel():
 
 # ---- the kernel's epilogue arithmetic, in float32 ----------------------------
 
-_OFFSET = 256 * 128 * 127  # int8_gemm.cu's SMALL_OFFSET
+_OFFSET = 256 * 128 * 127  # epilogue.cuh's SMALL_OFFSET
 
 
 def _small_int_to_float(a):
