@@ -10,9 +10,8 @@ printing no result, if any phase fails or no card is present.
 Phases:
 1. Device: the card's name and power limit, torch / CUDA versions, the
    kernels' build (one nvcc per source, started together) and its time;
-   the depthwise, GEMM and fused dw+pw kernels' instantiations must not
-   spill registers; the timing floor (a 16-element add timed as the
-   kernels are).
+   no instantiation of any kernel may spill registers; the timing floor
+   (a 16-element add timed as the kernels are).
 2. Kernels against their plain PyTorch versions on the card, at every shape
    the main path gives them (MobileNetV1, batch 64, 224 px), plus a k=5
    case and ragged cases (for the depthwise kernel: H and W off its tiles,
@@ -44,11 +43,16 @@ Phases:
    the NMS kernel on the path's own candidates (G = 32·21 = 672 instances
    of k = 528, the bucket3@176 tier) and on edge cases (ties, unsorted and
    sorted input, all-invalid instances, identical boxes, k = 400, 33, 1
-   and 1024), bit-exact against its plain version; its bound is the larger
-   of bytes / 3.35 TB/s and 13 fp32 operations for each pair of valid
-   candidates (counted on this run's scores) / (2 x the FMA rate above).  Then 3 requests: exactly
-   17 GEMM, 13 depthwise and 1 NMS launch a request; every kernel op except
-   ``multiclass_nms`` against its torch op on identical inputs (tie bound);
+   and 1024), bit-exact against its plain version, timed with one call
+   and with ten calls a graph; its bound is the larger of bytes / 3.35
+   TB/s and 13 fp32 operations for each pair that greedy NMS must test (a
+   kept candidate against each valid one it beats, counted on this run's
+   scores and output: a removed candidate suppresses nothing) / the fp32
+   instruction rate (the FMA rate above: none of the 13 is an FMA),
+   printed with its plan (shared bytes, blocks an SM, waves).  Then 3
+   requests: exactly 17 GEMM, 13 depthwise and 1 NMS launch a request;
+   every kernel op except ``multiclass_nms`` against its torch op on
+   identical inputs (tie bound);
    ``multiclass_nms`` with the kernel against the same op with the plain
    version, exactly.  int8 vs fp32 detections, the largest int8
    accumulator of the torch-path 3x3 convs, img/s and a profiled request
@@ -174,22 +178,18 @@ def phase_device():
     secs = _build.build()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s wall "
           f"({ {k: round(v, 1) for k, v in secs.items()} })")
-    for name in _build.SOURCES:
+    for name in _build.SOURCES:  # every instantiation of every source: one line
         log = _build.build_log(name)
-        if name in ("dw_conv", "int8_gemm", "dw_pw_fused"):  # many instantiations: one line
-            regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
-            spills = sum(int(a) + int(b) for a, b in re.findall(
-                r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
-            advice = len(re.findall(r"Potential Performance Loss", log))
-            print(f"  ptxas {name}: {len(regs)} instantiations, {min(regs)}-{max(regs)} "
-                  f"registers a thread, {spills} bytes of spill stores and loads, "
-                  f"{advice} performance advisories")
-            if spills or not regs:
-                fail(f"{name} spills ({spills} bytes) or reported no instantiation")
-            continue
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
+        advice = len(re.findall(r"Potential Performance Loss", log))
+        print(f"  ptxas {name}: {len(regs)} instantiations, "
+              f"{min(regs) if regs else '-'}-{max(regs) if regs else '-'} "
+              f"registers a thread, {spills} bytes of spill stores and loads, "
+              f"{advice} performance advisories")
+        if spills or not regs:
+            fail(f"{name} spills ({spills} bytes) or reported no instantiation")
     with fp32_exact():
         if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
             fail("TF32 still on inside fp32_exact()")
@@ -203,6 +203,8 @@ def phase_device():
     for k in (3, 5):
         print(f"  dw_conv layout, k={k}: {kd.layout(k)}")
     print(f"  dw_pw_fused layout: {kf.layout()}")
+    from paddle_lite_tpu_torch.ops.kernels import nms as kn
+    print(f"  nms layout: {kn.layout()}")
     t = torch.zeros(16, device=DEV)
     print(f"timing floor: a 16-element add reads {time_ms(lambda: t.add_(1)):.4f} ms")
     return card, fma_per_s
@@ -661,7 +663,27 @@ def phase_main_path():
 
 # ---- phase 4 ---------------------------------------------------------------
 
-NMS_OPS_PER_PAIR = 13  # csrc/nms.cu: 2 min, 4 max, 3 sub, 2 mul, 1 add, 1 compare
+# csrc/nms.cu: 2 min, 4 max, 3 sub, 2 mul, 1 add, 1 compare; none is an FMA,
+# so each takes one fp32 instruction slot of a lane
+NMS_OPS_PER_PAIR = 13
+
+
+def nms_needed_pairs(scores, out, score_t) -> float:
+    """Pairs that greedy NMS must test on (G, k) `scores` whose result is
+    `out`: each kept candidate against every valid candidate it beats
+    (score, then slot).  A removed candidate suppresses nothing, so its
+    pairs need no test.  Kept means valid with a nonzero result, which
+    holds for score_t >= 0."""
+    valid = scores > float(np.float32(score_t))
+    kept = valid & (out != 0)
+    nv = valid.sum(dim=1, keepdim=True)
+    # rank among the valid candidates: by score descending, ties by slot
+    order = torch.sort(scores.masked_fill(~valid, float("-inf")), dim=1,
+                       descending=True, stable=True).indices
+    rank = torch.empty_like(order)
+    rank.scatter_(1, order, torch.arange(order.shape[1], device=order.device)
+                  .expand_as(order).contiguous())
+    return float(((nv - 1 - rank) * kept).sum())
 
 
 def kernel_shapes(g):
@@ -717,7 +739,11 @@ def path_kernel_rows(rng, g, path: str, fma_per_s: float):
     return rows, gemm, dw
 
 
-def check_nms(case, boxes, scores, iou_t, score_t, fp32_ops_per_s, timed):
+def check_nms(case, boxes, scores, iou_t, score_t, fp32_per_s, timed):
+    """The NMS kernel against its plain version, bit for bit; timed, also
+    ten calls a graph, the pairs, the bound (13 operations for each pair
+    greedy NMS must test, :func:`nms_needed_pairs`, at `fp32_per_s`, the
+    fp32 instruction rate, and 24 bytes a candidate) and the plan."""
     from paddle_lite_tpu_torch.ops.kernels import nms as kn
 
     g, k = scores.shape
@@ -732,15 +758,24 @@ def check_nms(case, boxes, scores, iou_t, score_t, fp32_ops_per_s, timed):
            "valid": int((scores > float(np.float32(score_t))).sum())}
     if timed:
         row["ms"] = time_ms(lambda: kn.nms_keep_scores(boxes, scores, **kw))
+        row["ms_10"] = time_ms(lambda: kn.nms_keep_scores(boxes, scores, **kw), calls=10)
         row["eager_ms"] = eager_ms(lambda: kn.nms_keep_scores(boxes, scores, **kw))
         # the plain version syncs on every Jacobi round: no CUDA graph
         row["plain_ms"] = eager_ms(lambda: kn.nms_keep_scores_plain(boxes, scores, **kw),
                                    reps=5, warmup=1)
         row["library_ms"] = None  # no one PyTorch call computes greedy NMS
         nv = (scores > float(np.float32(score_t))).sum(dim=1).double()
-        pairs = float((nv * (nv - 1) / 2).sum())  # pairs of valid candidates
-        row["pair_tests"] = pairs
-        row.update(bound(24.0 * g * k, NMS_OPS_PER_PAIR * pairs / fp32_ops_per_s))
+        row["pair_tests"] = float((nv * (nv - 1) / 2).sum())  # pairs of valid candidates
+        row["needed_pair_tests"] = nms_needed_pairs(scores, got, score_t)
+        # the kernel's schedule, modeled from its loops; not measured
+        row["modeled_pair_tests"] = kn.modeled_pair_tests(scores, got, score_t)
+        row.update(bound(24.0 * g * k,
+                         NMS_OPS_PER_PAIR * row["needed_pair_tests"] / fp32_per_s))
+        row["bound_rate"] = f"fp32 instruction rate {fp32_per_s:.4g}/s"
+        if boxes.device.type == "cuda":
+            lay = kn.layout()
+            p = kn.plan(k, lay)
+            row["plan"] = dict(p._asdict(), waves=kn.waves(g, p, lay))
     return row
 
 
@@ -864,10 +899,9 @@ def phase_ssd(fma_per_s: float):
     boxes, scores = env[box_name], env[score_name]
     top_s, cand = ops_cuda.select_candidates(boxes, scores, attrs)
     n, c, k = top_s.shape
-    fp32_ops = 2 * fma_per_s
     main = check_nms("ssd_bucket3", cand.reshape(n * c, k, 4).contiguous(),
                      top_s.reshape(n * c, k).contiguous(), iou_t, score_t,
-                     fp32_ops, timed=True)
+                     fma_per_s, timed=True)
     main.update(per_request=1, path="ssd")
     rows.append(main)
     top_e, cand_e = exact_candidates(boxes, scores, min(int(attrs["nms_top_k"]),
@@ -875,11 +909,20 @@ def phase_ssd(fma_per_s: float):
     ke = top_e.shape[-1]
     rows.append(check_nms("ssd_exact_tier", cand_e.reshape(n * c, ke, 4).contiguous(),
                           top_e.reshape(n * c, ke).contiguous(), iou_t, score_t,
-                          fp32_ops, timed=False))
+                          fma_per_s, timed=False))
     for case, b, sc in nms_edge_cases(rng):
-        rows.append(check_nms(case, b, sc, iou_t, score_t, fp32_ops, timed=False))
+        rows.append(check_nms(case, b, sc, iou_t, score_t, fma_per_s, timed=False))
     print(f"  kernels at this path's shapes (NMS: G = {n * c} instances of k = {k}, "
-          f"{main['valid']} valid candidates, {main['pair_tests']:.6g} pair tests)")
+          f"{main['valid']} valid and {main['kept']} kept candidates, "
+          f"{main['pair_tests']:.10g} pairs of valid candidates, "
+          f"{main['needed_pair_tests']:.10g} a kept one against a valid one it beats "
+          f"(the bound's), {main['modeled_pair_tests']} by the kernel's schedule, "
+          f"modeled, not counted)")
+    print(f"  nms ssd_bucket3: one call a graph {main['ms']:.4f} ms, ten a graph "
+          f"{main['ms_10']:.4f}, eager {main['eager_ms']:.4f}, plain {main['plain_ms']:.4f}; "
+          f"bound {main['bound_ms']:.4f} ms ({main['bound_by']}: {NMS_OPS_PER_PAIR} "
+          f"operations for each of the {main['needed_pair_tests']:.10g} pairs greedy NMS "
+          f"must test, at the {main['bound_rate']}); plan {main.get('plan')}")
     _report_rows(rows)
     for r in rows:
         if r["kernel"] == "nms":
@@ -1282,6 +1325,15 @@ def _kernel_line(rows, launches_by_path, profiles):
                 p: {"ms": prof["by_kernel_ms"]["int8_gemm"],
                     "bound_ms": by[p]["bound_ms"] if p in by else None}
                 for p, prof in profiles.items()}
+        if name == "nms":
+            main = next(r for r in timed if r["case"] == "ssd_bucket3")
+            entry.update(ms_10=total("ms_10"), eager_ms=total("eager_ms"),
+                         profiled_ms=profiles["ssd"]["by_kernel_ms"]["nms"],
+                         pair_tests=main["pair_tests"],
+                         needed_pair_tests=main["needed_pair_tests"],
+                         bound_rate=main["bound_rate"], plan=main.get("plan"))
+            entry.update(ms_over_bound=entry["ms"] / entry["bound_ms"],
+                         ms_10_over_bound=entry["ms_10"] / entry["bound_ms"])
         if name.startswith("dw_conv_s"):
             by = {p: _dw_sums([r for r in timed if r["path"] == p])
                   for p in sorted({r["path"] for r in timed})}
@@ -1335,6 +1387,12 @@ def main() -> None:
           f"ten a graph {fu['ms_10']:.4f} (pair {fu['unfused_ms_10']:.4f}, "
           f"x{fu['ms_10_over_pair']:.3f}; x{fu['ms_10_over_bound']:.2f} the bound); "
           f"profiled {fu['profiled_ms']:.4f} ms")
+    nk = next(k for k in kernels if k["name"] == "nms")
+    print(f"nms a request: one call a graph {nk['ms']:.4f} ms, ten a graph {nk['ms_10']:.4f} "
+          f"(bound {nk['bound_ms']:.4f}, x{nk['ms_over_bound']:.2f} / "
+          f"x{nk['ms_10_over_bound']:.2f}); profiled {nk['profiled_ms']:.4f} ms; plain "
+          f"{nk['plain_ms']:.4f}; {nk['plan']['blocks_per_sm']} blocks an SM, "
+          f"{nk['plan']['waves']:.3f} waves")
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

@@ -36,7 +36,7 @@ HEADERS = ("epilogue.cuh", "mma_s8.cuh", "wgmma_s8.cuh")
 # per-device set-up a library needs before its first launch on a device
 # (shared-memory limits of its kernels), by C function
 PREPARE = {"dw_conv": "plt_dw_conv_prepare", "int8_gemm": "plt_int8_gemm_prepare",
-           "dw_pw_fused": "plt_dw_pw_fused_prepare"}
+           "dw_pw_fused": "plt_dw_pw_fused_prepare", "nms": "plt_nms_prepare"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -169,6 +169,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                        vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
                        ctypes.c_longlong, ci, ci, vp]
     elif name == "nms":
+        lib.plt_nms_prepare.argtypes = []
+        lib.plt_nms_prepare.restype = ci
+        lib.plt_nms_layout.argtypes = [ctypes.POINTER(ci)] * 6
+        lib.plt_nms_layout.restype = ci
         lib.plt_nms_smem_bytes.argtypes = [ci]
         lib.plt_nms_smem_bytes.restype = ctypes.c_longlong
         fn = lib.plt_nms_keep
