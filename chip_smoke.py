@@ -30,8 +30,11 @@ Phases:
    line, `by_path`).
 3. The main path end to end at full width: ``mobilenet_v1.build`` →
    ``create_predictor(quant=QuantConfig(), calib_batches=..., device="cuda")``
-   → 3 requests.  The launch counters must show 14 GEMM and 13 depthwise
-   launches a request; the int8 output must reach cosine > 0.99 against the
+   → 3 requests through the compiled predictor (one CUDA graph a request:
+   the first request's eager warm-up and its capture each launch every
+   kernel once through its wrapper, and a replay calls no wrapper, so the
+   counters must read twice 14 GEMM and 13 depthwise launches; the profiled
+   replay of one request must run 14 and 13).  The int8 output must reach cosine > 0.99 against the
    port's fp32 predictor; TF32 must be off while the fp32 predictor runs;
    against the same graph with the plain ``"torch"`` ops on the card, every
    kernel op fed identical inputs must agree up to rounding ties and the
@@ -50,7 +53,8 @@ Phases:
    scores and output: a removed candidate suppresses nothing) / the fp32
    instruction rate (the FMA rate above: none of the 13 is an FMA),
    printed with its plan (shared bytes, blocks an SM, waves).  Then 3
-   requests: exactly 17 GEMM, 13 depthwise and 1 NMS launch a request;
+   compiled requests: twice 17 GEMM, 13 depthwise and 1 NMS launch (warm-up
+   and capture), and as many in one profiled replay;
    every kernel op except ``multiclass_nms`` against its torch op on
    identical inputs (tie bound);
    ``multiclass_nms`` with the kernel against the same op with the plain
@@ -65,21 +69,43 @@ Phases:
    128 and odd O, O in chunks, H off the band, several sub-tiles a band,
    fp32 out, every activation), each bit-exact against its plain version
    and the unfused pair.  Then phase
-   3's 3 requests: exactly 2 fused, 11 depthwise (7 at stride 1) and 12
-   GEMM launches a request; the softmax equal to phase 3's; every fused op
+   3's 3 requests: twice 2 fused, 11 depthwise (7 at stride 1) and 12
+   GEMM launches (warm-up and capture), as many in one profiled replay; the softmax equal to phase 3's; every fused op
    equal to the unfused kernels on its own inputs, the other kernel ops
    within the tie bound of their torch ops.  img/s (also in turns with
    phase 3's predictor) and a profiled request are information.
 6. MobileNetV3-Large b64/224 INT8 (``with_softmax=False``): no int8 op
    that a kernel takes is left on the torch path; the GEMM and depthwise
    kernels at every shape and activation of the path (relu, hard_swish,
-   hard_sigmoid, none) bit-exact against their plain versions; 3 requests
-   with as many launches as the graph has "cuda" ops of each kind; every
+   hard_sigmoid, none) bit-exact against their plain versions; 3 compiled
+   requests with twice as many launches as the graph has "cuda" ops of
+   each kind (38 GEMM, 15 depthwise), as many in one profiled replay; every
    kernel op within the tie bound of its torch op; int8 logits against
    the fp32 predictor's, cosine > 0.96 (the bar of
    ``tests/test_model_zoo_int8.py:38``).  img/s and a profiled request
    are information.
-7. The last lines: the card (nvidia-smi), the kernels' JSON line, then
+7. The compiled path and serving.  (a) For each of the four paths, the
+   compiled request against the eager loop (``build_callable`` on the same
+   graph and weights): an eager request after warm-up under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); one
+   request's launches counted at capture (``compile_graph`` of the graph
+   with every intermediate as an output: warm-up, counters to 0, capture);
+   every int8 intermediate equal bit for bit, the outputs within
+   ``testing.SOFTMAX_ATOL``; a second call leaves the first result
+   unchanged; img/s in turns (eager, compiled, compiled, eager) with a
+   numpy input and with the input on the card; one profiled request each
+   way, whose compiled host ops' self time (the closing synchronise's wait
+   apart) must be below its device kernel time.  SSD with its NMS under
+   ``"torch"`` must be refused before capture.  (b) A ``ContinuousBatcher``
+   over compiled MobileNetV1 INT8 predictors at buckets 1-64, each
+   calibrated on the same 64 images in batches of its size (scales equal
+   within 1e-5 relative): 8 client threads send 512 single-image requests
+   while four clones of the b64 predictor run on four threads; each result
+   within SOFTMAX_ATOL of the b1 predictor's, each clone's output equal to
+   the parent's; requests/s, latency, batches, padded slots and peak
+   memory printed.  (c) ``tools.benchmark.bench_model("mobilenet_v1",
+   batch=64, with_fp32=True)``.
+8. The last lines: the card (nvidia-smi), the kernels' JSON line, then
    ``{"ok": true, "device": {...}}``.
 
 With ``--json PATH`` the per-shape numbers are also written to PATH.
@@ -88,6 +114,7 @@ With ``--json PATH`` the per-shape numbers are also written to PATH.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import re
@@ -103,6 +130,11 @@ BATCH, SIZE = 64, 224
 SSD_BATCH, SSD_SIZE, SSD_CLASSES = 32, 300, 21
 DEV = torch.device("cuda")
 REQUESTS = 3
+# a compiled predictor's first request runs the eager loop once (the
+# warm-up) and captures it as a CUDA graph, each launching every kernel once
+# through its wrapper; a replay calls no wrapper.  So a phase's counted
+# requests read twice one request's launches, whatever REQUESTS is.
+PER_FIRST_RUN = 2
 HBM_BYTES_PER_S = 3.35e12
 INT8_TC_OPS_PER_S = 1979e12
 
@@ -488,40 +520,74 @@ KERNEL_SYMBOLS = {"int8_gemm": "int8_gemm_kernel", "dw_conv": "dw_conv_kernel",
                   "nms": "nms_keep_kernel", "dw_pw_fused": "dw_pw_fused_kernel"}
 
 
-def _device_breakdown(pred, feed, top: int = 8) -> dict:
-    """One request under torch.profiler: host wall time, summed device
-    kernel time, and the kernels that take most of it (information)."""
+SYNC_EVENTS = ("cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEventSynchronize")
+# the profiler's own work on the host (CUPTI asking for trace buffers)
+PROFILER_EVENTS = ("Activity Buffer Request",)
+PROFILED_REQUESTS = 5
+
+
+def _device_breakdown(pred, feed, top: int = 8, reqs: int = PROFILED_REQUESTS) -> dict:
+    """`reqs` requests under torch.profiler, each ending in a synchronise,
+    read as one request (totals / reqs): host wall time, summed device
+    kernel time, the port's kernels' time and launches, and the kernels
+    that take most of it.  The host ops' self time leaves out the wait of
+    the synchronise that ends the request (``sync_wait_ms``) and the
+    profiler's own host work (``profiler_ms``)."""
     from torch.profiler import ProfilerActivity, profile
 
     pred.run(feed)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.run(feed)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows, host = [], []
+        for _ in range(reqs):
+            pred.run(feed)
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / reqs
+    rows, host, sync_ms, prof_ms = [], [], 0.0, 0.0
     for e in prof.key_averages():
         # device-side events only: a CPU op also reports its kernels' time
         if e.device_type != torch.autograd.DeviceType.CUDA:
-            host.append((e.self_cpu_time_total / 1e3, e.count, e.key))
+            ms = e.self_cpu_time_total / 1e3 / reqs
+            if e.key in SYNC_EVENTS:
+                sync_ms += ms
+            elif e.key in PROFILER_EVENTS:
+                prof_ms += ms
+            else:
+                host.append((ms, e.count / reqs, e.key))
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us > 0:
-            rows.append((us / 1e3, e.count, e.key))
+            rows.append((us / 1e3 / reqs, e.count / reqs, e.key))
     rows.sort(reverse=True)
     host.sort(reverse=True)
     by_kernel = {name: sum(r[0] for r in rows if symbol in r[2])
                  for name, symbol in KERNEL_SYMBOLS.items()}
+    counts = {name: sum(r[1] for r in rows if symbol in r[2])
+              for name, symbol in KERNEL_SYMBOLS.items()}
     return {"wall_ms": wall_ms, "device_ms": sum(r[0] for r in rows),
-            "by_kernel_ms": by_kernel,
+            "by_kernel_ms": by_kernel, "kernel_launches": counts,
+            "sync_wait_ms": sync_ms, "profiler_ms": prof_ms, "requests": reqs,
             "top": [{"ms": r[0], "count": r[1], "name": r[2][:80]}
                     for r in rows[:top]],
             "host_self_ms": sum(r[0] for r in host),
             "host_top": [{"ms": r[0], "count": r[1], "name": r[2][:80]}
                          for r in host[:top]]}
+
+
+def _host_ms(pred, feed, reps: int = 20) -> float:
+    """Host time of one request without the profiler: the host clock around
+    ``run`` with the card idle before each (median of `reps`): what the
+    host spends to issue a request, not waiting for it."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.run(feed)
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def _reset_counts():
@@ -538,6 +604,58 @@ def _counts() -> dict:
             "dw_conv_s1": depthwise.launches_by_stride[1],
             "dw_conv_s2": depthwise.launches_by_stride[2],
             "dw_pw_fused": dw_pw_fused.launches, "nms": nms.launches}
+
+
+def path_launches(g) -> dict:
+    """One request's launches of each kernel: the "cuda" ops of `g`."""
+    gemm, dw = kernel_shapes(g)
+    n_s1 = sum(1 for d in dw if d[0][5] == 1)
+    return {"int8_gemm": len(gemm), "dw_conv": len(dw), "dw_conv_s1": n_s1,
+            "dw_conv_s2": len(dw) - n_s1, "dw_pw_fused": len(fused_shapes(g)),
+            "nms": sum(1 for op in g.ops if op.op_type.startswith("multiclass_nms")
+                       and op.attrs.get("kernel") == "cuda")}
+
+
+def _check_first_run(path: str, launches: dict, want: dict) -> None:
+    """The counted requests of a fresh compiled predictor: its warm-up and
+    its capture launch each kernel once a request; replays call no wrapper."""
+    print(f"  launches over {REQUESTS} requests (the first request's warm-up and "
+          f"capture; the replays call no wrapper): {launches}")
+    if launches != {k: v * PER_FIRST_RUN for k, v in want.items()}:
+        fail(f"{path}: expected {PER_FIRST_RUN} x {want} launches over {REQUESTS} "
+             f"compiled requests, got {launches}")
+
+
+def _check_profiled_launches(path: str, prof: dict, want: dict) -> None:
+    """The profiled replay of one compiled request runs each kernel as many
+    times as the graph has "cuda" ops of its kind."""
+    got = prof["kernel_launches"]
+    print(f"  kernels in one profiled request ({prof.get('kernels_from', 'the replayed graph')}): "
+          f"{got}")
+    if got != {k: want[k] for k in KERNEL_SYMBOLS}:
+        fail(f"{path}: the profiled request ran {got}, the graph has {want}")
+
+
+class _Eager:
+    """The eager loop (``build_callable``) over a predictor's graph and
+    staged weights, warmed up on `feed`: the other side of the compiled
+    path's comparisons, with a predictor's ``run``."""
+
+    def __init__(self, pred, feed):
+        from paddle_lite_tpu_torch.core.executor import build_callable
+
+        self.graph = pred.graph
+        self._fn = build_callable(pred.graph, device=DEV)
+        self._weights = pred._weights
+        self.run(feed)
+
+    def run(self, feed):
+        return self._fn(self._weights, feed)
+
+
+# path -> (compiled predictor, its requests' feeds, launches a request),
+# filled by phases 3-6 for phase 7
+PATHS = {}
 
 
 def _serving_numbers(pred8, pred32, feed, batch: int, top: int = 8) -> dict:
@@ -559,14 +677,23 @@ def _serving_numbers(pred8, pred32, feed, batch: int, top: int = 8) -> dict:
         if pred is None:
             continue
         out["profile"][tag] = p = _device_breakdown(pred, on_dev, top=top)
-        print(f"  {tag} request under the profiler (input on the card): wall "
-              f"{p['wall_ms']:.3f} ms, device kernels {p['device_ms']:.3f} ms, "
-              f"host ops' self time {p['host_self_ms']:.3f} ms; by kernel, every "
-              f"instantiation: {p['by_kernel_ms']}")
+        if p["device_ms"] == 0:  # the profiler saw nothing inside the replay
+            e = _device_breakdown(_Eager(pred, on_dev), on_dev, top=top)
+            p.update({k: e[k] for k in ("device_ms", "by_kernel_ms", "kernel_launches", "top")},
+                     kernels_from="an eager request")
+            print(f"  {tag}: the profiler shows no kernel inside the replayed graph; the "
+                  f"kernel sums below are an eager request's, wall and host time the "
+                  f"compiled one's")
+        print(f"  {tag} request under the profiler (compiled, input on the card; "
+              f"{p['requests']} requests read as one): wall {p['wall_ms']:.3f} ms, device "
+              f"kernels {p['device_ms']:.3f} ms, host ops' self time {p['host_self_ms']:.3f} "
+              f"ms (apart: the closing synchronise's wait {p['sync_wait_ms']:.3f} ms, the "
+              f"profiler's own {p['profiler_ms']:.3f} ms); by kernel, every "
+              f"instantiation: {p['by_kernel_ms']}, launches {p['kernel_launches']}")
         for r in p["top"]:
-            print(f"    {r['ms']:.4f} ms x{r['count']} {r['name']}")
+            print(f"    {r['ms']:.4f} ms x{r['count']:g} {r['name']}")
         for r in p["host_top"][:5]:
-            print(f"    host {r['ms']:.4f} ms x{r['count']} {r['name']}")
+            print(f"    host {r['ms']:.4f} ms x{r['count']:g} {r['name']}")
     return out
 
 
@@ -596,15 +723,15 @@ def phase_main_path():
     tags = [op.attrs.get("kernel") for op in g8.ops]
     print(f"  ops {len(g8.ops)}, kernel='cuda' on {tags.count('cuda')}")
 
+    want = path_launches(g8)
+    if (want["int8_gemm"], want["dw_conv"], want["dw_pw_fused"], want["nms"]) != (14, 13, 0, 0):
+        fail(f"expected 14 GEMM and 13 depthwise ops on the kernels, got {want}")
     _reset_counts()
     outs = [pred8.run(f) for f in feeds]
     torch.cuda.synchronize()
     launches = _counts()
-    print(f"  launches over {REQUESTS} requests: {launches}")
-    if ((launches["int8_gemm"], launches["dw_conv"]) != (14 * REQUESTS, 13 * REQUESTS)
-            or launches["dw_pw_fused"] or launches["nms"]):
-        fail(f"expected 14 GEMM and 13 depthwise launches a request, "
-             f"got {launches} over {REQUESTS} requests")
+    _check_first_run("mobilenet_v1", launches, want)
+    PATHS["mobilenet_v1"] = (pred8, feeds, want)
 
     out_name = g8.outputs[0]
     for i, (f, o) in enumerate(zip(feeds, outs)):
@@ -652,6 +779,7 @@ def phase_main_path():
     del env_k, env_t
 
     serving = _serving_numbers(pred8, pred32, feeds[0], BATCH)
+    _check_profiled_launches("mobilenet_v1", serving["profile"]["int8"], want)
     unfused = {"calib": calib, "feeds": feeds, "out_name": out_name,
                "outs": [o[out_name] for o in outs], "pred": pred8}
     return launches, dict(serving, op_local_worst_fraction=worst_frac,
@@ -930,17 +1058,17 @@ def phase_ssd(fma_per_s: float):
                   f"{r['valid']} valid, out_mismatch {r['out_mismatch']}")
 
     # (b) the path: 3 requests through the predictor
+    n_s1 = sum(1 for d in dw if d[0][5] == 1)
+    want = {"int8_gemm": 17, "dw_conv": 13, "dw_conv_s1": n_s1,
+            "dw_conv_s2": 13 - n_s1, "dw_pw_fused": 0, "nms": 1}
+    if path_launches(g8) != want:
+        fail(f"expected {want} kernel ops a request, the graph has {path_launches(g8)}")
     _reset_counts()
     outs = [pred8.run(f) for f in feeds]
     torch.cuda.synchronize()
     launches = _counts()
-    print(f"  launches over {REQUESTS} requests: {launches}")
-    n_s1 = sum(1 for d in dw if d[0][5] == 1)
-    want = {"int8_gemm": 17, "dw_conv": 13, "dw_conv_s1": n_s1,
-            "dw_conv_s2": 13 - n_s1, "dw_pw_fused": 0, "nms": 1}
-    if launches != {key: v * REQUESTS for key, v in want.items()}:
-        fail(f"expected {want} launches a request, got {launches} over "
-             f"{REQUESTS} requests")
+    _check_first_run("ssd", launches, want)
+    PATHS["ssd"] = (pred8, feeds, want)
     for i, o in enumerate(outs):
         y = o[out_name]
         lab = y[..., 0]
@@ -987,6 +1115,7 @@ def phase_ssd(fma_per_s: float):
 
     # (e) information: throughput and where a request's time goes
     serving = _serving_numbers(pred8, pred32, feeds[0], SSD_BATCH, top=12)
+    _check_profiled_launches("ssd", serving["profile"]["int8"], want)
     return rows, launches, {
         **serving,
         "op_local_worst_fraction": worst_frac, "op_local_worst_lsb": worst_lsb,
@@ -1113,15 +1242,16 @@ def phase_fused(fma_per_s: float, unfused: dict):
     _report_rows(rows)
 
     # (b) 3 requests through the predictor
+    want = {"int8_gemm": 12, "dw_conv": 11, "dw_conv_s1": 7, "dw_conv_s2": 4,
+            "dw_pw_fused": 2, "nms": 0}
+    if path_launches(g) != want:
+        fail(f"expected {want} kernel ops a request, the graph has {path_launches(g)}")
     _reset_counts()
     outs = [pred.run(f) for f in unfused["feeds"]]
     torch.cuda.synchronize()
     launches = _counts()
-    print(f"  launches over {REQUESTS} requests: {launches}")
-    want = {"int8_gemm": 12, "dw_conv": 11, "dw_conv_s1": 7, "dw_conv_s2": 4,
-            "dw_pw_fused": 2, "nms": 0}
-    if launches != {k: v * REQUESTS for k, v in want.items()}:
-        fail(f"expected {want} launches a request, got {launches} over {REQUESTS}")
+    _check_first_run("mobilenet_v1_fused", launches, want)
+    PATHS["mobilenet_v1_fused"] = (pred, unfused["feeds"], want)
     out_name = unfused["out_name"]
     same = [torch.equal(o[out_name], u) for o, u in zip(outs, unfused["outs"])]
     print(f"  softmax equal to phase 3's unfused int8 predictor: {same}")
@@ -1141,6 +1271,7 @@ def phase_fused(fma_per_s: float, unfused: dict):
     if len(local) != 23 or not within_tie_bound(local):
         fail(f"a kernel disagrees with its torch op beyond the tie bound: {local}")
     serving = _serving_numbers(pred, None, unfused["feeds"][0], BATCH)
+    _check_profiled_launches("mobilenet_v1_fused", serving["profile"]["int8"], want)
     # the two int8 predictors in turns (unfused, fused, fused, unfused),
     # input on the card: the host clock moves between calls, so only this
     # comparison says what the fusion does to a request
@@ -1204,15 +1335,16 @@ def phase_mnv3(fma_per_s: float):
     _report_rows(rows)
 
     # (c) 3 requests: launches equal the "cuda" ops of each kind
+    want = {"int8_gemm": len(gemm), "dw_conv": len(dw), "dw_conv_s1": n_s1,
+            "dw_conv_s2": len(dw) - n_s1, "dw_pw_fused": 0, "nms": 0}
+    if (len(gemm), len(dw)) != (38, 15):
+        fail(f"expected 38 GEMM and 15 depthwise ops on the kernels, got {want}")
     _reset_counts()
     outs = [pred8.run(f) for f in feeds]
     torch.cuda.synchronize()
     launches = _counts()
-    print(f"  launches over {REQUESTS} requests: {launches}")
-    want = {"int8_gemm": len(gemm), "dw_conv": len(dw), "dw_conv_s1": n_s1,
-            "dw_conv_s2": len(dw) - n_s1, "dw_pw_fused": 0, "nms": 0}
-    if launches != {k: v * REQUESTS for k, v in want.items()}:
-        fail(f"expected {want} launches a request, got {launches} over {REQUESTS}")
+    _check_first_run("mobilenet_v3", launches, want)
+    PATHS["mobilenet_v3"] = (pred8, feeds, want)
     out_name = g8.outputs[0]
     coss = []
     for i, (f, o) in enumerate(zip(feeds, outs)):
@@ -1235,9 +1367,293 @@ def phase_mnv3(fma_per_s: float):
         fail(f"a kernel disagrees with its torch op beyond the tie bound: "
              f"{[d for d in local if d['n_diff']]}")
     serving = _serving_numbers(pred8, pred32, feeds[0], BATCH, top=12)
+    _check_profiled_launches("mobilenet_v3", serving["profile"]["int8"], want)
     return rows, launches, dict(serving, cosine=coss, op_local_worst_fraction=worst,
                                 op_local_outputs_with_diff=n_diff,
                                 torch_path_int8_ops=len(left))
+
+
+# ---- phase 7 ---------------------------------------------------------------
+
+def _with_all_outputs(g):
+    """`g` with every op output among its outputs (a shallow copy sharing
+    the ops, vars and weights), so that a compiled function returns every
+    intermediate."""
+    gx = copy.copy(g)
+    gx.outputs = list(g.outputs) + [n for op in g.topological_order()
+                                    for ns in op.outputs.values() for n in ns
+                                    if n not in g.outputs]
+    return gx
+
+
+def _max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def compiled_vs_eager(path: str, pred, feeds, want: dict) -> dict:
+    """One path's compiled request against the eager loop on the same graph
+    and weights: no host sync in the eager request after warm-up; one
+    request's launches counted at capture; every int8 intermediate equal
+    bit for bit, the outputs within SOFTMAX_ATOL; a second call leaves the
+    first's result unchanged; img/s in turns; profiled requests."""
+    from paddle_lite_tpu_torch.core.executor import compile_graph
+    from paddle_lite_tpu_torch.testing import SOFTMAX_ATOL, capture_all
+
+    g = pred.graph
+    batch = g.vars[g.inputs[0]].shape[0]
+    on_dev = [{k: torch.from_numpy(v).to(DEV) for k, v in f.items()} for f in feeds[:2]]
+    eager = _Eager(pred, on_dev[0])
+    torch.cuda.synchronize()
+    # (a) the eager request after warm-up makes no host sync
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager.run(on_dev[1])
+    except RuntimeError as e:
+        fail(f"{path}: the eager request after warm-up synchronises with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+    # (b) launches at capture; every intermediate against the eager loop
+    gx = _with_all_outputs(g)
+    fn, w = compile_graph(gx, device=DEV)
+    fn.warm_up(w, on_dev[0])
+    torch.cuda.synchronize()
+    _reset_counts()
+    fn.capture()
+    torch.cuda.synchronize()
+    at_capture = _counts()
+    first = fn(w, on_dev[0])
+    kept = {n: v.clone() for n, v in first.items()}
+    fn(w, on_dev[1])
+    torch.cuda.synchronize()
+    if _counts() != at_capture:
+        fail(f"{path}: a replay called a kernel wrapper ({_counts()} vs {at_capture})")
+    unchanged = all(torch.equal(first[n], kept[n]) for n in kept)
+    env = capture_all(g, pred._weights, feeds[0], DEV)
+    int8 = [n for n, v in first.items() if v.dtype == torch.int8]
+    int8_bad = [n for n in int8 if not torch.equal(first[n], env[n])]
+    out_err = max(_max_diff(first[n], env[n]) for n in g.outputs)
+    other_err = max([_max_diff(first[n], env[n]) for n in first
+                     if n not in int8 and n not in g.outputs] or [0.0])
+    pred_out = pred.run(feeds[0])
+    pred_err = max(_max_diff(pred_out[n], env[n]) for n in g.outputs)
+    print(f"  {path}: launches a request, counted at capture {at_capture}; "
+          f"{len(int8)} int8 tensors, {len(int8_bad)} differ from the eager loop's; "
+          f"outputs max abs diff {out_err:.3g} (the predictor's {pred_err:.3g}; bound "
+          f"{SOFTMAX_ATOL}); other fp32 intermediates {other_err:.3g}; first result "
+          f"unchanged by a second call: {unchanged}")
+    if at_capture != want:
+        fail(f"{path}: {at_capture} launches at capture, the graph has {want}")
+    if int8_bad or out_err > SOFTMAX_ATOL or pred_err > SOFTMAX_ATOL or not unchanged:
+        fail(f"{path}: compiled and eager differ (int8 {int8_bad[:5]}, outputs {out_err}, "
+             f"predictor {pred_err}) or a second call changed the first result")
+    del fn, w, first, kept, env, pred_out
+    torch.cuda.empty_cache()
+
+    # (c) img/s in turns, numpy input and input on the card
+    turns = {}
+    for label, feed in (("numpy", feeds[0]), ("on_card", on_dev[0])):
+        t = {"eager": [], "compiled": []}
+        for tag in ("eager", "compiled", "compiled", "eager"):
+            t[tag].append(_ips(eager if tag == "eager" else pred, feed, batch=batch))
+        turns[label] = t
+    print(f"  {path}: img/s in turns (eager, compiled, compiled, eager; host clock, 10 "
+          f"requests): " + "; ".join(
+              f"{lab}: eager {v['eager'][0]:.1f} / {v['eager'][1]:.1f}, compiled "
+              f"{v['compiled'][0]:.1f} / {v['compiled'][1]:.1f}" for lab, v in turns.items()))
+
+    # (d) one profiled request each way, input on the card
+    prof = {"compiled": _device_breakdown(pred, on_dev[0]),
+            "eager": _device_breakdown(eager, on_dev[0])}
+    host_ms = {"compiled": _host_ms(pred, on_dev[0]), "eager": _host_ms(eager, on_dev[0])}
+    c = prof["compiled"]
+    device_ms = c["device_ms"] or prof["eager"]["device_ms"]
+    for tag, p in prof.items():
+        print(f"  {path} {tag} request under the profiler ({p['requests']} read as one): "
+              f"wall {p['wall_ms']:.3f} ms, device kernels {p['device_ms']:.3f} ms, host "
+              f"ops' self time {p['host_self_ms']:.3f} ms (apart: the closing synchronise's "
+              f"wait {p['sync_wait_ms']:.3f} ms, the profiler's own {p['profiler_ms']:.3f} "
+              f"ms); without the profiler the host issues a request in "
+              f"{host_ms[tag]:.3f} ms (median of 20); host top: " + ", ".join(
+                  f"{r['name']} {r['ms']:.3f} x{r['count']:g}" for r in p["host_top"][:4]))
+    if not c["device_ms"]:
+        print(f"  {path}: the profiler saw no kernel inside the replayed graph; the "
+              f"device time above the compiled host time is the eager request's")
+    if not c["host_self_ms"] < device_ms:
+        fail(f"{path}: a compiled request's host ops' self time {c['host_self_ms']:.3f} ms "
+             f"is not below its device kernel time {device_ms:.3f} ms")
+    return {"launches_at_capture": at_capture, "int8_tensors": len(int8),
+            "output_max_abs_diff": out_err, "img_s_in_turns": turns,
+            "host_issue_ms": host_ms,
+            "profile": {k: {kk: v[kk] for kk in ("wall_ms", "device_ms", "host_self_ms",
+                                                  "sync_wait_ms", "profiler_ms",
+                                                  "kernel_launches", "host_top")}
+                        for k, v in prof.items()}}
+
+
+def phase_compiled() -> dict:
+    """Phase 7a: each path compiled against eager, then the host-syncing
+    NMS impl refused before capture."""
+    from paddle_lite_tpu_torch.core.executor import compile_graph
+    from paddle_lite_tpu_torch.testing import retag
+
+    print("phase 7: the compiled request path (one CUDA graph a request) against "
+          "the eager loop on the same graph")
+    out = {path: compiled_vs_eager(path, *PATHS[path]) for path in PATHS}
+    bad = retag(PATHS["ssd"][0].graph, "cuda", "torch")
+    try:
+        compile_graph(bad, device=DEV)
+    except ValueError as e:
+        if "multiclass_nms" not in str(e):
+            fail(f"the torch-tagged SSD was refused for another reason: {e}")
+        print(f"  SSD with its NMS under 'torch' is refused before capture: {e}")
+    else:
+        fail("compile_graph took SSD with the host-syncing torch NMS")
+    return out
+
+
+def phase_serving() -> dict:
+    """Phase 7b: a ContinuousBatcher over compiled MobileNetV1 INT8 bucket
+    predictors answers 512 single-image requests from 8 client threads,
+    while four clones of the b64 predictor run on four more threads."""
+    import threading
+
+    from paddle_lite_tpu_torch import QuantConfig
+    from paddle_lite_tpu_torch.models import mobilenet_v1
+    from paddle_lite_tpu_torch.runtime.batcher import BatcherConfig, ContinuousBatcher
+    from paddle_lite_tpu_torch.runtime.predictor import create_predictor
+    from paddle_lite_tpu_torch.testing import SOFTMAX_ATOL
+
+    rng = np.random.default_rng(7)
+    buckets = (1, 2, 4, 8, 16, 32, 64)
+    images = rng.normal(size=(64, SIZE, SIZE, 3)).astype(np.float32)
+    t0 = time.perf_counter()
+    preds = {}
+    for b in buckets:  # each calibrates on the same 64 images, b at a time
+        g = mobilenet_v1.build(batch=b, image_size=SIZE, seed=0)
+        preds[b] = create_predictor(
+            g, quant=QuantConfig(), device=DEV,
+            calib_batches=[{"image": images[i:i + b]} for i in range(0, 64, b)])
+    print(f"phase 7b: serving MobileNetV1 INT8 {SIZE} px over buckets {buckets}: "
+          f"build + optimize + calibrate {time.perf_counter() - t0:.1f} s")
+
+    def scales(g):
+        return {n: v.quant.scale for n, v in g.vars.items()
+                if v.quant is not None and not v.is_weight}
+
+    ref = scales(preds[64].graph)
+    n_equal, worst = 0, 0.0
+    for b in buckets:
+        sc = scales(preds[b].graph)
+        if sc.keys() != ref.keys():
+            fail(f"bucket {b} quantized other vars than bucket 64")
+        for n, v in sc.items():
+            r = np.asarray(ref[n], np.float64)
+            rel = float(np.max(np.abs(np.asarray(v, np.float64) - r) / r))
+            n_equal += rel == 0.0
+            worst = max(worst, rel)
+    print(f"  activation scales: {n_equal} of {len(ref) * len(buckets)} equal bit for bit "
+          f"to bucket 64's, largest relative difference {worst:.3g} (bound 1e-5: fp32 "
+          f"convs at another batch size may sum in another order)")
+    if worst > 1e-5:
+        fail(f"the buckets' calibrated scales differ by {worst} relative")
+
+    out_name = preds[64].graph.outputs[0]
+    parent = preds[64]
+    parent_out = parent.run({"image": images})[out_name].cpu()
+    clones = [parent.clone() for _ in range(4)]
+    n_req, n_clients = 512, 8
+    reqs = rng.normal(size=(n_req, SIZE, SIZE, 3)).astype(np.float32)
+    results, latency, errors = [None] * n_req, [0.0] * n_req, []
+    clone_outs = [None] * len(clones)
+
+    def client(c):
+        # bursts of 8 requests, each waited for: batches of many sizes
+        try:
+            mine = list(range(c, n_req, n_clients))
+            for k in range(0, len(mine), 8):
+                sent = [(i, time.perf_counter(), batcher.submit({"image": reqs[i]}))
+                        for i in mine[k:k + 8]]
+                for i, t, f in sent:
+                    results[i] = f.result(timeout=600)[out_name].cpu()
+                    latency[i] = time.perf_counter() - t
+        except Exception as e:  # reported on the main thread
+            errors.append(f"client {c}: {e!r}")
+
+    def clone_work(j):
+        try:
+            clone_outs[j] = [clones[j].run({"image": images})[out_name].cpu()
+                             for _ in range(3)]
+        except Exception as e:  # reported on the main thread
+            errors.append(f"clone {j}: {e!r}")
+
+    captured_before = sum(p._fn.captured for p in preds.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    batcher = ContinuousBatcher(lambda b: preds[b],
+                                BatcherConfig(buckets=buckets, max_wait_ms=2.0))
+    threads = ([threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
+               + [threading.Thread(target=clone_work, args=(j,)) for j in range(len(clones))])
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+    finally:
+        batcher.close()
+    torch.cuda.synchronize()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"serving failed: {errors[:5]}")
+    used = [b for b in buckets if preds[b]._fn.captured]
+    captures = len(used) - captured_before + len(clones)
+    want = {k: v * PER_FIRST_RUN * captures
+            for k, v in PATHS["mobilenet_v1"][2].items()}
+    print(f"  launches in the serving run ({captures} predictors warmed up and "
+          f"captured in it, the clones and the buckets first used; buckets used by "
+          f"then: {used}; replays call no wrapper): {launches}")
+    if launches != want:
+        fail(f"serving: expected {want} launches, got {launches}")
+    clones_equal = all(torch.equal(o, parent_out) for outs in clone_outs for o in outs)
+    b1 = preds[1]
+    errs = [_max_diff(results[i], b1.run({"image": reqs[i:i + 1]})[out_name][0].cpu())
+            for i in range(n_req)]
+    lat = np.sort(np.asarray(latency)) * 1e3
+    st = batcher.stats
+    serving = {"requests": n_req, "requests_per_s": n_req / wall, "wall_s": wall,
+               "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+               "batches": st["batches"], "padded_slots": st["padded_slots"],
+               "max_abs_diff_vs_b1": max(errs), "clones_equal_parent": clones_equal,
+               "peak_memory_bytes": peak, "launches": launches}
+    print(f"  {n_req} requests from {n_clients} client threads in bursts of 8 (and 4 clones of the b64 "
+          f"predictor on 4 threads) in {wall:.3f} s: {serving['requests_per_s']:.1f} "
+          f"requests/s, latency p50 {serving['p50_ms']:.1f} ms p99 {serving['p99_ms']:.1f} "
+          f"ms, {st['batches']} batches, {st['padded_slots']} padded slots; results vs the "
+          f"b1 predictor max abs diff {max(errs):.3g} (bound {SOFTMAX_ATOL}); clones equal "
+          f"the parent: {clones_equal}; peak device memory {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    if st["requests"] != n_req or max(errs) > SOFTMAX_ATOL or not clones_equal:
+        fail(f"serving: {st['requests']} of {n_req} answered, max diff {max(errs)}, "
+             f"clones equal {clones_equal}")
+    serving["buckets_used"] = used
+    return serving
+
+
+def phase_benchmark() -> dict:
+    """Phase 7c: the benchmark tool on the main path."""
+    from paddle_lite_tpu_torch.tools.benchmark import bench_model
+
+    t0 = time.perf_counter()
+    r = bench_model("mobilenet_v1", batch=BATCH, image_size=SIZE, with_fp32=True,
+                    device=DEV)
+    print(f"phase 7c: tools.benchmark.bench_model('mobilenet_v1', batch={BATCH}, "
+          f"with_fp32=True) in {time.perf_counter() - t0:.1f} s: {json.dumps(r)}")
+    return r
 
 
 # ---- the kernels' line -----------------------------------------------------
@@ -1365,10 +1781,14 @@ def main() -> None:
     ssd_rows, ssd_launches, ssd = phase_ssd(fma_per_s)
     fused_rows, fused_launches, fused = phase_fused(fma_per_s, unfused)
     v3_rows, v3_launches, v3 = phase_mnv3(fma_per_s)
+    compiled = phase_compiled()
+    serving = phase_serving()
+    bench = phase_benchmark()
     all_rows = rows + ssd_rows + fused_rows + v3_rows
     kernels = _kernel_line(all_rows, {"mobilenet_v1": launches, "ssd": ssd_launches,
                                       "mobilenet_v1_fused": fused_launches,
-                                      "mobilenet_v3": v3_launches},
+                                      "mobilenet_v3": v3_launches,
+                                      "serving": serving["launches"]},
                            {"mobilenet_v1": e2e["profile"]["int8"],
                             "ssd": ssd["profile"]["int8"],
                             "mobilenet_v1_fused": fused["profile"]["int8"],
@@ -1399,7 +1819,8 @@ def main() -> None:
         with open(args.json, "w") as f:
             json.dump({"card": card, "rows": all_rows, "main_path": e2e,
                        "ssd": ssd, "mobilenet_v1_fused": fused,
-                       "mobilenet_v3": v3, "kernels": kernels}, f, indent=1)
+                       "mobilenet_v3": v3, "compiled": compiled, "serving": serving,
+                       "benchmark": bench, "kernels": kernels}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,11 @@ This package imports neither ``jax`` nor any module of the JAX package.
 
 Layer map:
   runtime.predictor   Predictor / create_predictor (device="cuda" default)
+  runtime.batcher     ContinuousBatcher over bucketed compiled predictors
   tools.opt           optimize: fusions, calibration, PTQ, kernel pick
-  core                IR, builder, registry, passes, eager executor
+  tools.benchmark     img/s of a zoo model; tools.batch_tune its buckets
+  core                IR, builder, registry, passes, eager executor and
+                      compile_graph (the graph captured as a CUDA graph)
   ops                 torch impls; ops.kernels: the CUDA kernels
   formats.interop     graphs carried across from the JAX package
 """
@@ -18,7 +21,7 @@ Layer map:
 from . import ops  # registers all operators & kernels
 from . import passes  # registers all graph passes
 from .core.builder import GraphBuilder
-from .core.executor import build_callable, stage_weights
+from .core.executor import build_callable, compile_graph, stage_weights
 from .core.ir import Graph
 from .core.pass_manager import PassManager
 from .core.types import CalibMethod, Precision, QuantInfo

@@ -3,13 +3,14 @@
 The entry points (``tools.opt.optimize``, ``runtime.predictor``) run on the
 card unless the caller asks for the CPU: ``device=None`` means ``"cuda"``,
 and with no card that raises instead of quietly running on the CPU.
+:class:`InputStager` moves host inputs to the card through pinned buffers.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Iterator, Optional, Union
+from typing import Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -67,3 +68,43 @@ def to_tensor(value, device: torch.device) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value.to(device)
     return torch.from_numpy(np.ascontiguousarray(value)).to(device)
+
+
+class InputStager:
+    """Copies host inputs (numpy arrays, CPU tensors) into device tensors
+    through pinned staging buffers, two per input name, by a
+    ``non_blocking`` copy on the current stream.
+
+    A staging buffer is written again only after the CUDA event recorded
+    behind its last copy has completed, so the host can fill request i+1's
+    buffer while the card still reads request i's.  A tensor already on a card is copied device to device, without
+    staging.
+    """
+
+    SLOTS = 2
+
+    def __init__(self) -> None:
+        self._rings: Dict[str, list] = {}
+        self._next: Dict[str, int] = {}
+
+    def copy(self, key: str, value, dst: torch.Tensor) -> None:
+        """``dst.copy_(value)``, cast to dst's dtype; `value` must already
+        have dst's shape."""
+        if isinstance(value, torch.Tensor) and value.device.type == "cuda":
+            dst.copy_(value)
+            return
+        src = value if isinstance(value, torch.Tensor) \
+            else torch.from_numpy(np.asarray(value))
+        ring = self._rings.setdefault(key, [])
+        i = self._next.get(key, 0)
+        self._next[key] = (i + 1) % self.SLOTS
+        if i == len(ring):
+            ring.append([torch.empty(dst.shape, dtype=dst.dtype, pin_memory=True),
+                         None])
+        slot = ring[i]
+        if slot[1] is not None:
+            slot[1].synchronize()  # the card has finished reading this buffer
+        slot[0].copy_(src)
+        dst.copy_(slot[0], non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record()

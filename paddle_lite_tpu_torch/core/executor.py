@@ -1,24 +1,29 @@
-"""Executor — runs an optimized Graph op by op, eagerly.
+"""Executor — runs an optimized Graph op by op, and compiles it into a CUDA
+graph.
 
 Port of ``paddle_lite_tpu/core/executor.py`` (``build_callable``,
-``stage_weights``), the analog of ``lite/core/program.{h,cc}``
-(``RuntimeProgram::Run``'s instruction loop).  The JAX package traces the
-loop once under ``jax.jit``; here the loop runs on every call, in the same
+``stage_weights``, ``compile_graph``), the analog of
+``lite/core/program.{h,cc}`` (``RuntimeProgram::Run``'s instruction loop).
+``build_callable`` is the eager loop: it runs on every call, in the same
 topological order, with the same name-keyed ``env`` and the same
 ``capture(name, value)`` hook (called for every graph input and every op
-output, ``executor.py:97-117`` there).  The bf16 island
+output, ``executor.py:97-117`` there).  ``compile_graph`` is the port's
+``jax.jit``: on the card it captures that loop once, on the first call, as
+a ``torch.cuda.CUDAGraph`` over static input and output buffers, and every
+later call replays it (:class:`CompiledGraph`).  The bf16 island
 (``graph.meta["island_dtype"]``, ``executor.py:86-116``) is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .device import fp32_exact, to_tensor
+from .device import InputStager, fp32_exact, to_tensor
 from .ir import Graph, OpNode
 from .registry import OPS
 
@@ -73,6 +78,13 @@ def build_callable(
     called with every intermediate (name, value) — the hook used by the
     calibration runner and the cross-package tests.
     """
+    return _runner(graph, ExecutionContext(graph=graph, device=device), capture)
+
+
+def _runner(graph: Graph, ctx: ExecutionContext,
+            capture: Optional[Callable[[str, torch.Tensor], None]] = None):
+    """The eager loop of `graph` over `ctx` (its device and per-op
+    constants); impls are resolved here, so an unknown tag raises now."""
     if graph.meta.get("island_dtype"):
         raise NotImplementedError(
             "bf16 islands (graph.meta['island_dtype']) are not ported yet"
@@ -80,7 +92,7 @@ def build_callable(
     order = graph.topological_order()
     impls = [OPS.get(op.op_type).impl_for(op.attrs.get("kernel"))
              for op in order]
-    ctx = ExecutionContext(graph=graph, device=device)
+    device = ctx.device
 
     def run(weights: Dict[str, Any], inputs: Dict[str, Any]) -> Dict[str, Any]:
         env: Dict[str, Any] = dict(weights)
@@ -106,3 +118,149 @@ def build_callable(
 def stage_weights(graph: Graph, device: torch.device) -> Dict[str, torch.Tensor]:
     """Weights as device tensors, copied once."""
     return {k: to_tensor(v, device) for k, v in graph.weights.items()}
+
+
+# one capture at a time in the process: a capture must not see another
+# thread's capture begin or end, and the warm-up that precedes it fills
+# per-op constants that clones share
+_CAPTURE_LOCK = threading.Lock()
+
+
+def host_syncing_ops(graph: Graph) -> List[str]:
+    """"op_type (tag)" of every op of `graph` whose impl waits for the card
+    on the host (registered with ``syncs_host=True``)."""
+    return [f"{op.op_type} (kernel {op.attrs.get('kernel') or 'torch'!r}, "
+            f"output {next(iter(op.outputs.values()))[0]})"
+            for op in graph.topological_order()
+            if OPS.get(op.op_type).syncs_host(op.attrs.get("kernel"))]
+
+
+class CompiledGraph:
+    """``fn(weights, inputs) -> outputs`` over static buffers: the
+    ``jax.jit``-compiled function of the reference.
+
+    On ``"cuda"`` the first call copies the inputs into the static input
+    buffers, runs the eager loop once on them (the warm-up: it fills the
+    per-op constants, folded scales and repacked weights, and loads and
+    sets up the kernel libraries, none of which may happen inside a
+    capture), then captures the loop as one ``torch.cuda.CUDAGraph`` with
+    TF32 off; every call replays it.  A capture that fails raises; nothing
+    falls back to the eager loop.  On ``"cpu"`` there is no CUDA graph: the
+    same eager loop runs on the same static buffers, so the contract is the
+    same on both devices:
+
+    - inputs are cast to the input var's precision; an input of another
+      shape raises;
+    - the outputs are fresh tensors (one ``clone()`` a call), so a later
+      call never changes a result already handed out;
+    - ``weights`` must be the tensors the function was compiled with (the
+      graph holds their pointers); any other dict raises.
+
+    Calls on one instance are serialised; :meth:`clone` gives a function
+    with its own buffers and graph that shares the weights and constants.
+    """
+
+    def __init__(self, graph: Graph, device: torch.device,
+                 weights: Dict[str, torch.Tensor],
+                 ctx: Optional[ExecutionContext] = None):
+        syncing = host_syncing_ops(graph)
+        if syncing:
+            raise ValueError(
+                f"compile_graph: {', '.join(syncing)} synchronise(s) with the "
+                f"host and cannot be captured in a CUDA graph; tag it with a "
+                f"kernel that does not, or run the eager build_callable")
+        self.graph = graph
+        self.device = device
+        self.weights = weights
+        self.ctx = ctx or ExecutionContext(graph=graph, device=device)
+        self._run = _runner(graph, self.ctx)
+        self._inputs = {
+            n: torch.empty(graph.vars[n].shape,
+                           dtype=graph.vars[n].precision.torch_dtype, device=device)
+            for n in graph.inputs}
+        self._outputs: Optional[Dict[str, torch.Tensor]] = None
+        self._cuda_graph: Optional[torch.cuda.CUDAGraph] = None
+        self._stager = InputStager() if device.type == "cuda" else None
+        self._ptrs = {k: v.data_ptr() for k, v in weights.items()}
+        self._lock = threading.RLock()
+
+    @property
+    def captured(self) -> bool:
+        return self._cuda_graph is not None
+
+    def clone(self) -> "CompiledGraph":
+        """The same function with its own static buffers and its own graph
+        (captured on its first call), sharing the weights and the per-op
+        constants."""
+        return CompiledGraph(self.graph, self.device, self.weights, self.ctx)
+
+    def _check_weights(self, weights: Dict[str, Any]) -> None:
+        if weights is self.weights:
+            return
+        if set(weights) != set(self._ptrs) or any(
+                not isinstance(v, torch.Tensor) or v.data_ptr() != self._ptrs[k]
+                for k, v in weights.items()):
+            raise ValueError(
+                "compiled graph: called with other weights than it was compiled "
+                "with (the graph holds their device pointers); use the weights "
+                "compile_graph returned")
+
+    def _load(self, inputs: Dict[str, Any]) -> None:
+        missing = [n for n in self._inputs if n not in inputs]
+        if missing:
+            raise ValueError(f"compiled graph: missing inputs {missing}")
+        for name, dst in self._inputs.items():
+            value = inputs[name]
+            got = tuple(value.shape) if isinstance(value, torch.Tensor) \
+                else tuple(np.shape(value))
+            if got != tuple(dst.shape):
+                raise ValueError(f"compiled graph: input {name!r} has shape {got}, "
+                                 f"compiled for {tuple(dst.shape)}")
+            if self._stager is None:
+                dst.copy_(value if isinstance(value, torch.Tensor)
+                          else torch.from_numpy(np.asarray(value)))
+            else:
+                self._stager.copy(name, value, dst)
+
+    def warm_up(self, weights: Dict[str, Any], inputs: Dict[str, Any]) -> None:
+        """Load `inputs` and run the eager loop once on the static buffers
+        (the first call does this before it captures)."""
+        self._check_weights(weights)
+        with self._lock, _CAPTURE_LOCK:
+            self._load(inputs)
+            self._run(self.weights, self._inputs)
+
+    def capture(self) -> None:
+        """Capture the eager loop over the static buffers as a CUDA graph
+        (after :meth:`warm_up`; the first call does both)."""
+        with self._lock, _CAPTURE_LOCK, fp32_exact():
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                outputs = self._run(self.weights, self._inputs)
+            self._outputs, self._cuda_graph = outputs, graph
+
+    def __call__(self, weights: Dict[str, Any],
+                 inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        self._check_weights(weights)
+        with self._lock:
+            if self.device.type == "cuda" and self._cuda_graph is None:
+                self.warm_up(weights, inputs)
+                self.capture()
+            self._load(inputs)
+            if self._cuda_graph is None:  # the CPU: the eager loop
+                outputs = self._run(self.weights, self._inputs)
+            else:
+                self._cuda_graph.replay()
+                outputs = self._outputs
+            return {n: v.clone() for n, v in outputs.items()}
+
+
+def compile_graph(graph: Graph, *, device: torch.device
+                  ) -> Tuple[CompiledGraph, Dict[str, torch.Tensor]]:
+    """Stage the weights and compile the graph: ``(fn, weights)``, as the
+    reference returns ``(jax.jit(fn), weights)``; call ``fn(weights,
+    inputs)``.  The ``GenRuntimeProgram`` + first-``Run`` analog.  Raises
+    ``ValueError`` for a graph holding an impl that synchronises with the
+    host (the ``"torch"`` NMS), naming the op."""
+    weights = stage_weights(graph, device)
+    return CompiledGraph(graph, device, weights), weights

@@ -15,13 +15,17 @@ another kernel than the one picked.  Here a stamped tag without an impl
 raises.
 
 Implementations are functions ``impl(ctx, op, inputs: dict[str, list
-[Tensor]]) -> dict[str, list[Tensor]]`` run eagerly by the executor.
+[Tensor]]) -> dict[str, list[Tensor]]`` run eagerly by the executor.  An
+impl registered with ``syncs_host=True`` waits for the card on the host
+(it reads a device value back, as the ``"torch"`` NMS's fixed-point loop
+does every round), so ``core.executor.compile_graph`` cannot capture it in
+a CUDA graph and refuses a graph that holds it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 ShapeList = List[Tuple[int, ...]]
 InferShapeFn = Callable[..., Any]
@@ -38,6 +42,11 @@ class OpDef:
     # slots documented for importers/tools (not enforced)
     input_slots: Sequence[str] = ()
     output_slots: Sequence[str] = ("Out",)
+    # kernel tags whose impl synchronises with the host
+    host_sync: Set[str] = dataclasses.field(default_factory=set)
+
+    def syncs_host(self, kernel: Optional[str]) -> bool:
+        return (kernel or DEFAULT_KERNEL) in self.host_sync
 
     def impl_for(self, kernel: Optional[str]) -> ImplFn:
         tag = kernel or DEFAULT_KERNEL
@@ -73,11 +82,18 @@ class OpRegistry:
             self._ops[name].infer_shape = infer_shape
         return self._ops[name]
 
-    def kernel(self, op_name: str, kernel: str = DEFAULT_KERNEL):
-        """Decorator: register an implementation for `op_name` under `kernel`."""
+    def kernel(self, op_name: str, kernel: str = DEFAULT_KERNEL, *,
+               syncs_host: bool = False):
+        """Decorator: register an implementation for `op_name` under
+        `kernel`; ``syncs_host`` marks one that waits for the card."""
 
         def deco(fn: ImplFn) -> ImplFn:
-            self.register(op_name).impls[kernel] = fn
+            op = self.register(op_name)
+            op.impls[kernel] = fn
+            if syncs_host:
+                op.host_sync.add(kernel)
+            else:
+                op.host_sync.discard(kernel)
             return fn
 
         return deco

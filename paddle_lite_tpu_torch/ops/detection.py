@@ -255,10 +255,13 @@ def nms_merge(s_all: torch.Tensor, cand_all: torch.Tensor, *, background: int,
     return rows
 
 
-@OPS.kernel("multiclass_nms", "torch")
-@OPS.kernel("multiclass_nms2", "torch")
+@OPS.kernel("multiclass_nms", "torch", syncs_host=True)
+@OPS.kernel("multiclass_nms2", "torch", syncs_host=True)
 def multiclass_nms_torch(ctx, op, ins):
     """Output per image: (keep_top_k, 6) rows — see :func:`nms_merge`.
+
+    Marked ``syncs_host``: :func:`jacobi_keep` reads ``torch.equal`` back
+    every round, so no CUDA graph can hold this impl.
 
     Candidates are each class's exact top ``min(nms_top_k, M)``.  The
     reference's ``approx_top_k`` tiers all land here as its

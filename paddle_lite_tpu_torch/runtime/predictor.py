@@ -8,10 +8,13 @@ validation, ``create_predictor``), the analog of the reference's
 
 The predictor runs on the card unless asked for the CPU
 (``device="cpu"``); with no card, the default raises.  It stages the graph's
-weights to the device once, at construction, and each op folds its scales
-and repacks its GEMM weight once, on its first run.  ``run`` takes
-name-keyed numpy arrays or tensors and returns name-keyed tensors on the
-predictor's device.
+weights to the device once, at construction, through
+:func:`~..core.executor.compile_graph`, as the reference's predictor goes
+through ``jax.jit``: on the card the first ``run`` warms the graph up (each
+op folds its scales and repacks its GEMM weight) and captures it as a CUDA
+graph, and every ``run`` replays it.  ``run`` takes name-keyed numpy arrays
+or tensors and returns fresh name-keyed tensors on the predictor's device.
+The eager loop stays reachable as ``core.executor.build_callable``.
 
 Arithmetic: convs and matmuls on the fp32 paths (the stem conv, the fp32
 predictor, softmax's input) run with TF32 off — full fp32, as in the
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from ..core.device import DeviceLike, resolve_device
-from ..core.executor import build_callable, stage_weights
+from ..core.executor import compile_graph
 from ..core.ir import Graph
 
 
@@ -46,8 +49,7 @@ class Predictor:
         self.config = config or PredictorConfig()
         self.device = resolve_device(
             device if device is not None else self.config.device)
-        self._fn = build_callable(graph, device=self.device)
-        self._weights = stage_weights(graph, self.device)
+        self._fn, self._weights = compile_graph(graph, device=self.device)
 
     # ---- introspection (GetInputNames/GetOutputNames analog) -------------
     @property
@@ -87,13 +89,16 @@ class Predictor:
         return self.run(inputs)
 
     def clone(self, config: Optional[PredictorConfig] = None) -> "Predictor":
-        """Weight-sharing clone: shares the staged device weights and the
-        per-op constants; only the config (e.g. validation) may differ."""
+        """Weight-sharing clone, one a serving thread: shares the staged
+        device weights and the per-op constants, and has its own static
+        buffers and CUDA graph (captured on its first run), so clones on
+        two threads never share an output buffer.  Only the config (e.g.
+        validation) may differ."""
         c = Predictor.__new__(Predictor)
         c.graph = self.graph
         c.config = config or self.config
         c.device = self.device
-        c._fn = self._fn
+        c._fn = self._fn.clone()
         c._weights = self._weights
         return c
 
