@@ -52,15 +52,20 @@ Phases:
    kept candidate against each valid one it beats, counted on this run's
    scores and output: a removed candidate suppresses nothing) / the fp32
    instruction rate (the FMA rate above: none of the 13 is an FMA),
-   printed with its plan (shared bytes, blocks an SM, waves).  Then 3
-   compiled requests: twice 17 GEMM, 13 depthwise and 1 NMS launch (warm-up
-   and capture), and as many in one profiled replay;
+   printed with its plan (shared bytes, blocks an SM, waves).  Each of the
+   16 int8 3x3 convs (four extra stages, twelve heads) runs as the GEMM
+   over its im2col rows: the whole route (copy and kernel), the copy alone
+   and the old torch route (an fp32 cuDNN conv, ``round``, the epilogue)
+   are timed on the card at each shape, the route within the tie bound of
+   the torch op.  Then 3 compiled requests: twice the graph's "cuda" ops
+   of each kind (33 GEMM: 17 pointwise and the 16 3x3 convs; 13 depthwise,
+   1 NMS) over warm-up and capture, and as many in one profiled replay;
    every kernel op except ``multiclass_nms`` against its torch op on
    identical inputs (tie bound);
    ``multiclass_nms`` with the kernel against the same op with the plain
-   version, exactly.  int8 vs fp32 detections, the largest int8
-   accumulator of the torch-path 3x3 convs, img/s and a profiled request
-   are information.
+   version, exactly.  int8 vs fp32 detections, the int8 convs left on the
+   torch route with their K and largest accumulator (none since the 3x3
+   convs moved), img/s and a profiled request are information.
 5. MobileNetV1 b64/224 with ``QuantConfig(fuse_dw_pw=True)``: the fused
    dw+pw kernel at the path's two shapes (timed with one call a graph and
    with ten, beside its bound, its plain version and the unfused pair of
@@ -75,7 +80,9 @@ Phases:
    within the tie bound of their torch ops.  img/s (also in turns with
    phase 3's predictor) and a profiled request are information.
 6. MobileNetV3-Large b64/224 INT8 (``with_softmax=False``): no int8 op
-   that a kernel takes is left on the torch path; the GEMM and depthwise
+   that a kernel takes is left on the torch path (on every path, phases
+   3-6 and 8: nor an int8 conv with K = kh·kw·C > 1040, where an fp32
+   conv stops being exact for every input); the GEMM and depthwise
    kernels at every shape and activation of the path (relu, hard_swish,
    hard_sigmoid, none) bit-exact against their plain versions; 3 compiled
    requests with twice as many launches as the graph has "cuda" ops of
@@ -84,7 +91,8 @@ Phases:
    the fp32 predictor's, cosine > 0.96 (the bar of
    ``tests/test_model_zoo_int8.py:38``).  img/s and a profiled request
    are information.
-7. The compiled path and serving.  (a) For each of the four paths, the
+7. The compiled path and serving.  (a) For each of the four paths (and
+   ResNet-50 in phase 8), the
    compiled request against the eager loop (``build_callable`` on the same
    graph and weights): an eager request after warm-up under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); one
@@ -105,7 +113,24 @@ Phases:
    the parent's; requests/s, latency, batches, padded slots and peak
    memory printed.  (c) ``tools.benchmark.bench_model("mobilenet_v1",
    batch=64, with_fp32=True)``.
-8. The last lines: the card (nvidia-smi), the kernels' JSON line, then
+8. ResNet-50 b32/224 INT8 (``resnet.build`` → ``create_predictor(quant=
+   QuantConfig(), ...)``, the second ``bench.py`` config): the GEMM kernel
+   at every shape of the path (its 37 "cuda" ops: 16 reduce 1x1, 16 3x3
+   through im2col, 4 expansion convs, the fc) bit-exact against its plain
+   version and timed as in phase 2; the route timings of phase 4 at every
+   k×k or strided conv; a saturating 3x3 conv (C = 512, K = 4608, b32 at
+   7x7, x and w in 100..127, so the accumulator passes 2^25; fp32 out,
+   scale 1) whose route must equal the exact accumulator rounded once to
+   fp32, bit for bit (the fp32 torch route's difference printed); 3
+   compiled requests with twice the graph's "cuda" ops, as many in one
+   profiled replay; every kernel op within the tie bound of its torch op;
+   int8 against the fp32 predictor at cosine > 0.98 (the bar of
+   ``tests/test_models.py:41``); then phase 7a's checks on this path.
+   img/s (compiled, in turns with the eager loop), fp32 img/s, one
+   profiled request's top device kernels, and the residual convs left on
+   the torch route timed at each shape (the whole op, and its fp32 conv
+   and ``round`` alone) are information.
+9. The last lines: the card (nvidia-smi), the kernels' JSON line, then
    ``{"ok": true, "device": {...}}``.
 
 With ``--json PATH`` the per-shape numbers are also written to PATH.
@@ -722,6 +747,7 @@ def phase_main_path():
     print(f"phase 3: build + optimize + calibrate {time.perf_counter() - t0:.1f} s")
     tags = [op.attrs.get("kernel") for op in g8.ops]
     print(f"  ops {len(g8.ops)}, kernel='cuda' on {tags.count('cuda')}")
+    torch_route_ops(g8, "mobilenet_v1")
 
     want = path_launches(g8)
     if (want["int8_gemm"], want["dw_conv"], want["dw_pw_fused"], want["nms"]) != (14, 13, 0, 0):
@@ -826,9 +852,10 @@ def kernel_shapes(g):
         tail = (a.get("out_scale") is not None, a.get("fuse_act"), a.get("act_attrs") or {})
         if op.op_type in ("conv2d", "depthwise_conv2d"):
             n, h, w, c = g.vars[op.input("Input")].shape
-            kh, _, _, oc = g.vars[op.input("Filter")].shape
-            if op.op_type == "conv2d":
-                gemm.append((n * h * w, c, oc) + tail)
+            kh, kw, _, oc = g.vars[op.input("Filter")].shape
+            if op.op_type == "conv2d":  # the GEMM over the conv's im2col rows
+                _, oh, ow, _ = g.vars[op.output("Output")].shape
+                gemm.append((n * oh * ow, kh * kw * c, oc) + tail)
             else:
                 dw.append(((n, h, w, c, kh, int(a["strides"][0])),) + tail)
         elif op.op_type == "fc":
@@ -961,32 +988,193 @@ def _det_agreement(a: torch.Tensor, b: torch.Tensor, iou_min: float = 0.5) -> fl
     return hit / max(tot, 1)
 
 
-def _torch_conv_acc(g, env, weights) -> dict:
-    """The int8 3x3 convs left on the torch path (an fp32 conv, exact while
-    every partial sum stays below 2^24): the largest |accumulator| over
-    this request, and the largest sum of |x·w| (a bound on any partial sum
-    in any order), in float64."""
+# an fp32 conv (the "torch" route) is exact for every int8 input only while
+# every partial sum stays below 2^24: K·127² < 2^24 up to K = 1040
+FP32_EXACT_K = 1040
+
+
+def torch_route_ops(g, path: str) -> list:
+    """The int8 ops of `g` left on the torch route, each as (op type,
+    output, K) with K = kh·kw·C for a conv.  Fails if a kernel would take
+    one, or if an int8 conv among them has K > FP32_EXACT_K."""
+    from paddle_lite_tpu_torch.ops.kernels.select import choose_kernel
+
+    left = []
+    for op in g.topological_order():
+        if not op.attrs.get("enable_int8") or op.attrs.get("kernel") == "cuda":
+            continue
+        out = next(iter(op.outputs.values()))[0]
+        if choose_kernel(g, op) == "cuda":
+            fail(f"{path}: {op.op_type} {out} is left on the torch path")
+        k = (int(np.prod(g.vars[op.input("Filter")].shape[:3]))
+             if op.op_type in ("conv2d", "depthwise_conv2d") else None)
+        if k is not None and k > FP32_EXACT_K:
+            fail(f"{path}: int8 {op.op_type} {out} with K = {k} > {FP32_EXACT_K} is on "
+                 f"the torch route, an fp32 conv that is not exact past K = {FP32_EXACT_K}")
+        left.append((op.op_type + ("+residual" if op.maybe_input("ResidualData") else ""),
+                     out, k))
+    print(f"  {path}: int8 ops on the torch route: {len(left)}; their largest K "
+          f"{max([k for *_, k in left if k is not None], default=None)} (exact up to "
+          f"{FP32_EXACT_K}); kinds {sorted({t for t, *_ in left})}")
+    return left
+
+
+def torch_route_convs(g, env, weights, path: str, timed: bool = False) -> dict:
+    """The int8 convs left on the torch route (an fp32 conv, exact while
+    every partial sum stays below 2^24), each with its K, on this
+    request's inputs (`env`): the largest |accumulator| and the largest
+    sum of |x·w| (a bound on any partial sum in any order), in float64.
+    With `timed`, one row a distinct shape, counted per request: the whole
+    "torch" impl, and its accumulator alone (the fp32 cuDNN conv and
+    ``round``); the rest of the op's time is its epilogue's elementwise
+    passes (scale, bias, the int8 residual dequantized and added, the
+    activation, the requant)."""
+    from paddle_lite_tpu_torch.core.device import fp32_exact
+    from paddle_lite_tpu_torch.core.executor import ExecutionContext
+    from paddle_lite_tpu_torch.core.registry import OPS
     from paddle_lite_tpu_torch.ops.common import normalize_2d, normalize_paddings
     from paddle_lite_tpu_torch.ops.nn import conv_nhwc
 
-    worst = {"max_abs_acc": 0.0, "max_sum_abs": 0.0, "op": None, "n_ops": 0}
+    ctx = ExecutionContext(graph=g, device=DEV)
+    out = {"max_abs_acc": 0.0, "max_sum_abs": 0.0, "op": None, "k": None, "left": [],
+           "rows": []}
+    seen = {}
     for op in g.topological_order():
         if not (op.op_type == "conv2d" and op.attrs.get("enable_int8")
                 and op.attrs.get("kernel") is None):
             continue
-        x = env[op.input("Input")].to(torch.float64)
-        w = weights[op.input("Filter")].to(torch.float64).permute(3, 2, 0, 1).contiguous()
-        args = (normalize_2d(op.attrs.get("strides", (1, 1))),
-                normalize_paddings(op.attrs.get("paddings", (0, 0))),
-                normalize_2d(op.attrs.get("dilations", (1, 1))), 1)
-        acc = float(conv_nhwc(x, w, *args).abs().max())
-        sab = float(conv_nhwc(x.abs(), w.abs(), *args).max())
-        worst["n_ops"] += 1
-        if sab > worst["max_sum_abs"]:
-            worst.update(max_sum_abs=sab, op=op.outputs["Output"][0],
-                         k=int(w.shape[1] * w.shape[2] * w.shape[3]))
-        worst["max_abs_acc"] = max(worst["max_abs_acc"], acc)
-    return worst
+        a, name = op.attrs, op.outputs["Output"][0]
+        ins = {slot: [env[n] if n in env else weights[n] for n in names]
+               for slot, names in op.inputs.items() if names}
+        x, w = ins["Input"][0], ins["Filter"][0]
+        geom = (normalize_2d(a.get("strides", (1, 1))),
+                normalize_paddings(a.get("paddings", (0, 0))),
+                normalize_2d(a.get("dilations", (1, 1))), 1)
+        w64 = w.to(torch.float64).permute(3, 2, 0, 1).contiguous()
+        acc = float(conv_nhwc(x.to(torch.float64), w64, *geom).abs().max())
+        sab = float(conv_nhwc(x.to(torch.float64).abs(), w64.abs(), *geom).max())
+        k = int(np.prod(w.shape[:3]))
+        out["left"].append((name, k))
+        if sab > out["max_sum_abs"]:
+            out.update(max_sum_abs=sab, op=name, k=k)
+        out["max_abs_acc"] = max(out["max_abs_acc"], acc)
+        key = (tuple(x.shape), tuple(w.shape), geom)
+        if not timed:
+            continue
+        if key in seen:
+            seen[key]["per_request"] += 1
+            continue
+        w_oihw = w.float().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        with fp32_exact():
+            op_ms = time_ms(lambda: OPS.get("conv2d").impls["torch"](ctx, op, ins))
+            acc_ms = time_ms(lambda: torch.round(conv_nhwc(x.float(), w_oihw, *geom)))
+        seen[key] = {"op": name, "x": list(x.shape), "w": list(w.shape),
+                     "strides": list(geom[0]), "residual": bool(op.maybe_input("ResidualData")),
+                     "out_elements": int(np.prod(g.vars[name].shape)), "op_ms": op_ms,
+                     "acc_ms": acc_ms, "per_request": 1}
+        out["rows"].append(seen[key])
+    out["n_ops"] = len(out["left"])
+    print(f"  {path}: int8 convs on the torch route ({out['n_ops']}, K "
+          f"{sorted({k for _, k in out['left']})}): largest |acc| {out['max_abs_acc']:.6g}, "
+          f"largest sum |x·w| {out['max_sum_abs']:.6g} (at {out['op']}, K = {out['k']}); "
+          f"below 2^24 = {2**24}: {out['max_sum_abs'] < 2**24}")
+    for r in out["rows"]:
+        print(f"  torch route {r['op']:14s} x {str(r['x']):20s} w {str(r['w']):22s} s "
+              f"{r['strides']} x{r['per_request']}: op {r['op_ms']:.4f} ms, of it the fp32 "
+              f"conv and round {r['acc_ms']:.4f}")
+    if out["rows"]:
+        tot = {k: sum(r[k] * r["per_request"] for r in out["rows"])
+               for k in ("op_ms", "acc_ms", "out_elements")}
+        out.update(request_op_ms=tot["op_ms"], request_acc_ms=tot["acc_ms"])
+        print(f"  {path}: a request's int8 convs on the torch route ({out['n_ops']}, "
+              f"{tot['out_elements'] / 1e6:.1f} M output elements): {tot['op_ms']:.4f} ms, "
+              f"of it the fp32 conv and round {tot['acc_ms']:.4f}, the epilogue's passes "
+              f"{tot['op_ms'] - tot['acc_ms']:.4f}")
+    return out
+
+
+def conv_route_rows(rng, g, weights, path: str) -> list:
+    """Every "cuda" conv2d of `g` whose GEMM rows need an im2col copy (a
+    k×k or strided conv), one row a distinct shape and epilogue, counted
+    per request: on one random int8 input of the op's shape, with the op's
+    own weights and quant attrs, the whole GEMM route (the "cuda" impl: the
+    copy and the kernel), the copy alone (``im2col_nhwc``) and the old
+    torch route (the "torch" impl: an fp32 cuDNN conv, ``round`` and the
+    epilogue), timed in turns (route, torch, torch, route; the copy
+    between) as in phase 2; the route's output against the torch op's
+    within the tie bound."""
+    from paddle_lite_tpu_torch.core.device import fp32_exact
+    from paddle_lite_tpu_torch.core.executor import ExecutionContext
+    from paddle_lite_tpu_torch.core.registry import OPS
+    from paddle_lite_tpu_torch.ops.common import normalize_2d, normalize_paddings
+    from paddle_lite_tpu_torch.ops.kernels.ops_cuda import im2col_nhwc
+    from paddle_lite_tpu_torch.testing import within_tie_bound
+
+    ctx = ExecutionContext(graph=g, device=DEV)
+    impls = OPS.get("conv2d").impls
+    rows, seen = [], {}
+    for op in g.topological_order():
+        if op.op_type != "conv2d" or op.attrs.get("kernel") != "cuda":
+            continue
+        a = op.attrs
+        kh, kw, c, oc = g.vars[op.input("Filter")].shape
+        strides = normalize_2d(a.get("strides", (1, 1)))
+        pads = normalize_paddings(a.get("paddings", (0, 0)))
+        if (kh, kw, strides, pads) == (1, 1, (1, 1), ((0, 0), (0, 0))):
+            continue  # a reshape: no copy
+        x_shape = tuple(g.vars[op.input("Input")].shape)
+        key = (x_shape, (kh, kw, c, oc), strides, pads, a.get("out_scale") is not None,
+               a.get("fuse_act"))
+        if key in seen:
+            seen[key]["per_request"] += 1
+            continue
+        x = _cuda_rand_int8(rng, x_shape)
+        ins = {"Input": [x], "Filter": [weights[op.input("Filter")]]}
+        if op.maybe_input("Bias"):
+            ins["Bias"] = [weights[op.input("Bias")]]
+        geom = (kh, kw, a.get("strides", (1, 1)), a.get("paddings", (0, 0)))
+
+        def route():
+            return impls["cuda"](ctx, op, ins)["Output"][0]
+
+        def old():
+            return impls["torch"](ctx, op, ins)["Output"][0]
+
+        with fp32_exact():
+            n_diff, max_diff = _cmp(route(), old())
+            t = {"route": [], "torch": []}
+            for tag in ("route", "torch", "torch", "route"):
+                t[tag].append(time_ms(route if tag == "route" else old))
+            copy_ms = time_ms(lambda: im2col_nhwc(x, *geom))
+        _, oh, ow, _ = g.vars[op.output("Output")].shape
+        m, k = x_shape[0] * oh * ow, kh * kw * c
+        row = {"path": path, "op": op.outputs["Output"][0], "x": list(x_shape),
+               "w": [kh, kw, c, oc], "strides": list(strides), "paddings": [list(p) for p in pads],
+               "gemm": [m, k, oc], "out": "int8" if a.get("out_scale") is not None else "fp32",
+               "act": a.get("fuse_act"), "route_ms": sum(t["route"]) / 2,
+               "torch_ms": sum(t["torch"]) / 2, "turns": t, "copy_ms": copy_ms,
+               "copy_bytes": m * k, "n_diff": n_diff, "max_diff": max_diff,
+               "numel": m * oc, "per_request": 1}
+        seen[key] = row
+        rows.append(row)
+    for r in rows:
+        print(f"  route {r['op']:14s} x {str(r['x']):20s} w {str(r['w']):20s} s "
+              f"{r['strides']} GEMM {r['gemm']} {r['out']:4s} {str(r['act']):5s} x{r['per_request']}: "
+              f"im2col + kernel {r['route_ms']:.4f} ms (copy alone {r['copy_ms']:.4f}, "
+              f"{r['copy_bytes'] / 1e6:.3f} MB), torch route {r['torch_ms']:.4f} ms; "
+              f"vs the torch op {r['n_diff']} differ, max {r['max_diff']:.3g}")
+    tot = {k: sum(r[k] * r["per_request"] for r in rows)
+           for k in ("route_ms", "copy_ms", "torch_ms", "copy_bytes")}
+    print(f"  {path}: a request's k×k and strided GEMM convs ({sum(r['per_request'] for r in rows)}): "
+          f"im2col + kernel {tot['route_ms']:.4f} ms, of it the copies {tot['copy_ms']:.4f} ms "
+          f"({tot['copy_bytes'] / 1e6:.3f} MB written), against the torch route "
+          f"{tot['torch_ms']:.4f} ms")
+    bad = [r for r in rows if not within_tie_bound(
+        [{"numel": r["numel"], "n_diff": r["n_diff"], "max_diff": r["max_diff"]}])]
+    if bad:
+        fail(f"{path}: the GEMM route disagrees with the torch route beyond the tie "
+             f"bound: {bad}")
+    return rows
 
 
 def phase_ssd(fma_per_s: float):
@@ -1021,8 +1209,12 @@ def phase_ssd(fma_per_s: float):
     attrs = nms_op.attrs
     iou_t, score_t = float(attrs["nms_threshold"]), float(attrs["score_threshold"])
 
-    # (a) the kernels at this path's shapes, against their plain versions
-    rows, _, dw = path_kernel_rows(rng, g8, "ssd", fma_per_s)
+    left = torch_route_ops(g8, "ssd")
+
+    # (a) the kernels at this path's shapes, against their plain versions;
+    # the k×k convs' GEMM route against the torch route
+    rows, _, _ = path_kernel_rows(rng, g8, "ssd", fma_per_s)
+    routes = conv_route_rows(rng, g8, pred8._weights, "ssd")
     env = capture_all(g8, pred8._weights, feeds[0], DEV)
     boxes, scores = env[box_name], env[score_name]
     top_s, cand = ops_cuda.select_candidates(boxes, scores, attrs)
@@ -1058,11 +1250,8 @@ def phase_ssd(fma_per_s: float):
                   f"{r['valid']} valid, out_mismatch {r['out_mismatch']}")
 
     # (b) the path: 3 requests through the predictor
-    n_s1 = sum(1 for d in dw if d[0][5] == 1)
-    want = {"int8_gemm": 17, "dw_conv": 13, "dw_conv_s1": n_s1,
-            "dw_conv_s2": 13 - n_s1, "dw_pw_fused": 0, "nms": 1}
-    if path_launches(g8) != want:
-        fail(f"expected {want} kernel ops a request, the graph has {path_launches(g8)}")
+    want = path_launches(g8)
+    print(f"  kernel ops a request: {want}")
     _reset_counts()
     outs = [pred8.run(f) for f in feeds]
     torch.cuda.synchronize()
@@ -1089,7 +1278,7 @@ def phase_ssd(fma_per_s: float):
     print(f"  cuda vs torch op by op (all but multiclass_nms): {len(local)} outputs, "
           f"{n_ops_diff} with any difference, worst fraction {worst_frac:.3g}, worst "
           f"{worst_lsb} (bound: {TIE_FRACTION} of elements, {TIE_LSB} LSB)")
-    if len(local) != 30 or not within_tie_bound(local):
+    if len(local) != want["int8_gemm"] + want["dw_conv"] or not within_tie_bound(local):
         fail(f"a kernel disagrees with its torch op beyond the tie bound: "
              f"{[d for d in local if d['n_diff']]}")
     got = ops_cuda.multiclass_nms(boxes, scores, attrs)
@@ -1106,11 +1295,7 @@ def phase_ssd(fma_per_s: float):
     agree = (_det_agreement(env[out_name], det32), _det_agreement(det32, env[out_name]))
     print(f"  int8 vs fp32 detections (same label, IoU >= 0.5, same image): "
           f"{agree[0]:.4f} of int8's found in fp32, {agree[1]:.4f} of fp32's in int8")
-    acc = _torch_conv_acc(g8, env, pred8._weights)
-    print(f"  int8 3x3 convs on the torch path ({acc['n_ops']}): largest |acc| "
-          f"{acc['max_abs_acc']:.6g}, largest sum |x·w| {acc['max_sum_abs']:.6g} "
-          f"(at {acc['op']}, K = {acc.get('k')}); exact below 2^24 = {2**24}: "
-          f"{acc['max_sum_abs'] < 2**24}")
+    acc = torch_route_convs(g8, env, pred8._weights, "ssd")
     del env, local
 
     # (e) information: throughput and where a request's time goes
@@ -1121,7 +1306,7 @@ def phase_ssd(fma_per_s: float):
         "op_local_worst_fraction": worst_frac, "op_local_worst_lsb": worst_lsb,
         "op_local_outputs_with_diff": n_ops_diff, "detections": n_det,
         "int8_in_fp32_agreement": agree[0], "fp32_in_int8_agreement": agree[1],
-        "torch_conv_acc": acc}
+        "torch_conv_acc": acc, "torch_route_ops": len(left), "conv_routes": routes}
 
 
 # ---- phase 5 ---------------------------------------------------------------
@@ -1213,6 +1398,7 @@ def phase_fused(fma_per_s: float, unfused: dict):
           f"calibrate {time.perf_counter() - t0:.1f} s")
     shapes = fused_shapes(g)
     print(f"  ops {len(g.ops)}, fused_dw_pw (cuda) at {shapes}")
+    torch_route_ops(g, "mobilenet_v1_fused")
     if len(shapes) != 2:
         fail(f"expected 2 fused_dw_pw ops, got {shapes}")
 
@@ -1291,9 +1477,6 @@ def phase_mnv3(fma_per_s: float):
     """MobileNetV3-Large b64/224 INT8 (QuantConfig() defaults, fp32 islands)."""
     from paddle_lite_tpu_torch import QuantConfig
     from paddle_lite_tpu_torch.models import mobilenet_v3
-    from paddle_lite_tpu_torch.ops.kernels import depthwise
-    from paddle_lite_tpu_torch.ops.kernels.int8_matmul import ACTS
-    from paddle_lite_tpu_torch.ops.kernels.select import gemm_eligible
     from paddle_lite_tpu_torch.runtime.predictor import create_predictor
     from paddle_lite_tpu_torch.testing import (TIE_FRACTION, TIE_LSB, op_local_diffs,
                                                within_tie_bound)
@@ -1311,20 +1494,7 @@ def phase_mnv3(fma_per_s: float):
           f"calibrate {time.perf_counter() - t0:.1f} s")
 
     # (a) no int8 op that a kernel takes is left on the torch path
-    left = []
-    for op in g8.ops:
-        if not op.attrs.get("enable_int8") or op.attrs.get("kernel") == "cuda":
-            continue
-        if op.op_type == "depthwise_conv2d":
-            takes = depthwise.supported_general(
-                op.attrs, g8.vars[op.input("Input")].shape,
-                g8.vars[op.input("Filter")].shape)
-        else:
-            takes = gemm_eligible(g8, op)
-        if takes and op.attrs.get("fuse_act") in ACTS and not op.maybe_input("ResidualData"):
-            fail(f"{op.op_type} {op.outputs} is left on the torch path")
-        left.append(op.op_type + ("+residual" if op.maybe_input("ResidualData") else ""))
-    print(f"  ops {len(g8.ops)}; int8 ops on the torch path: {len(left)} {sorted(set(left))}")
+    left = torch_route_ops(g8, "mobilenet_v3")
 
     # (b) the kernels at this path's shapes and activations
     rows, gemm, dw = path_kernel_rows(rng, g8, "mobilenet_v3", fma_per_s)
@@ -1335,9 +1505,8 @@ def phase_mnv3(fma_per_s: float):
     _report_rows(rows)
 
     # (c) 3 requests: launches equal the "cuda" ops of each kind
-    want = {"int8_gemm": len(gemm), "dw_conv": len(dw), "dw_conv_s1": n_s1,
-            "dw_conv_s2": len(dw) - n_s1, "dw_pw_fused": 0, "nms": 0}
-    if (len(gemm), len(dw)) != (38, 15):
+    want = path_launches(g8)
+    if (want["int8_gemm"], want["dw_conv"], want["dw_pw_fused"], want["nms"]) != (38, 15, 0, 0):
         fail(f"expected 38 GEMM and 15 depthwise ops on the kernels, got {want}")
     _reset_counts()
     outs = [pred8.run(f) for f in feeds]
@@ -1656,6 +1825,135 @@ def phase_benchmark() -> dict:
     return r
 
 
+# ---- phase 8 ---------------------------------------------------------------
+
+RESNET_BATCH, RESNET_SIZE = 32, 224  # bench.py's second config (bench.py:80-95)
+
+
+def saturating_conv(rng) -> dict:
+    """A 3x3 conv at C = 512 (K = 4608), b32 at 7×7, x and w both drawn
+    from 100..127 (one sign), so that the accumulator passes 2^25; fp32
+    out, scale 1, no bias, no activation.  The GEMM route (im2col and the
+    kernel) must equal, bit for bit, the exact accumulator rounded once to
+    fp32: what the reference's epilogue makes of its int32 accumulator,
+    and what the plain version (a float64 matmul, exact below 2^53) gives,
+    itself held to a float64 conv.  Whether the fp32 torch route (cuDNN
+    conv, then ``round``) differs there is information."""
+    from paddle_lite_tpu_torch.core.device import fp32_exact
+    from paddle_lite_tpu_torch.ops.kernels import int8_matmul as km
+    from paddle_lite_tpu_torch.ops.kernels.ops_cuda import im2col_nhwc
+    from paddle_lite_tpu_torch.ops.nn import conv_nhwc
+
+    x = torch.from_numpy(rng.integers(100, 128, size=(32, 7, 7, 512), dtype=np.int8)).to(DEV)
+    w = torch.from_numpy(rng.integers(100, 128, size=(3, 3, 512, 512), dtype=np.int8)).to(DEV)
+    w2 = w.reshape(4608, 512)
+    ones = torch.ones(512, device=DEV)
+    geom = ((1, 1), ((1, 1), (1, 1)), (1, 1), 1)
+    cols = im2col_nhwc(x, 3, 3, (1, 1), (1, 1))
+    got = km.int8_matmul(cols, w2, ones, w_nk=w2.t().contiguous())
+    exact = km.int8_matmul_plain(cols, w2, ones)
+    acc64 = conv_nhwc(x.double(), w.double().permute(3, 2, 0, 1).contiguous(),
+                      *geom).reshape(-1, 512)
+    with fp32_exact():
+        w_oihw = w.float().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        fp32 = torch.round(conv_nhwc(x.float(), w_oihw, *geom)).reshape(-1, 512)
+    out = {"shape": [32, 7, 7, 512, 3, 512], "k": 4608, "max_acc": float(acc64.max()),
+           "kernel_vs_exact": _cmp(got, exact)[0],
+           "plain_vs_float64_conv": _cmp(exact, acc64.float())[0],
+           "torch_route_vs_exact": _cmp(fp32, acc64.float())[0],
+           "torch_route_max_err": _cmp(fp32, acc64)[1]}
+    print(f"  saturating 3x3 conv, C 512 (K 4608), b32 at 7x7, x and w in 100..127: largest "
+          f"accumulator {out['max_acc']:.10g} (2^25 = {2**25}); the GEMM route differs from "
+          f"the exact accumulator rounded once to fp32 in {out['kernel_vs_exact']} elements "
+          f"(the plain version from a float64 conv in {out['plain_vs_float64_conv']}); "
+          f"information: the fp32 torch route differs in {out['torch_route_vs_exact']} of "
+          f"{got.numel()}, by up to {out['torch_route_max_err']:.6g} from the exact sum")
+    if not out["max_acc"] > 2 ** 25:
+        fail(f"the saturating case's accumulator {out['max_acc']} does not pass 2^25")
+    if out["kernel_vs_exact"] or out["plain_vs_float64_conv"]:
+        fail(f"the GEMM route is not the exact accumulator rounded once to fp32: {out}")
+    return out
+
+
+def phase_resnet(fma_per_s: float):
+    """ResNet-50 b32/224 INT8 (QuantConfig() defaults): the GEMM at every
+    shape of the path, the k×k and strided convs' routes, the saturating
+    case, 3 compiled requests, then phase 7a's check on this path."""
+    from paddle_lite_tpu_torch import QuantConfig
+    from paddle_lite_tpu_torch.models import resnet
+    from paddle_lite_tpu_torch.runtime.predictor import create_predictor
+    from paddle_lite_tpu_torch.testing import (TIE_FRACTION, TIE_LSB, capture_all,
+                                               op_local_diffs, within_tie_bound)
+
+    rng = np.random.default_rng(8)
+    shape = (RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3)
+    calib = [{"image": rng.normal(size=shape).astype(np.float32)}]
+    feeds = [{"image": rng.normal(size=shape).astype(np.float32)} for _ in range(REQUESTS)]
+    kw = dict(batch=RESNET_BATCH, image_size=RESNET_SIZE, seed=0)
+    t0 = time.perf_counter()
+    g8 = resnet.build(**kw)
+    pred8 = create_predictor(g8, quant=QuantConfig(), calib_batches=calib, device=DEV)
+    pred32 = create_predictor(resnet.build(**kw), device=DEV)
+    print(f"phase 8: ResNet-50 b{RESNET_BATCH}/{RESNET_SIZE} INT8: build + optimize + "
+          f"calibrate {time.perf_counter() - t0:.1f} s; ops {len(g8.ops)}")
+    left = torch_route_ops(g8, "resnet50")
+
+    # (a) the GEMM at this path's shapes; the k×k and strided convs' routes;
+    # the saturating case
+    rows, gemm, _ = path_kernel_rows(rng, g8, "resnet50", fma_per_s)
+    print(f"  kernels at this path's shapes: {len(gemm)} GEMM ops, "
+          f"{len({tuple(r['shape']) for r in rows})} distinct (M, K, N)")
+    _report_rows(rows)
+    routes = conv_route_rows(rng, g8, pred8._weights, "resnet50")
+    sat = saturating_conv(rng)
+
+    # (b) 3 requests: launches equal the "cuda" ops
+    want = path_launches(g8)
+    print(f"  kernel ops a request: {want}")
+    if (want["int8_gemm"], want["dw_conv"], want["dw_pw_fused"], want["nms"]) != (37, 0, 0, 0):
+        fail(f"expected 37 GEMM ops on the kernels, got {want}")
+    _reset_counts()
+    outs = [pred8.run(f) for f in feeds]
+    torch.cuda.synchronize()
+    launches = _counts()
+    _check_first_run("resnet50", launches, want)
+    out_name = g8.outputs[0]
+    coss = []
+    for i, (f, o) in enumerate(zip(feeds, outs)):
+        y = o[out_name]
+        if tuple(y.shape) != (RESNET_BATCH, 1000) or not bool(torch.isfinite(y).all()):
+            fail(f"request {i}: output {tuple(y.shape)} not finite (b, 1000)")
+        coss.append(_cosine(y, pred32.run(f)[out_name]))
+        print(f"  request {i}: int8 vs fp32 cosine {coss[-1]:.6f}")
+        if not coss[-1] > 0.98:
+            fail(f"request {i}: int8 vs fp32 cosine {coss[-1]} <= 0.98")
+
+    # (c) every kernel op against its torch op on identical inputs; the
+    # torch route's accumulators (information)
+    local = op_local_diffs(g8, pred8._weights, feeds[0], DEV)
+    n_diff = sum(1 for d in local if d["n_diff"])
+    worst = max(d["n_diff"] / d["numel"] for d in local)
+    print(f"  cuda vs torch op by op: {len(local)} outputs, {n_diff} with any "
+          f"difference, worst fraction {worst:.3g}, worst "
+          f"{max(d['max_diff'] for d in local)} (bound {TIE_FRACTION}, {TIE_LSB} LSB)")
+    if len(local) != want["int8_gemm"] or not within_tie_bound(local):
+        fail(f"a kernel disagrees with its torch op beyond the tie bound: "
+             f"{[d for d in local if d['n_diff']]}")
+    env = capture_all(g8, pred8._weights, feeds[0], DEV)
+    acc = torch_route_convs(g8, env, pred8._weights, "resnet50", timed=True)
+    del env, local
+
+    # (d) information: throughput and where a request's time goes; then the
+    # compiled request against the eager loop, as phase 7a does
+    serving = _serving_numbers(pred8, pred32, feeds[0], RESNET_BATCH, top=16)
+    _check_profiled_launches("resnet50", serving["profile"]["int8"], want)
+    compiled = compiled_vs_eager("resnet50", pred8, feeds, want)
+    return rows, launches, dict(serving, cosine=coss, op_local_worst_fraction=worst,
+                                op_local_outputs_with_diff=n_diff,
+                                torch_route_ops=len(left), torch_conv_acc=acc,
+                                conv_routes=routes, saturating=sat), compiled
+
+
 # ---- the kernels' line -----------------------------------------------------
 
 KERNELS = [  # name, source, TPU kernel it replaces, rows it covers
@@ -1784,15 +2082,18 @@ def main() -> None:
     compiled = phase_compiled()
     serving = phase_serving()
     bench = phase_benchmark()
-    all_rows = rows + ssd_rows + fused_rows + v3_rows
+    r50_rows, r50_launches, r50, compiled["resnet50"] = phase_resnet(fma_per_s)
+    all_rows = rows + ssd_rows + fused_rows + v3_rows + r50_rows
     kernels = _kernel_line(all_rows, {"mobilenet_v1": launches, "ssd": ssd_launches,
                                       "mobilenet_v1_fused": fused_launches,
                                       "mobilenet_v3": v3_launches,
-                                      "serving": serving["launches"]},
+                                      "serving": serving["launches"],
+                                      "resnet50": r50_launches},
                            {"mobilenet_v1": e2e["profile"]["int8"],
                             "ssd": ssd["profile"]["int8"],
                             "mobilenet_v1_fused": fused["profile"]["int8"],
-                            "mobilenet_v3": v3["profile"]["int8"]})
+                            "mobilenet_v3": v3["profile"]["int8"],
+                            "resnet50": r50["profile"]["int8"]})
     gemm = next(k for k in kernels if k["name"] == "int8_gemm")
     for p, v in gemm["by_path"].items():
         print(f"int8_gemm a {p} request: {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}); "
@@ -1819,7 +2120,8 @@ def main() -> None:
         with open(args.json, "w") as f:
             json.dump({"card": card, "rows": all_rows, "main_path": e2e,
                        "ssd": ssd, "mobilenet_v1_fused": fused,
-                       "mobilenet_v3": v3, "compiled": compiled, "serving": serving,
+                       "mobilenet_v3": v3, "resnet50": r50, "compiled": compiled,
+                       "serving": serving,
                        "benchmark": bench, "kernels": kernels}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

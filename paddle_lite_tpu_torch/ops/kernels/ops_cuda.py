@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ...core.registry import OPS
-from ..common import normalize_2d
+from ..common import conv_out_size, normalize_2d, normalize_paddings
 from ..detection import exact_candidates, nms_attrs, nms_merge
 from ..nn import eff_scale
 from . import depthwise
@@ -80,23 +80,49 @@ def mul_cuda(ctx, op, ins):
     return {"Out": [y.reshape(lead + tail)]}
 
 
+def _out_hw(x: torch.Tensor, kh: int, kw: int, strides, paddings):
+    """(OH, OW) of a dilation-1 conv of the NHWC `x`."""
+    (sh, sw), (ph, pw) = normalize_2d(strides), normalize_paddings(paddings)
+    return (conv_out_size(x.shape[1], kh, sh, ph, 1),
+            conv_out_size(x.shape[2], kw, sw, pw, 1))
+
+
+def im2col_nhwc(x: torch.Tensor, kh: int, kw: int, strides, paddings) -> torch.Tensor:
+    """(N, H, W, C) int8 → its (N·OH·OW, kh·kw·C) im2col rows, each row in
+    (i, j, c) order: the row order of an HWIO filter reshaped to
+    (kh·kw·C, OC).  The input is zero-padded (zero is int8's zero point:
+    the port's quantization is symmetric) and the kh·kw strided tap slices
+    are concatenated on the last axis.  A 1x1 conv without padding has one
+    tap: at stride 1 its rows are a view of `x`, at another stride one
+    strided copy."""
+    n, _, _, c = x.shape
+    (sh, sw), ((pt, pb), (pl, pr)) = normalize_2d(strides), normalize_paddings(paddings)
+    oh, ow = _out_hw(x, kh, kw, strides, paddings)
+    xp = x if (pt, pb, pl, pr) == (0, 0, 0, 0) else F.pad(x, (0, 0, pl, pr, pt, pb))
+    taps = [xp[:, i:i + sh * (oh - 1) + 1:sh, j:j + sw * (ow - 1) + 1:sw]
+            for i in range(kh) for j in range(kw)]
+    cols = taps[0] if len(taps) == 1 else torch.cat(taps, dim=-1)
+    return cols.reshape(n * oh * ow, kh * kw * c)
+
+
 @OPS.kernel("conv2d", "cuda")
 def conv2d_cuda(ctx, op, ins):
-    """1x1 / stride-1 / group-1 conv as the int8 GEMM (the reference's
-    ``conv_gemmlike`` path with im2col degenerating to a reshape)."""
+    """Group-1 conv without residual as the int8 GEMM over its im2col rows
+    (the reference's ``conv_gemmlike`` path, ``ops_pallas.py:79-80``):
+    int32 accumulation, exact for any K."""
     x, w = ins["Input"][0], ins["Filter"][0]
     bias = ins.get("Bias", [None])[0]
     kh, kw, c, oc = w.shape
     _require(
-        (kh, kw) == (1, 1)
-        and normalize_2d(op.attrs.get("strides", (1, 1))) == (1, 1)
-        and int(op.attrs.get("groups", 1)) == 1
+        int(op.attrs.get("groups", 1)) == 1
+        and normalize_2d(op.attrs.get("dilations", (1, 1))) == (1, 1)
         and "ResidualData" not in ins, op,
-        "only 1x1 / stride 1 / group 1 / no residual convs run as the GEMM")
-    n, h, wd, _ = x.shape
-    y = _gemm(ctx, op, x.reshape((n * h * wd, c)), w.reshape((c, oc)),
+        "only group-1, dilation-1 convs without residual run as the GEMM")
+    _int8(op, x, w)
+    geom = (kh, kw, op.attrs.get("strides", (1, 1)), op.attrs.get("paddings", (0, 0)))
+    y = _gemm(ctx, op, im2col_nhwc(x, *geom), w.reshape((kh * kw * c, oc)),
               op.input("Input"), op.input("Filter"), bias)
-    return {"Output": [y.reshape((n, h, wd, oc))]}
+    return {"Output": [y.reshape((x.shape[0], *_out_hw(x, *geom), oc))]}
 
 
 @OPS.kernel("depthwise_conv2d", "cuda")

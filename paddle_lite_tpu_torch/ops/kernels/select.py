@@ -7,15 +7,21 @@ TPU size thresholds (``_gemm_dims_ok``, ``autotune.py:25-28``).  None of
 that describes this card, so the port reads neither: every int8 op that a
 kernel takes is tagged ``"cuda"``:
 
-- 1x1 / stride 1 / group 1 / no-residual ``conv2d``, ``fc`` and ``mul``
-  (the ``_gemm_problem`` rule, ``autotune.py:31-48``) with an even K →
-  the int8 GEMM;
+- ``conv2d`` with group 1, dilation 1 and no residual, of any kernel size,
+  stride and explicit paddings, through its im2col rows
+  (``ops_cuda.im2col_nhwc``; the reference's ``conv_gemmlike`` mapping,
+  ``ops_pallas.py:79-80``), ``fc`` and ``mul``, each with an even K →
+  the int8 GEMM.  The GEMM accumulates in int32, exact for any K; the
+  ``"torch"`` conv (an fp32 conv, then ``round``) is exact only while
+  every partial sum stays below 2^24, which holds for every input only up
+  to K = kh·kw·C = 1040.  Residual convs stay on the ``"torch"`` path: the
+  GEMM has no residual operand (nor has the TPU one, ``ops_pallas.py:84-93``);
 - ``depthwise_conv2d`` inside ``depthwise.supported_general`` → the
   depthwise kernel;
 
 in both cases only when the fused activation is one the kernels' epilogue
-computes (none, relu, relu6).  Every ``multiclass_nms*`` op, int8 graph or
-not, takes the NMS kernel (``autotune.py:60-65``: NMS runs in the fp32
+computes (``int8_matmul.ACTS``).  Every ``multiclass_nms*`` op, int8 graph
+or not, takes the NMS kernel (``autotune.py:60-65``: NMS runs in the fp32
 island either way).  Everything else keeps the default ``"torch"`` impl.
 A table measured on the H100 is later work (``ROADMAP.md``).
 """
@@ -30,9 +36,19 @@ from ..common import normalize_2d
 from . import depthwise
 from .int8_matmul import ACTS
 
+
+def _kernel_epilogue(op) -> bool:
+    """int8, with a fused activation the kernels' epilogue computes."""
+    return bool(op.attrs.get("enable_int8")) and op.attrs.get("fuse_act") in ACTS
+
+
 def gemm_eligible(graph, op) -> bool:
-    """A GEMM the kernel takes: its K is even (the kernel copies rows in
-    pieces of 2 bytes or more, ``int8_matmul.copy_width``)."""
+    """An int8 ``fc`` / ``mul`` / ``conv2d`` that the GEMM takes: its K is
+    even (the kernel copies rows in pieces of 2 bytes or more,
+    ``int8_matmul.copy_width``); a conv has group 1, dilation 1 and no
+    residual."""
+    if not _kernel_epilogue(op):
+        return False
     if op.op_type == "fc":
         return graph.vars[op.input("W")].shape[0] % 2 == 0
     if op.op_type == "mul":
@@ -41,11 +57,10 @@ def gemm_eligible(graph, op) -> bool:
     if op.op_type == "conv2d":
         kh, kw, c = graph.vars[op.input("Filter")].shape[:3]
         return (
-            (kh, kw) == (1, 1)
-            and normalize_2d(op.attrs.get("strides", (1, 1))) == (1, 1)
-            and int(op.attrs.get("groups", 1)) == 1
+            int(op.attrs.get("groups", 1)) == 1
+            and normalize_2d(op.attrs.get("dilations", (1, 1))) == (1, 1)
             and not op.maybe_input("ResidualData")
-            and c % 2 == 0
+            and (kh * kw * c) % 2 == 0
         )
     return False
 
@@ -54,12 +69,11 @@ def choose_kernel(graph, op) -> Optional[str]:
     """'cuda' for an op a kernel takes, else None (default impl)."""
     if op.op_type.startswith("multiclass_nms"):
         return "cuda"
-    if not op.attrs.get("enable_int8") or op.attrs.get("fuse_act") not in ACTS:
-        return None
     if op.op_type == "depthwise_conv2d":
         x = graph.vars[op.input("Input")]
         w = graph.vars[op.input("Filter")]
-        if (depthwise.supported_general(op.attrs, x.shape, w.shape)
+        if (_kernel_epilogue(op)
+                and depthwise.supported_general(op.attrs, x.shape, w.shape)
                 and not op.maybe_input("ResidualData")):
             return "cuda"
         return None

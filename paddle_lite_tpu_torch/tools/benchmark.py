@@ -34,9 +34,9 @@ import torch
 
 from ..core.device import DeviceLike, resolve_device
 
-PORTED = ("mobilenet_v1", "mobilenet_v3", "ssd")
+PORTED = ("mobilenet_v1", "resnet", "mobilenet_v3", "ssd")
 MIN_WINDOW_S = 0.4  # the loop method's timed window, long beside one call's jitter
-NOT_PORTED = ("resnet", "ppocr_det", "dbnet", "ppocr_rec", "crnn",
+NOT_PORTED = ("ppocr_det", "dbnet", "ppocr_rec", "crnn",
               "ppocr_rec_long", "crnn_long", "ernie_tiny")
 
 

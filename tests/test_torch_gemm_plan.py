@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_lite_tpu_torch.models import mobilenet_v1, mobilenet_v3, ssd
+from paddle_lite_tpu_torch.models import mobilenet_v1, mobilenet_v3, resnet, ssd
 from paddle_lite_tpu_torch.ops.kernels import _build, depthwise
 from paddle_lite_tpu_torch.ops.kernels import int8_matmul as km
 from paddle_lite_tpu_torch.ops.kernels.select import gemm_eligible
@@ -31,19 +31,23 @@ PATHS = {
     "ssd": lambda: ssd.build(batch=32, image_size=300, num_classes=21, seed=0),
     "mobilenet_v3": lambda: mobilenet_v3.build(batch=64, image_size=224, seed=0,
                                                with_softmax=False),
+    "resnet": lambda: resnet.build(batch=32, image_size=224, seed=0),
 }
 
 
 def gemm_shapes(g):
-    """(M, K, N) of every op of `g` that the GEMM kernel takes, as
-    chip_smoke's ``kernel_shapes`` reads them."""
+    """(M, K, N) of every op of the unoptimized `g` that the GEMM kernel
+    takes once marked int8 (residuals are not fused yet, so the convs that
+    will carry one count too), as chip_smoke's ``kernel_shapes`` reads
+    them: a conv's M is N·OH·OW, its K kh·kw·C."""
     out = []
     for op in g.topological_order():
+        op.attrs["enable_int8"] = True
         if not gemm_eligible(g, op):
             continue
         if op.op_type == "conv2d":
-            n, h, w, c = g.vars[op.input("Input")].shape
-            out.append((n * h * w, c, g.vars[op.input("Filter")].shape[3]))
+            n, oh, ow, oc = g.vars[op.output("Output")].shape
+            out.append((n * oh * ow, int(np.prod(g.vars[op.input("Filter")].shape[:3])), oc))
         elif op.op_type == "fc":
             x = g.vars[op.input("Input")].shape
             ncd = int(op.attrs.get("in_num_col_dims", len(x) - 1))
@@ -52,11 +56,12 @@ def gemm_shapes(g):
     return out
 
 
-@pytest.mark.parametrize("path,count", [("mobilenet_v1", 14), ("ssd", 17),
-                                        ("mobilenet_v3", 48)])
+@pytest.mark.parametrize("path,count", [("mobilenet_v1", 14), ("ssd", 33),
+                                        ("mobilenet_v3", 48), ("resnet", 53)])
 def test_plan_fits_every_path_shape(path, count):
     shapes = gemm_shapes(PATHS[path]())
-    assert len(shapes) == count  # MNv3: 38 take the kernel, 10 have residuals
+    # MNv3: 38 take the kernel, 10 get residuals; ResNet-50: 37 and 16
+    assert len(shapes) == count
     for m, k, n in shapes:
         for out_i8 in (True, False):
             p = km.plan(m, k, n, out_i8)
@@ -127,6 +132,7 @@ def test_odd_k_is_not_tagged_for_the_kernel():
     b.fc(b.fc(b.input("x", (4, 27)), 8), 6)
     g = b.build()
     odd, even = (o for o in g.ops if o.op_type == "fc")
+    odd.attrs["enable_int8"] = even.attrs["enable_int8"] = True
     assert gemm_eligible(g, even)
     assert not gemm_eligible(g, odd)
 

@@ -373,7 +373,7 @@ def test_bench_model_loop_method_on_the_cpu():
     assert got["method"] == "loop" and got["int8_items_per_sec"] > 0
 
 
-@pytest.mark.parametrize("model", ["resnet", "ppocr_det", "ppocr_rec", "ernie_tiny"])
+@pytest.mark.parametrize("model", ["crnn", "ppocr_det", "ppocr_rec", "ernie_tiny"])
 def test_unported_model_raises(model):
     with pytest.raises(NotImplementedError, match=model):
         benchmark.resolve_builder(model)

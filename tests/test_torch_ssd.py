@@ -46,8 +46,9 @@ SHAPE = (2, 160, 160, 3)
 SCALE_RTOL = 1e-5
 INT8_FRACTION, INT8_LSB = 1e-2, 3
 BOX_ATOL = 1e-5
-# int8 graph: 17 pointwise convs on the GEMM, 13 depthwise, 1 NMS
-N_CUDA = 17 + 13 + 1
+# int8 graph: 33 convs on the GEMM (17 pointwise, 16 3x3 through im2col),
+# 13 depthwise, 1 NMS
+N_CUDA = 33 + 13 + 1
 
 
 def _feed(seed):
@@ -93,13 +94,14 @@ def test_optimize_matches_reference(pair):
     for o in gp.ops:
         if o.attrs.get("kernel") == "cuda":
             tags[o.op_type] = tags.get(o.op_type, 0) + 1
-    assert tags == {"conv2d": 17, "depthwise_conv2d": 13, "multiclass_nms": 1}
+    assert tags == {"conv2d": 33, "depthwise_conv2d": 13, "multiclass_nms": 1}
     assert sum(tags.values()) == N_CUDA
     assert all(o.attrs.get("kernel") in (None, "cuda") for o in gp.ops)
-    # the int8 3x3 convs (4 extra stages, 12 heads) stay on the torch path
+    # the int8 3x3 convs (4 extra stages, 12 heads) run on the GEMM too: no
+    # int8 conv is left on the torch path
     n_3x3 = sum(1 for o in gp.ops if o.op_type == "conv2d"
                 and o.attrs.get("enable_int8") and o.attrs.get("kernel") is None)
-    assert n_3x3 == 16
+    assert n_3x3 == 0
 
 
 def test_fp32_graph_runs_nms_on_the_kernel():
