@@ -103,7 +103,10 @@ Phases:
    unchanged; img/s in turns (eager, compiled, compiled, eager) with a
    numpy input and with the input on the card; one profiled request each
    way, whose compiled host ops' self time (the closing synchronise's wait
-   apart) must be below its device kernel time.  SSD with its NMS under
+   and the profiler's own work apart: its buffer requests, and the part of
+   ``cudaGraphLaunch`` that a launch without the profiler does not take,
+   the profiler's cost for each kernel of the graph) must be below its
+   device kernel time.  SSD with its NMS under
    ``"torch"`` must be refused before capture.  (b) A ``ContinuousBatcher``
    over compiled MobileNetV1 INT8 predictors at buckets 1-64, each
    calibrated on the same 64 images in batches of its size (scales equal
@@ -120,9 +123,11 @@ Phases:
    version and timed as in phase 2; the route timings of phase 4 at every
    k×k or strided conv; a saturating 3x3 conv (C = 512, K = 4608, b32 at
    7x7, x and w in 100..127, so the accumulator passes 2^25; fp32 out,
-   scale 1) whose route must equal the exact accumulator rounded once to
-   fp32, bit for bit (the fp32 torch route's difference printed); 3
-   compiled requests with twice the graph's "cuda" ops, as many in one
+   scale 1) whose GEMM route must equal the exact accumulator rounded
+   once to fp32, bit for bit, and so must the ``"torch"`` route (fp32
+   convs of input-channel chunks of K <= 1040, each rounded, summed in
+   int32; one fp32 conv of the whole K, the route before, printed as
+   information); 3 compiled requests with twice the graph's "cuda" ops, as many in one
    profiled replay; every kernel op within the tie bound of its torch op;
    int8 against the fp32 predictor at cosine > 0.98 (the bar of
    ``tests/test_models.py:41``); then phase 7a's checks on this path.
@@ -130,7 +135,38 @@ Phases:
    profiled request's top device kernels, and the residual convs left on
    the torch route timed at each shape (the whole op, and its fp32 conv
    and ``round`` alone) are information.
-9. The last lines: the card (nvidia-smi), the kernels' JSON line, then
+9. DBNet-640 b4 INT8 with its zoo config (``recommended_quant
+   ("ppocr_det")``: float depthwise convs, fp32 islands; PP-OCR detection,
+   BASELINE config 4): the GEMM at every shape of the path (15 "cuda" ops:
+   10 int8 1x1 convs, 5 int8 3x3 convs through im2col at M = 102,400, K =
+   864, N = 24) bit-exact against its plain version and timed as in phase
+   2; the route timings of phase 4 at its 3x3 convs; 3 compiled requests
+   with twice the graph's "cuda" ops, as many in one profiled replay;
+   every kernel op within the tie bound of its torch op; the probability
+   map against the port's fp32 predictor, mean abs diff < 0.05 (the bar
+   of ``tests/test_model_zoo_int8.py:103``); phase 7a's checks on the
+   path.  ``db_postprocess``'s boxes a map, img/s and a profiled request
+   are information.
+10. CRNN b64, strip width 320, INT8 with its zoo config (bf16 islands;
+   PP-OCR recognition): the GEMM at every shape of the path (8 "cuda"
+   ops: 3 1x1 convs, 4 GRU input projections, the CTC classifier at 5,120
+   x 96 x 6,626) as in phase 9 (its three depthwise convs have channel
+   multiplier 2, outside the depthwise kernel's domain, and stay on the
+   torch route); 3 compiled requests with the launch counts as above;
+   every kernel op within the tie bound of its torch op (its fp32 output
+   rounded to bf16 as the executor rounds the kernel's); probabilities
+   against the port's fp32 predictor at cosine > 0.99 (the bar of
+   ``tests/test_model_zoo_int8.py:120``; equal CTC decodes information);
+   ``ctc_greedy_decode`` on one tensor equal eager and as a CUDA graph
+   captured with host syncs an error; phase 7a's checks on the path; a
+   ``LengthBucketer`` over compiled b64 predictors at widths 160 and 320
+   answering 64 strips, each result equal, bit for bit, to the strip run
+   alone at its bucket.  img/s with bf16 and with fp32 islands in turns
+   are information.  (Phase 4b, after phase 4: SSD b32 with its zoo
+   config, bf16 islands, against phase 4's fp32 islands in turns: launches
+   as phase 4's are checked; img/s, detection agreement and the NMS op's
+   input dtype are information.)
+11. The last lines: the card (nvidia-smi), the kernels' JSON line, then
    ``{"ok": true, "device": {...}}``.
 
 With ``--json PATH`` the per-shape numbers are also written to PATH.
@@ -557,21 +593,32 @@ def _device_breakdown(pred, feed, top: int = 8, reqs: int = PROFILED_REQUESTS) -
     kernel time, the port's kernels' time and launches, and the kernels
     that take most of it.  The host ops' self time leaves out the wait of
     the synchronise that ends the request (``sync_wait_ms``) and the
-    profiler's own host work (``profiler_ms``)."""
-    from torch.profiler import ProfilerActivity, profile
+    profiler's own host work (``profiler_ms``).  One request under the
+    profiler's warm-up step comes first and is not read: the device
+    tracing starts during it and may miss its first kernels."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     pred.run(feed)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reqs, repeat=1)) as prof:
+        pred.run(feed)
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         for _ in range(reqs):
             pred.run(feed)
             torch.cuda.synchronize()
+            prof.step()
         wall_ms = 1e3 * (time.perf_counter() - t0) / reqs
     rows, host, sync_ms, prof_ms = [], [], 0.0, 0.0
     for e in prof.key_averages():
+        on_host = e.device_type != torch.autograd.DeviceType.CUDA
+        if e.key.startswith("ProfilerStep"):  # the schedule's step marks, host and device
+            prof_ms += e.self_cpu_time_total / 1e3 / reqs if on_host else 0.0
+            continue
         # device-side events only: a CPU op also reports its kernels' time
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if on_host:
             ms = e.self_cpu_time_total / 1e3 / reqs
             if e.key in SYNC_EVENTS:
                 sync_ms += ms
@@ -594,6 +641,7 @@ def _device_breakdown(pred, feed, top: int = 8, reqs: int = PROFILED_REQUESTS) -
     return {"wall_ms": wall_ms, "device_ms": sum(r[0] for r in rows),
             "by_kernel_ms": by_kernel, "kernel_launches": counts,
             "sync_wait_ms": sync_ms, "profiler_ms": prof_ms, "requests": reqs,
+            "graph_launch_ms": sum(h[0] for h in host if h[2] == "cudaGraphLaunch"),
             "top": [{"ms": r[0], "count": r[1], "name": r[2][:80]}
                     for r in rows[:top]],
             "host_self_ms": sum(r[0] for r in host),
@@ -610,6 +658,25 @@ def _host_ms(pred, feed, reps: int = 20) -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pred.run(feed)
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _graph_launch_ms(pred, reps: int = 20) -> float:
+    """Host time of one ``cudaGraphLaunch`` of the predictor's captured
+    graph without the profiler: the host clock around its replay with the
+    card idle before it (median of `reps`); 0 for a predictor that has not
+    captured.  Under the profiler the same call also pays the profiler's
+    own work for each of the graph's kernels."""
+    graph = getattr(getattr(pred, "_fn", None), "_cuda_graph", None)
+    if graph is None:
+        return 0.0
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay()
         times.append(1e3 * (time.perf_counter() - t0))
     torch.cuda.synchronize()
     return statistics.median(times)
@@ -863,6 +930,11 @@ def kernel_shapes(g):
             ncd = int(a.get("in_num_col_dims", len(x) - 1))
             k, n = g.vars[op.input("W")].shape
             gemm.append((int(np.prod(x[:ncd])), k, n) + tail)
+        elif op.op_type == "mul":
+            x, w = g.vars[op.input("X")].shape, g.vars[op.input("Y")].shape
+            xd, yd = int(a.get("x_num_col_dims", 1)), int(a.get("y_num_col_dims", 1))
+            gemm.append((int(np.prod(x[:xd])), int(np.prod(x[xd:])),
+                         int(np.prod(w[yd:]))) + tail)
     return gemm, dw
 
 
@@ -1638,6 +1710,11 @@ def compiled_vs_eager(path: str, pred, feeds, want: dict) -> dict:
     host_ms = {"compiled": _host_ms(pred, on_dev[0]), "eager": _host_ms(eager, on_dev[0])}
     c = prof["compiled"]
     device_ms = c["device_ms"] or prof["eager"]["device_ms"]
+    # the profiler's own work inside cudaGraphLaunch (its cost for each of
+    # the graph's kernels), set apart as its buffer requests are
+    launch_ms = _graph_launch_ms(pred)
+    launch_profiler_ms = max(0.0, c.get("graph_launch_ms", 0.0) - launch_ms)
+    host_self_ms = c["host_self_ms"] - launch_profiler_ms
     for tag, p in prof.items():
         print(f"  {path} {tag} request under the profiler ({p['requests']} read as one): "
               f"wall {p['wall_ms']:.3f} ms, device kernels {p['device_ms']:.3f} ms, host "
@@ -1649,15 +1726,23 @@ def compiled_vs_eager(path: str, pred, feeds, want: dict) -> dict:
     if not c["device_ms"]:
         print(f"  {path}: the profiler saw no kernel inside the replayed graph; the "
               f"device time above the compiled host time is the eager request's")
-    if not c["host_self_ms"] < device_ms:
-        fail(f"{path}: a compiled request's host ops' self time {c['host_self_ms']:.3f} ms "
-             f"is not below its device kernel time {device_ms:.3f} ms")
+    print(f"  {path}: cudaGraphLaunch takes {c.get('graph_launch_ms', 0.0):.3f} ms under the "
+          f"profiler, {launch_ms:.3f} ms without it (median of 20); the compiled host ops' self "
+          f"time with the profiler's {launch_profiler_ms:.3f} ms in it set apart: "
+          f"{host_self_ms:.3f} ms, against {device_ms:.3f} ms of device kernels")
+    if not host_self_ms < device_ms:
+        fail(f"{path}: a compiled request's host ops' self time {host_self_ms:.3f} ms (the "
+             f"profiler's own {launch_profiler_ms:.3f} ms in cudaGraphLaunch set apart) is not "
+             f"below its device kernel time {device_ms:.3f} ms")
     return {"launches_at_capture": at_capture, "int8_tensors": len(int8),
             "output_max_abs_diff": out_err, "img_s_in_turns": turns,
-            "host_issue_ms": host_ms,
+            "host_issue_ms": host_ms, "graph_launch_ms": launch_ms,
+            "graph_launch_profiler_ms": launch_profiler_ms,
+            "host_self_ms_profiler_apart": host_self_ms,
             "profile": {k: {kk: v[kk] for kk in ("wall_ms", "device_ms", "host_self_ms",
                                                   "sync_wait_ms", "profiler_ms",
-                                                  "kernel_launches", "host_top")}
+                                                  "graph_launch_ms", "kernel_launches",
+                                                  "host_top")}
                         for k, v in prof.items()}}
 
 
@@ -1830,15 +1915,42 @@ def phase_benchmark() -> dict:
 RESNET_BATCH, RESNET_SIZE = 32, 224  # bench.py's second config (bench.py:80-95)
 
 
+def _torch_route_conv(x: torch.Tensor, w: torch.Tensor, pads) -> torch.Tensor:
+    """The port's ``"torch"`` int8 conv2d (input-channel chunks of K <=
+    1040 past it, summed in int32) on one op of scale 1, no bias, fp32 out:
+    its output is the accumulator converted to fp32."""
+    from paddle_lite_tpu_torch.core.executor import build_callable, stage_weights
+    from paddle_lite_tpu_torch.core.ir import Graph
+    from paddle_lite_tpu_torch.core.types import Precision, QuantInfo
+
+    n, h, wd, _ = x.shape
+    kh, kw, _, oc = w.shape
+    g = Graph("torch_route_conv")
+    g.add_var("x", tuple(x.shape), precision=Precision.INT8).quant = QuantInfo.per_tensor(1.0)
+    g.inputs.append("x")
+    g.add_weight("w", w.cpu().numpy()).quant = QuantInfo.per_channel_scales(
+        np.ones(oc, np.float32), 3)
+    g.add_var("y", (n, h + 2 * pads - kh + 1, wd + 2 * pads - kw + 1, oc))
+    g.outputs.append("y")
+    g.add_op("conv2d", {"Input": ["x"], "Filter": ["w"]}, {"Output": ["y"]},
+             {"strides": [1, 1], "paddings": [pads, pads], "dilations": [1, 1],
+              "groups": 1, "enable_int8": True})
+    g.rebuild_links()
+    return build_callable(g, device=DEV)(stage_weights(g, DEV), {"x": x})["y"]
+
+
 def saturating_conv(rng) -> dict:
     """A 3x3 conv at C = 512 (K = 4608), b32 at 7×7, x and w both drawn
     from 100..127 (one sign), so that the accumulator passes 2^25; fp32
     out, scale 1, no bias, no activation.  The GEMM route (im2col and the
-    kernel) must equal, bit for bit, the exact accumulator rounded once to
-    fp32: what the reference's epilogue makes of its int32 accumulator,
-    and what the plain version (a float64 matmul, exact below 2^53) gives,
-    itself held to a float64 conv.  Whether the fp32 torch route (cuDNN
-    conv, then ``round``) differs there is information."""
+    kernel) and the port's ``"torch"`` route (fp32 convs of input-channel
+    chunks of K <= 1040, each rounded, summed in int32) must each equal,
+    bit for bit, the exact accumulator rounded once to fp32: what the
+    reference's epilogue makes of its int32 accumulator, and what the
+    plain version (a float64 matmul, exact below 2^53) gives, itself held
+    to a float64 conv.  Whether one fp32 conv of the whole K (cuDNN, then
+    ``round``: the torch route before it was chunked) differs there is
+    information."""
     from paddle_lite_tpu_torch.core.device import fp32_exact
     from paddle_lite_tpu_torch.ops.kernels import int8_matmul as km
     from paddle_lite_tpu_torch.ops.kernels.ops_cuda import im2col_nhwc
@@ -1854,24 +1966,28 @@ def saturating_conv(rng) -> dict:
     exact = km.int8_matmul_plain(cols, w2, ones)
     acc64 = conv_nhwc(x.double(), w.double().permute(3, 2, 0, 1).contiguous(),
                       *geom).reshape(-1, 512)
+    route = _torch_route_conv(x, w, 1).reshape(-1, 512)
     with fp32_exact():
         w_oihw = w.float().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         fp32 = torch.round(conv_nhwc(x.float(), w_oihw, *geom)).reshape(-1, 512)
     out = {"shape": [32, 7, 7, 512, 3, 512], "k": 4608, "max_acc": float(acc64.max()),
            "kernel_vs_exact": _cmp(got, exact)[0],
            "plain_vs_float64_conv": _cmp(exact, acc64.float())[0],
-           "torch_route_vs_exact": _cmp(fp32, acc64.float())[0],
-           "torch_route_max_err": _cmp(fp32, acc64)[1]}
+           "torch_route_vs_exact": _cmp(route, acc64.float())[0],
+           "one_fp32_conv_vs_exact": _cmp(fp32, acc64.float())[0],
+           "one_fp32_conv_max_err": _cmp(fp32, acc64)[1]}
     print(f"  saturating 3x3 conv, C 512 (K 4608), b32 at 7x7, x and w in 100..127: largest "
-          f"accumulator {out['max_acc']:.10g} (2^25 = {2**25}); the GEMM route differs from "
-          f"the exact accumulator rounded once to fp32 in {out['kernel_vs_exact']} elements "
-          f"(the plain version from a float64 conv in {out['plain_vs_float64_conv']}); "
-          f"information: the fp32 torch route differs in {out['torch_route_vs_exact']} of "
-          f"{got.numel()}, by up to {out['torch_route_max_err']:.6g} from the exact sum")
+          f"accumulator {out['max_acc']:.10g} (2^25 = {2**25}); against the exact accumulator "
+          f"rounded once to fp32, the GEMM route differs in {out['kernel_vs_exact']} elements "
+          f"(the plain version from a float64 conv in {out['plain_vs_float64_conv']}), the "
+          f"torch route (chunks of K <= 1040, int32 sum) in {out['torch_route_vs_exact']}; "
+          f"information: one fp32 conv of the whole K differs in "
+          f"{out['one_fp32_conv_vs_exact']} of {got.numel()}, by up to "
+          f"{out['one_fp32_conv_max_err']:.6g} from the exact sum")
     if not out["max_acc"] > 2 ** 25:
         fail(f"the saturating case's accumulator {out['max_acc']} does not pass 2^25")
-    if out["kernel_vs_exact"] or out["plain_vs_float64_conv"]:
-        fail(f"the GEMM route is not the exact accumulator rounded once to fp32: {out}")
+    if out["kernel_vs_exact"] or out["plain_vs_float64_conv"] or out["torch_route_vs_exact"]:
+        fail(f"a route is not the exact accumulator rounded once to fp32: {out}")
     return out
 
 
@@ -1952,6 +2068,319 @@ def phase_resnet(fma_per_s: float):
                                 op_local_outputs_with_diff=n_diff,
                                 torch_route_ops=len(left), torch_conv_acc=acc,
                                 conv_routes=routes, saturating=sat), compiled
+
+
+# ---- phase 9 ---------------------------------------------------------------
+
+DBNET_BATCH, DBNET_SIZE = 4, 640  # the reference benchmark's DBNet (tools/benchmark.py:32-35)
+DBNET_MAP_MEAN_ABS = 0.05  # the reference's bar (tests/test_model_zoo_int8.py:103)
+
+
+def _path_checks(path: str, g8, pred8, feeds, want: dict) -> dict:
+    """Three compiled requests (launches: twice the graph's "cuda" ops of
+    each kind) and every kernel op within the tie bound of its torch op on
+    identical inputs; returns the outputs and the op-by-op numbers."""
+    from paddle_lite_tpu_torch.testing import (TIE_FRACTION, TIE_LSB, op_local_diffs,
+                                               within_tie_bound)
+
+    _reset_counts()
+    outs = [pred8.run(f) for f in feeds]
+    torch.cuda.synchronize()
+    launches = _counts()
+    _check_first_run(path, launches, want)
+    local = op_local_diffs(g8, pred8._weights, feeds[0], DEV)
+    n_diff = sum(1 for d in local if d["n_diff"])
+    worst = max(d["n_diff"] / d["numel"] for d in local)
+    print(f"  cuda vs torch op by op: {len(local)} outputs, {n_diff} with any "
+          f"difference, worst fraction {worst:.3g}, worst "
+          f"{max(d['max_diff'] for d in local)} (bound {TIE_FRACTION}, {TIE_LSB} LSB)")
+    if len(local) != want["int8_gemm"] + want["dw_conv"] or not within_tie_bound(local):
+        fail(f"{path}: a kernel disagrees with its torch op beyond the tie bound: "
+             f"{[d for d in local if d['n_diff']]}")
+    return {"outs": outs, "launches": launches, "op_local_worst_fraction": worst,
+            "op_local_outputs_with_diff": n_diff}
+
+
+def phase_dbnet(fma_per_s: float):
+    """Phase 9: DBNet-640 b4 INT8 with its zoo config (float depthwise
+    convs, fp32 islands)."""
+    from paddle_lite_tpu_torch.models import ppocr
+    from paddle_lite_tpu_torch.models.zoo_config import recommended_quant
+    from paddle_lite_tpu_torch.runtime.predictor import create_predictor
+    from paddle_lite_tpu_torch.tools.db_postprocess import extract_boxes
+
+    rng = np.random.default_rng(9)
+    shape = (DBNET_BATCH, DBNET_SIZE, DBNET_SIZE, 3)
+    calib = [{"image": rng.normal(size=shape).astype(np.float32)}]
+    feeds = [{"image": rng.normal(size=shape).astype(np.float32)} for _ in range(REQUESTS)]
+    kw = dict(batch=DBNET_BATCH, image_size=DBNET_SIZE, seed=0)
+    t0 = time.perf_counter()
+    g8 = ppocr.build_det(**kw)
+    pred8 = create_predictor(g8, quant=recommended_quant("ppocr_det"), calib_batches=calib,
+                             device=DEV)
+    pred32 = create_predictor(ppocr.build_det(**kw), device=DEV)
+    print(f"phase 9: DBNet b{DBNET_BATCH}/{DBNET_SIZE} INT8 ({recommended_quant('ppocr_det')}): "
+          f"build + optimize + calibrate {time.perf_counter() - t0:.1f} s; ops {len(g8.ops)}")
+    left = torch_route_ops(g8, "dbnet")
+
+    # (a) the GEMM at this path's shapes; the 3x3 convs' routes
+    rows, gemm, dw = path_kernel_rows(rng, g8, "dbnet", fma_per_s)
+    print(f"  kernels at this path's shapes: {len(gemm)} GEMM ops, {len(dw)} depthwise")
+    _report_rows(rows)
+    routes = conv_route_rows(rng, g8, pred8._weights, "dbnet")
+
+    # (b) 3 requests; every kernel op against its torch op
+    want = path_launches(g8)
+    print(f"  kernel ops a request: {want}")
+    if (want["int8_gemm"], want["dw_conv"], want["dw_pw_fused"], want["nms"]) != (15, 0, 0, 0):
+        fail(f"expected 15 GEMM ops on the kernels, got {want}")
+    checks = _path_checks("dbnet", g8, pred8, feeds, want)
+    PATHS["dbnet"] = (pred8, feeds, want)
+    out_name = g8.outputs[0]
+    diffs, boxes = [], []
+    for i, (f, o) in enumerate(zip(feeds, checks["outs"])):
+        y = o[out_name]
+        if (tuple(y.shape) != (DBNET_BATCH, DBNET_SIZE, DBNET_SIZE, 1)
+                or not bool(torch.isfinite(y).all()) or not bool(((y >= 0) & (y <= 1)).all())):
+            fail(f"request {i}: map {tuple(y.shape)} is not a finite (b, H, W, 1) in [0, 1]")
+        diffs.append(float((y - pred32.run(f)[out_name]).abs().mean()))
+        boxes.append([len(extract_boxes(m)) for m in y.cpu().numpy()])
+        print(f"  request {i}: int8 vs fp32 probability map mean abs diff {diffs[-1]:.6f} "
+              f"(bar {DBNET_MAP_MEAN_ABS}); db_postprocess boxes a map {boxes[-1]}")
+        if not diffs[-1] < DBNET_MAP_MEAN_ABS:
+            fail(f"request {i}: map mean abs diff {diffs[-1]} >= {DBNET_MAP_MEAN_ABS}")
+
+    # (c) information: throughput, where a request's time goes; then the
+    # compiled request against the eager loop, as phase 7a does
+    serving = _serving_numbers(pred8, pred32, feeds[0], DBNET_BATCH, top=16)
+    _check_profiled_launches("dbnet", serving["profile"]["int8"], want)
+    compiled = compiled_vs_eager("dbnet", pred8, feeds, want)
+    return rows, checks["launches"], dict(
+        serving, map_mean_abs_diff=diffs, boxes=boxes, torch_route_ops=len(left),
+        conv_routes=routes, op_local_worst_fraction=checks["op_local_worst_fraction"],
+        op_local_outputs_with_diff=checks["op_local_outputs_with_diff"]), compiled
+
+
+# ---- phase 10 --------------------------------------------------------------
+
+CRNN_BATCH, CRNN_WIDTH = 64, 320  # the reference benchmark's CRNN (tools/benchmark.py:37-40)
+CRNN_COSINE = 0.99  # the reference's bar (tests/test_model_zoo_int8.py:120)
+
+
+def _ctc_compiled_vs_eager(probs: torch.Tensor) -> dict:
+    """``ctc_greedy_decode`` on one probability tensor, eager and as a CUDA
+    graph captured under ``set_sync_debug_mode("error")`` (a host sync
+    inside the op would raise): both outputs equal."""
+    from paddle_lite_tpu_torch.core.registry import OPS
+
+    impl = OPS.get("ctc_greedy_decode").impls["torch"]
+
+    class Op:
+        attrs = {}
+
+    eager = impl(None, Op, {"X": [probs]})
+    static = probs.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        impl(None, Op, {"X": [static]})
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.graph(graph):
+            got = impl(None, Op, {"X": [static]})
+        graph.replay()
+    except RuntimeError as e:
+        fail(f"ctc_greedy_decode synchronises with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(got[k][0], eager[k][0]) for k in ("Out", "Length"))
+    print(f"  ctc_greedy_decode on {tuple(probs.shape)} {probs.dtype}: CUDA graph (captured "
+          f"with host syncs an error) equal to eager: {equal}; mean length "
+          f"{float(eager['Length'][0].float().mean()):.2f}")
+    if not equal:
+        fail("ctc_greedy_decode differs between its CUDA graph and eager")
+    return {"equal": equal}
+
+
+def _bucketer_run(rng) -> dict:
+    """A LengthBucketer over compiled CRNN b64 predictors at strip widths
+    160 and 320 (bf16 islands): 64 strips of widths 100..320 go to their
+    width bucket, zero-padded; each result's probabilities and decode must
+    equal, bit for bit, the same strip run alone (zero-padded to its
+    bucket, the other rows zero) through that bucket's predictor."""
+    from paddle_lite_tpu_torch.models import ppocr
+    from paddle_lite_tpu_torch.models.zoo_config import recommended_quant
+    from paddle_lite_tpu_torch.runtime.batcher import BatcherConfig
+    from paddle_lite_tpu_torch.runtime.length_bucketer import LengthBucketer, default_pad_fn
+    from paddle_lite_tpu_torch.runtime.predictor import create_predictor
+
+    preds = {}
+    calib_images = rng.normal(size=(CRNN_BATCH, 32, 320, 3)).astype(np.float32)
+
+    def factory(batch, width):
+        g = ppocr.build_rec(batch=batch, width=width, seed=0)
+        preds[width] = create_predictor(
+            g, quant=recommended_quant("ppocr_rec"), device=DEV,
+            calib_batches=[{"image": calib_images[:batch, :, :width]}])
+        return preds[width]
+
+    widths = np.concatenate([rng.integers(100, 161, 32), rng.integers(161, 321, 32)])
+    strips = [rng.normal(size=(32, int(w), 3)).astype(np.float32) for w in widths]
+    t0 = time.perf_counter()
+    lb = LengthBucketer(factory, length_buckets=(160, 320), seq_axes={"image": 1},
+                        batcher_config=BatcherConfig(buckets=(CRNN_BATCH,), max_wait_ms=5.0))
+    try:
+        futs = [lb.submit({"image": x}) for x in strips]
+        results = [f.result(timeout=600) for f in futs]
+    finally:
+        lb.close()
+    secs = time.perf_counter() - t0
+    bad = 0
+    for x, r in zip(strips, results):
+        width = 160 if x.shape[1] <= 160 else 320
+        pred = preds[width]
+        g = pred.graph
+        batch = np.zeros((CRNN_BATCH, 32, width, 3), np.float32)
+        batch[0] = default_pad_fn({"image": x}, width, {"image": 1})["image"]
+        alone = pred.run({"image": batch})
+        for n in g.outputs:
+            if not torch.equal(alone[n][0].cpu(), torch.as_tensor(r[n]).cpu()):
+                bad += 1
+    print(f"  LengthBucketer, buckets 160 / 320 over compiled b{CRNN_BATCH} predictors: "
+          f"{len(strips)} strips of widths {int(widths.min())}..{int(widths.max())} in "
+          f"{secs:.1f} s (predictors built on first use), {lb.stats['padded_tokens']} padded "
+          f"columns; results unequal to the strip run alone at its bucket: {bad}")
+    if bad:
+        fail(f"LengthBucketer: {bad} results differ from the strip run alone")
+    return {"strips": len(strips), "seconds": secs, "padded_columns": lb.stats["padded_tokens"]}
+
+
+def phase_crnn(fma_per_s: float):
+    """Phase 10: CRNN-320 b64 INT8 with its zoo config (bf16 islands)."""
+    from paddle_lite_tpu_torch import QuantConfig
+    from paddle_lite_tpu_torch.models import ppocr
+    from paddle_lite_tpu_torch.models.zoo_config import recommended_quant
+    from paddle_lite_tpu_torch.runtime.predictor import create_predictor
+
+    rng = np.random.default_rng(10)
+    shape = (CRNN_BATCH, 32, CRNN_WIDTH, 3)
+    calib_images = rng.normal(size=shape).astype(np.float32)
+    calib = [{"image": calib_images}]
+    feeds = [{"image": rng.normal(size=shape).astype(np.float32)} for _ in range(REQUESTS)]
+    kw = dict(batch=CRNN_BATCH, width=CRNN_WIDTH, seed=0)
+    quant = recommended_quant("ppocr_rec")
+    t0 = time.perf_counter()
+    g8 = ppocr.build_rec(**kw)
+    pred8 = create_predictor(g8, quant=quant, calib_batches=calib, device=DEV)
+    pred8_f32 = create_predictor(ppocr.build_rec(**kw), quant=QuantConfig(),
+                                 calib_batches=calib, device=DEV)
+    pred32 = create_predictor(ppocr.build_rec(**kw), device=DEV)
+    print(f"phase 10: CRNN b{CRNN_BATCH} strip width {CRNN_WIDTH} INT8 ({quant}): build + "
+          f"optimize + calibrate {time.perf_counter() - t0:.1f} s; ops {len(g8.ops)}; "
+          f"island {g8.meta.get('island_dtype')}")
+    left = torch_route_ops(g8, "crnn")
+    dw_left = [(op.outputs["Output"][0], g8.vars[op.input("Input")].shape[-1],
+                g8.vars[op.input("Filter")].shape[-1])
+               for op in g8.topological_order() if op.op_type == "depthwise_conv2d"]
+    print(f"  depthwise convs (output, C in, C out) on the torch route, channel multiplier "
+          f"2, outside the depthwise kernel's domain (as the TPU kernel's): {dw_left}")
+
+    # (a) the GEMM at this path's shapes
+    rows, gemm, dw = path_kernel_rows(rng, g8, "crnn", fma_per_s)
+    print(f"  kernels at this path's shapes: {len(gemm)} GEMM ops, {len(dw)} depthwise")
+    _report_rows(rows)
+
+    # (b) 3 requests; every kernel op against its torch op
+    want = path_launches(g8)
+    print(f"  kernel ops a request: {want}")
+    if (want["int8_gemm"], want["dw_conv"], want["dw_pw_fused"], want["nms"]) != (8, 0, 0, 0):
+        fail(f"expected 8 GEMM ops on the kernels, got {want}")
+    checks = _path_checks("crnn", g8, pred8, feeds, want)
+    PATHS["crnn"] = (pred8, feeds, want)
+    probs_name, dec_name = g8.outputs
+    t = CRNN_WIDTH // 4
+    coss, same = [], []
+    for i, (f, o) in enumerate(zip(feeds, checks["outs"])):
+        p, d = o[probs_name], o[dec_name]
+        if (tuple(p.shape) != (CRNN_BATCH, t, 6626) or p.dtype != torch.float32
+                or not bool(torch.isfinite(p).all()) or tuple(d.shape) != (CRNN_BATCH, t)
+                or d.dtype != torch.int32):
+            fail(f"request {i}: outputs {tuple(p.shape)} {p.dtype}, {tuple(d.shape)} {d.dtype}")
+        ref = pred32.run(f)
+        coss.append(_cosine(p, ref[probs_name]))
+        same.append(float((d == ref[dec_name]).all(dim=1).float().mean()))
+        print(f"  request {i}: int8 (bf16 islands) vs fp32 probabilities cosine {coss[-1]:.6f}; "
+              f"equal CTC decodes {same[-1]:.4f} of strips")
+        if not coss[-1] > CRNN_COSINE:
+            fail(f"request {i}: probabilities cosine {coss[-1]} <= {CRNN_COSINE}")
+    ctc = _ctc_compiled_vs_eager(checks["outs"][0][probs_name].to(DEV).to(torch.bfloat16))
+
+    # (c) information: bf16 against fp32 islands in turns, throughput, a
+    # profiled request; then phase 7a's check on this path; the bucketer
+    turns = {"bf16": [], "fp32": []}
+    for tag in ("bf16", "fp32", "fp32", "bf16"):
+        turns[tag].append(_ips(pred8 if tag == "bf16" else pred8_f32, feeds[0],
+                               batch=CRNN_BATCH))
+    cos_islands = _cosine(pred8.run(feeds[0])[probs_name], pred8_f32.run(feeds[0])[probs_name])
+    print(f"  img/s in turns, int8 with bf16 islands / fp32 islands: "
+          f"{turns['bf16'][0]:.1f}, {turns['fp32'][0]:.1f}, {turns['fp32'][1]:.1f}, "
+          f"{turns['bf16'][1]:.1f}; bf16 vs fp32 islands probabilities cosine {cos_islands:.6f}")
+    serving = _serving_numbers(pred8, pred32, feeds[0], CRNN_BATCH, top=16)
+    _check_profiled_launches("crnn", serving["profile"]["int8"], want)
+    compiled = compiled_vs_eager("crnn", pred8, feeds, want)
+    del pred8_f32
+    bucketer = _bucketer_run(rng)
+    return rows, checks["launches"], dict(
+        serving, cosine=coss, equal_decodes=same, ctc=ctc, islands_img_s_in_turns=turns,
+        islands_cosine=cos_islands, bucketer=bucketer, torch_route_ops=len(left),
+        depthwise_on_torch_route=dw_left,
+        op_local_worst_fraction=checks["op_local_worst_fraction"],
+        op_local_outputs_with_diff=checks["op_local_outputs_with_diff"]), compiled
+
+
+def phase_ssd_islands(ssd_pred8):
+    """SSD b32 with its zoo config (bf16 islands) against phase 4's int8
+    predictor (fp32 islands), in turns: img/s, detection agreement and the
+    NMS op's input dtype (information); its launches as phase 4's."""
+    from paddle_lite_tpu_torch.core.executor import build_callable
+    from paddle_lite_tpu_torch.models import ssd
+    from paddle_lite_tpu_torch.models.zoo_config import recommended_quant
+    from paddle_lite_tpu_torch.runtime.predictor import create_predictor
+
+    rng = np.random.default_rng(1)
+    shape = (SSD_BATCH, SSD_SIZE, SSD_SIZE, 3)
+    calib = [{"image": rng.normal(size=shape).astype(np.float32)}]  # phase 4's batch
+    feed = {"image": rng.normal(size=shape).astype(np.float32)}
+    kw = dict(batch=SSD_BATCH, image_size=SSD_SIZE, num_classes=SSD_CLASSES, seed=0)
+    g = ssd.build(**kw)
+    pred = create_predictor(g, quant=recommended_quant("ssd"), calib_batches=calib, device=DEV)
+    want = path_launches(g)
+    _reset_counts()
+    outs = [pred.run(feed) for _ in range(REQUESTS)]
+    torch.cuda.synchronize()
+    _check_first_run("ssd_bf16_islands", _counts(), want)
+    nms = next(op for op in g.ops if op.op_type == "multiclass_nms")
+    seen = {}
+    build_callable(g, device=DEV, capture=lambda n, v: seen.__setitem__(n, v.dtype)
+                   if n in (nms.input("BBoxes"), nms.input("Scores")) else None)(
+        pred._weights, feed)
+    out_name = g.outputs[0]
+    ref = ssd_pred8.run(feed)[out_name]
+    agree = (_det_agreement(outs[0][out_name], ref), _det_agreement(ref, outs[0][out_name]))
+    turns = {"bf16": [], "fp32": []}
+    for tag in ("bf16", "fp32", "fp32", "bf16"):
+        turns[tag].append(_ips(pred if tag == "bf16" else ssd_pred8, feed, batch=SSD_BATCH))
+    print(f"phase 4b: SSD b{SSD_BATCH} INT8 with its zoo config (bf16 islands): launches as "
+          f"phase 4's {want}; NMS input dtypes {sorted({str(v) for v in seen.values()})}; "
+          f"detections against fp32 islands (same label, IoU >= 0.5): {agree[0]:.4f} of "
+          f"bf16's found, {agree[1]:.4f} of fp32's; img/s in turns bf16 / fp32 islands: "
+          f"{turns['bf16'][0]:.1f}, {turns['fp32'][0]:.1f}, {turns['fp32'][1]:.1f}, "
+          f"{turns['bf16'][1]:.1f}")
+    return {"agreement": agree, "img_s_in_turns": turns,
+            "nms_input_dtypes": sorted({str(v) for v in seen.values()})}
 
 
 # ---- the kernels' line -----------------------------------------------------
@@ -2077,23 +2506,29 @@ def main() -> None:
     rows = phase_kernels(fma_per_s)
     launches, e2e, unfused = phase_main_path()
     ssd_rows, ssd_launches, ssd = phase_ssd(fma_per_s)
+    ssd["bf16_islands"] = phase_ssd_islands(PATHS["ssd"][0])
     fused_rows, fused_launches, fused = phase_fused(fma_per_s, unfused)
     v3_rows, v3_launches, v3 = phase_mnv3(fma_per_s)
     compiled = phase_compiled()
     serving = phase_serving()
     bench = phase_benchmark()
     r50_rows, r50_launches, r50, compiled["resnet50"] = phase_resnet(fma_per_s)
-    all_rows = rows + ssd_rows + fused_rows + v3_rows + r50_rows
+    db_rows, db_launches, db, compiled["dbnet"] = phase_dbnet(fma_per_s)
+    rec_rows, rec_launches, rec, compiled["crnn"] = phase_crnn(fma_per_s)
+    all_rows = rows + ssd_rows + fused_rows + v3_rows + r50_rows + db_rows + rec_rows
     kernels = _kernel_line(all_rows, {"mobilenet_v1": launches, "ssd": ssd_launches,
                                       "mobilenet_v1_fused": fused_launches,
                                       "mobilenet_v3": v3_launches,
                                       "serving": serving["launches"],
-                                      "resnet50": r50_launches},
+                                      "resnet50": r50_launches, "dbnet": db_launches,
+                                      "crnn": rec_launches},
                            {"mobilenet_v1": e2e["profile"]["int8"],
                             "ssd": ssd["profile"]["int8"],
                             "mobilenet_v1_fused": fused["profile"]["int8"],
                             "mobilenet_v3": v3["profile"]["int8"],
-                            "resnet50": r50["profile"]["int8"]})
+                            "resnet50": r50["profile"]["int8"],
+                            "dbnet": db["profile"]["int8"],
+                            "crnn": rec["profile"]["int8"]})
     gemm = next(k for k in kernels if k["name"] == "int8_gemm")
     for p, v in gemm["by_path"].items():
         print(f"int8_gemm a {p} request: {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}); "
@@ -2120,7 +2555,8 @@ def main() -> None:
         with open(args.json, "w") as f:
             json.dump({"card": card, "rows": all_rows, "main_path": e2e,
                        "ssd": ssd, "mobilenet_v1_fused": fused,
-                       "mobilenet_v3": v3, "resnet50": r50, "compiled": compiled,
+                       "mobilenet_v3": v3, "resnet50": r50, "dbnet": db, "crnn": rec,
+                       "compiled": compiled,
                        "serving": serving,
                        "benchmark": bench, "kernels": kernels}, f, indent=1)
     print(card)

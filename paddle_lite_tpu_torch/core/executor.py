@@ -10,8 +10,16 @@ topological order, with the same name-keyed ``env`` and the same
 output, ``executor.py:97-117`` there).  ``compile_graph`` is the port's
 ``jax.jit``: on the card it captures that loop once, on the first call, as
 a ``torch.cuda.CUDAGraph`` over static input and output buffers, and every
-later call replays it (:class:`CompiledGraph`).  The bf16 island
-(``graph.meta["island_dtype"]``, ``executor.py:86-116``) is not ported yet.
+later call replays it (:class:`CompiledGraph`).
+
+bf16 islands (``graph.meta["island_dtype"] == "bfloat16"``, the
+reference's rule at ``executor.py:86-136``): every float32 graph input and
+every float32 op output is rounded to bf16 as it enters the name-keyed
+env, so the next op reads bf16; int8, int32 and int64 values pass
+untouched; float32 weights are staged as bf16 (int8 weights and the quant
+scales, which live in the graph, are untouched); the graph's outputs are
+returned as float32, the public contract.  The ops accumulate bf16
+operands in float32 and promote as ``jnp`` does (``ops/common.upcast``).
 """
 
 from __future__ import annotations
@@ -56,6 +64,21 @@ class ExecutionContext:
         return to_tensor(np.asarray(array), self.device)
 
 
+ISLAND_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def island_dtype(graph: Graph) -> Optional[torch.dtype]:
+    """The dtype float32 values are rounded to between ops: bf16 when
+    ``graph.meta["island_dtype"]`` is ``"bfloat16"``, None for float32 (or
+    no entry).  Any other entry raises."""
+    name = graph.meta.get("island_dtype") or "float32"
+    if name not in ISLAND_DTYPES:
+        raise NotImplementedError(
+            f"graph.meta['island_dtype'] = {name!r}: only 'float32' and "
+            f"'bfloat16' islands are ported")
+    return ISLAND_DTYPES[name]
+
+
 def _resolve_inputs(op: OpNode, env: Dict[str, Any]) -> Dict[str, List[Any]]:
     return {
         slot: [env[n] for n in names]
@@ -85,14 +108,16 @@ def _runner(graph: Graph, ctx: ExecutionContext,
             capture: Optional[Callable[[str, torch.Tensor], None]] = None):
     """The eager loop of `graph` over `ctx` (its device and per-op
     constants); impls are resolved here, so an unknown tag raises now."""
-    if graph.meta.get("island_dtype"):
-        raise NotImplementedError(
-            "bf16 islands (graph.meta['island_dtype']) are not ported yet"
-        )
     order = graph.topological_order()
     impls = [OPS.get(op.op_type).impl_for(op.attrs.get("kernel"))
              for op in order]
     device = ctx.device
+    island = island_dtype(graph)
+
+    def to_island(a):
+        if island is not None and a.dtype == torch.float32:
+            return a.to(island)
+        return a
 
     def run(weights: Dict[str, Any], inputs: Dict[str, Any]) -> Dict[str, Any]:
         env: Dict[str, Any] = dict(weights)
@@ -100,24 +125,35 @@ def _runner(graph: Graph, ctx: ExecutionContext,
             for name in graph.inputs:
                 x = to_tensor(inputs[name], device)
                 want = graph.vars[name].precision.torch_dtype
-                env[name] = x if x.dtype == want else x.to(want)
+                env[name] = to_island(x if x.dtype == want else x.to(want))
                 if capture is not None:
                     capture(name, env[name])
             for op, impl in zip(order, impls):
                 outs = impl(ctx, op, _resolve_inputs(op, env))
                 for slot, arrs in outs.items():
                     for n, a in zip(op.outputs.get(slot, []), arrs):
-                        env[n] = a
+                        env[n] = to_island(a)
                         if capture is not None:
-                            capture(n, a)
-        return {n: env[n] for n in graph.outputs}
+                            capture(n, env[n])
+            out = {n: env[n] for n in graph.outputs}
+            if island is not None:  # the public contract stays float32
+                out = {n: v.to(torch.float32) if v.dtype == island else v
+                       for n, v in out.items()}
+        return out
 
     return run
 
 
 def stage_weights(graph: Graph, device: torch.device) -> Dict[str, torch.Tensor]:
-    """Weights as device tensors, copied once."""
-    return {k: to_tensor(v, device) for k, v in graph.weights.items()}
+    """Weights as device tensors, copied once.  Under bf16 islands float32
+    weights are stored as bf16 (rounded to nearest even); int8 weights are
+    untouched (``executor.py:122-136`` there)."""
+    island = island_dtype(graph)
+    out = {}
+    for k, v in graph.weights.items():
+        t = to_tensor(v, device)
+        out[k] = t.to(island) if island is not None and t.dtype == torch.float32 else t
+    return out
 
 
 # one capture at a time in the process: a capture must not see another

@@ -66,9 +66,22 @@ constexpr int P = 7;                    // output columns a unit (a thread's run
 // the difference.
 constexpr bool CHECKED_DIVISION = true;
 constexpr uint32_t IDX_MAX = 1u << 20;  // bound of FastDiv's numerators
-// the card, read by plt_dw_conv_prepare: SMs, shared bytes an SM has, one
-// block may take (opt-in), and the runtime keeps for each block
-int g_sms = 0, g_smem_sm = 0, g_smem_block = 0, g_smem_reserved = 0;
+// a card, as plt_dw_conv_prepare reads it on that device: SMs, shared bytes
+// an SM has, one block may take (opt-in), and the runtime keeps for each
+// block.  One entry a device index; sms == 0 until that device is prepared.
+struct Card {
+  int sms, smem_sm, smem_block, smem_reserved;
+};
+constexpr int MAX_DEVICES = 64;
+Card g_cards[MAX_DEVICES] = {};
+
+// The entry of the current device (the wrapper makes it the tensor's
+// device), or null when the device is out of the table's range.
+Card* current_card() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES) return nullptr;
+  return &g_cards[dev];
+}
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int up(int a, int b) { return cdiv(a, b) * b; }
@@ -395,30 +408,34 @@ Kernel pick(int k, int s, int act, int out_i8) {
   return nullptr;
 }
 
-}  // namespace
-
-// Blocks of `kern` with `smem` shared bytes each that the card holds at once.
-static cudaError_t resident_blocks(Kernel kern, size_t smem, long long* out) {
+// Blocks of `kern` with `smem` shared bytes each that `card` holds at once.
+cudaError_t resident_blocks(const Card& card, Kernel kern, size_t smem, long long* out) {
   int per_sm = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem);
-  *out = (long long)per_sm * g_sms;
+  *out = (long long)per_sm * card.sms;
   return e;
 }
 
-// Reads the card's SMs and shared-memory sizes and lets every
-// instantiation take all the dynamic shared memory a block may.  The
-// wrapper calls it once, when the library is loaded (never inside a
-// CUDA-graph capture).  Returns the first CUDA error, or 0.
+}  // namespace
+
+// Reads the current device's SMs and shared-memory sizes into its entry
+// and lets every instantiation take all the dynamic shared memory a block
+// may there.  The wrapper calls it once per device, when the library is
+// first used there (never inside a CUDA-graph capture).  Returns the first
+// CUDA error, or 0.
 extern "C" int plt_dw_conv_prepare() {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  Card c = {};
   const struct {
     int* to;
     cudaDeviceAttr attr;
-  } reads[] = {{&g_sms, cudaDevAttrMultiProcessorCount},
-               {&g_smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor},
-               {&g_smem_block, cudaDevAttrMaxSharedMemoryPerBlockOptin},
-               {&g_smem_reserved, cudaDevAttrReservedSharedMemoryPerBlock}};
+  } reads[] = {{&c.sms, cudaDevAttrMultiProcessorCount},
+               {&c.smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor},
+               {&c.smem_block, cudaDevAttrMaxSharedMemoryPerBlockOptin},
+               {&c.smem_reserved, cudaDevAttrReservedSharedMemoryPerBlock}};
   for (const auto& r : reads)
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(r.to, r.attr, dev);
   for (int k = 3; k <= 5 && e == cudaSuccess; k += 2)
@@ -426,34 +443,38 @@ extern "C" int plt_dw_conv_prepare() {
       for (int act = plt::ACT_NONE; act <= plt::ACT_HARD_SIGMOID && e == cudaSuccess; ++act)
         for (int o8 = 0; o8 <= 1 && e == cudaSuccess; ++o8)
           e = cudaFuncSetAttribute(pick(k, s, act, o8),
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, g_smem_block);
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_block);
+  if (e == cudaSuccess) g_cards[dev] = c;  // the entry is whole, or stays unprepared
   return static_cast<int>(e);
 }
 
-// The k x k kernel's layout for ops/kernels/depthwise.plan: threads a
+// The k x k kernel's layout on the current device (its entry, which
+// plt_dw_conv_prepare filled), for ops/kernels/depthwise.plan: threads a
 // block, channels a thread, blocks an SM holds (the fewest over the k's
 // instantiations, by registers and threads), the card's SMs, and the
 // shared bytes one block may take while that many share an SM.  Returns a
 // CUDA error, or 0.
 extern "C" int plt_dw_conv_layout(int k, int* threads, int* channels, int* blocks_per_sm,
                                   int* sms, int* smem_per_block) {
-  if (g_sms <= 0 || (k != 3 && k != 5)) return static_cast<int>(cudaErrorInvalidValue);
+  const Card* card = current_card();
+  if (card == nullptr || card->sms <= 0 || (k != 3 && k != 5))
+    return static_cast<int>(cudaErrorInvalidValue);
   long long fewest = -1;
   for (int s = 1; s <= 2; ++s)
     for (int act = plt::ACT_NONE; act <= plt::ACT_HARD_SIGMOID; ++act)
       for (int o8 = 0; o8 <= 1; ++o8) {
         long long n = 0;
-        const cudaError_t e = resident_blocks(pick(k, s, act, o8), 0, &n);
+        const cudaError_t e = resident_blocks(*card, pick(k, s, act, o8), 0, &n);
         if (e != cudaSuccess) return static_cast<int>(e);
         if (fewest < 0 || n < fewest) fewest = n;
       }
   *threads = THREADS;
   *channels = CHANNELS;
-  *sms = g_sms;
-  *blocks_per_sm = (int)(fewest / g_sms);
+  *sms = card->sms;
+  *blocks_per_sm = (int)(fewest / card->sms);
   if (*blocks_per_sm < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int share = g_smem_sm / *blocks_per_sm - g_smem_reserved;
-  *smem_per_block = share < g_smem_block ? share : g_smem_block;
+  const int share = card->smem_sm / *blocks_per_sm - card->smem_reserved;
+  *smem_per_block = share < card->smem_block ? share : card->smem_block;
   return 0;
 }
 
@@ -461,10 +482,11 @@ extern "C" int plt_dw_conv_layout(int k, int* threads, int* channels, int* block
 // `act` is a plt::Act code and p0..p2 its parameters (epilogue.cuh).  The
 // plan (th, tw, cv, vec, ipb, smem, tiles_x, tiles_y) comes from
 // ops/kernels/depthwise.plan; the kernel runs its tiles_x * tiles_y tiles on
-// as many resident blocks as the card holds.  Returns cudaGetLastError()
+// as many resident blocks as the card holds, by the entry of the current
+// device (the wrapper makes it the tensor's).  Returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue (1) for a kernel size, stride,
-// plan or pointer the kernel does not take; it never substitutes another
-// plan.
+// plan or pointer the kernel does not take, or on a device not prepared;
+// it never substitutes another plan.
 extern "C" int plt_dw_conv(const void* x, const void* w, const void* scale,
                            const void* bias, void* out, int N, int H, int W,
                            int C, int OH, int OW, int k, int stride, int act,
@@ -475,7 +497,8 @@ extern "C" int plt_dw_conv(const void* x, const void* w, const void* scale,
                            void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   const Kernel kern = pick(k, stride, act, out_i8);
-  if (kern == nullptr || g_sms <= 0) return invalid;
+  const Card* card = current_card();
+  if (kern == nullptr || card == nullptr || card->sms <= 0) return invalid;
   if ((long long)N * OH * OW * C == 0) return static_cast<int>(cudaGetLastError());
   const int pad = (k - 1) / 2;
   if (OH != (H + 2 * pad - k) / stride + 1 || OW != (W + 2 * pad - k) / stride + 1)
@@ -507,7 +530,7 @@ extern "C" int plt_dw_conv(const void* x, const void* w, const void* scale,
   a.halo_bytes = up(ipb * a.sh * a.rs, 16);
   a.buf_bytes = a.halo_bytes + up(k * k * cv, 16) + 8 * cv;
   const long long need = 2LL * a.buf_bytes + (long long)ipb * th * tw * cv;
-  if (need > smem_bytes || smem_bytes > g_smem_block) return invalid;
+  if (need > smem_bytes || smem_bytes > card->smem_block) return invalid;
   const int chunks = cdiv(C, cv), tiles_w = cdiv(OW, tw), tiles_h = cdiv(OH, th);
   if (tiles_x != tiles_h * tiles_w * chunks || tiles_y != cdiv(N, ipb)) return invalid;
   // FastDiv's range: numerators below 2^20, divisors below 2^12
@@ -529,7 +552,7 @@ extern "C" int plt_dw_conv(const void* x, const void* w, const void* scale,
   a.sh_div = FastDiv(a.sh);
   a.runs_div = FastDiv(a.runs);
   long long resident = 0;
-  cudaError_t e = resident_blocks(kern, (size_t)smem_bytes, &resident);
+  cudaError_t e = resident_blocks(*card, kern, (size_t)smem_bytes, &resident);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (resident < 1) return invalid;
   const int grid = (int)(ntiles < resident ? ntiles : resident);

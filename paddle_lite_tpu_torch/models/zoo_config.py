@@ -2,11 +2,14 @@
 zoo_config.py`` (the port may not import it).
 
 ``RECOMMENDED`` holds the reference's per-model non-default ``QuantConfig``
-fields, each backed there by an A/B measured on a TPU; none was measured on
-the H100.  ``recommended_quant(model)`` is what ``tools/benchmark`` builds
-its config from.  ``recommended_quant("ssd")`` asks for bf16 islands, which
-the port's ``tools.opt.optimize`` does not take yet (it raises
-``NotImplementedError``); ``--no-zoo-config`` runs SSD with fp32 islands.
+fields, each backed there by an A/B measured on a TPU (bf16 islands for
+SSD, the CRNNs and ERNIE-tiny; float depthwise convs for DBNet); none of
+them was measured on the H100, so nothing here says they are the better
+choice on it.  The table stays the reference's: ``chip_smoke.py`` reads SSD
+and CRNN with fp32 and with bf16 islands in turns on the card and
+``PERF.md`` holds what it saw.  ``recommended_quant(model)`` is what
+``tools/benchmark`` builds its config from (``--no-zoo-config``: the
+``QuantConfig`` defaults).
 """
 
 from __future__ import annotations

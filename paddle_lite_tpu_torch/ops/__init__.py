@@ -8,4 +8,5 @@ from . import elementwise  # noqa: F401
 from . import fused  # noqa: F401
 from . import manip  # noqa: F401
 from . import nn  # noqa: F401
+from . import sequence  # noqa: F401
 from . import kernels  # noqa: F401  (registers the "cuda" impls)

@@ -8,6 +8,12 @@ Rounding: ``torch.round`` rounds half to even, as ``jnp.round`` does
 (``common.py:107`` there).  Scales enter as float32 tensors on the tensor's
 device: dividing a CUDA tensor by a Python scalar makes PyTorch multiply by
 its reciprocal instead, which is not the reference's arithmetic.
+
+Promotion: a per-tensor scale is a 0-dim float32 tensor, and PyTorch keeps
+a bf16 operand's dtype against a 0-dim float32 one, where ``jnp`` promotes
+a bf16 array against a float32 array to float32.  So every helper that
+meets a bf16 value (an island value, ``graph.meta["island_dtype"]``)
+upcasts it first, as jnp would (:func:`upcast`).
 """
 
 from __future__ import annotations
@@ -19,6 +25,14 @@ import torch
 import torch.nn.functional as F
 
 INT8_MIN, INT8_MAX = -127, 127  # symmetric: -127..127, matching reference
+
+
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """`x` as jnp promotes it against a float32 array: a bf16 or fp16
+    tensor becomes float32; float32, float64 and integer tensors are
+    returned as they are (their arithmetic with a float32 scale already
+    gives jnp's dtype)."""
+    return x.to(torch.float32) if x.dtype in (torch.bfloat16, torch.float16) else x
 
 
 def f32(value, device: torch.device) -> torch.Tensor:
@@ -123,7 +137,9 @@ def _broadcast_scale(scale, x: torch.Tensor, axis: Optional[int]) -> torch.Tenso
 
 
 def quantize(x: torch.Tensor, scale, axis: Optional[int] = None) -> torch.Tensor:
-    """fp32 -> int8: round(x / scale) half to even, saturate to ±127."""
+    """fp32 -> int8: round(x / scale) half to even, saturate to ±127.  A
+    bf16 `x` is divided in float32, as jnp divides it by a float32 scale."""
+    x = upcast(x)
     q = torch.round(x / _broadcast_scale(scale, x, axis))
     return torch.clamp(q, INT8_MIN, INT8_MAX).to(torch.int8)
 
@@ -145,7 +161,7 @@ def requant_epilogue(
     """int32 accum → fp32 scale → +bias → act → (optional) int8 requant."""
     y = acc_i32.to(torch.float32) * f32(effective_scale, acc_i32.device)
     if bias is not None:
-        y = y + bias
+        y = y + upcast(bias)
     y = apply_activation(y, act, act_attrs)
     if out_scale is not None:
         return quantize(y, out_scale)

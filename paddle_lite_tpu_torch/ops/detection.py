@@ -153,8 +153,8 @@ def box_coder_torch(ctx, op, ins):
     ph = prior[:, 3] - prior[:, 1] + one
     pcx = prior[:, 0] + pw * 0.5
     pcy = prior[:, 1] + ph * 0.5
-    v = (pvar.reshape(-1, 4) if pvar is not None
-         else torch.ones_like(prior))
+    v = (pvar.reshape(-1, 4) if pvar is not None  # the reference's fp32 ones
+         else torch.ones(prior.shape, dtype=torch.float32, device=prior.device))
     cx = v[:, 0] * t[..., 0] * pw + pcx
     cy = v[:, 1] * t[..., 1] * ph + pcy
     w = torch.exp(v[:, 2] * t[..., 2]) * pw

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..core.registry import OPS
-from .common import apply_activation, dequantize, quantize
+from .common import apply_activation, dequantize, quantize, upcast
 
 
 def _broadcast_shape(attrs, in_shapes):
@@ -63,6 +63,8 @@ def _make_eltwise(name, fn):
             yq = ctx.var_quant(op.input("Y"))
             y = dequantize(y, yq.scale_array() if yq.per_channel else yq.scale[0],
                            axis=yq.axis)
+        if x.dtype != y.dtype:  # jnp promotes bf16 with float32 to float32
+            x, y = upcast(x), upcast(y)
         out = fn(x, _align(x, y, int(op.attrs.get("axis", -1))))
         out = apply_activation(out, op.attrs.get("fuse_act"), op.attrs.get("act_attrs"))
         out_scale = op.attrs.get("out_scale")

@@ -26,7 +26,7 @@ from ..core.ir import Graph
 from ..core.pass_manager import register_pass
 from ..core.pattern_matcher import match_chain, op_of
 from ..core.registry import OPS
-from .common import effective_conv_scale, requant_epilogue
+from .common import effective_conv_scale, requant_epilogue, upcast
 from .kernels import depthwise
 from .kernels.dw_pw_fused import fused_dw_pw_int8
 from .kernels.int8_matmul import ACTS
@@ -92,9 +92,10 @@ def fused_dw_pw_cuda(ctx, op, ins):
     if x.device.type != "cpu":  # (O, C) once; the CPU path needs none
         pw_nk = ctx.const(op, "w_nk",
                           lambda: pw_w.reshape(x.shape[-1], -1).t().contiguous())
-    y = fused_dw_pw_int8(
-        x, dw_w, dw_eff, ins.get("DwBias", [None])[0], attrs["dw_out_scale"],
-        pw_w, pw_eff, ins.get("PwBias", [None])[0],
+    dw_b, pw_b = (ins.get(s, [None])[0] for s in ("DwBias", "PwBias"))
+    y = fused_dw_pw_int8(  # a bf16-staged bias upcast, values kept
+        x, dw_w, dw_eff, None if dw_b is None else upcast(dw_b), attrs["dw_out_scale"],
+        pw_w, pw_eff, None if pw_b is None else upcast(pw_b),
         dw_act=attrs.get("dw_act"), dw_act_attrs=attrs.get("dw_act_attrs"),
         pw_act=attrs.get("pw_act"), pw_act_attrs=attrs.get("pw_act_attrs"),
         pw_out_scale=attrs.get("out_scale"), pw_w_nk=pw_nk)

@@ -13,6 +13,13 @@ running another implementation.
 
 Per-op constants — the folded s_x·s_w scales and the GEMM weights repacked
 to (N, K) — are made once per op on its first run (``ctx.const``).
+
+Under bf16 islands (``graph.meta["island_dtype"]``) the int8 operands and
+outputs are as without them; a bias staged as bf16 is upcast to fp32 here,
+keeping its bf16-rounded values, as the reference upcasts it
+(``ops/kernels/depthwise.py:112`` there), and an fp32 output is rounded to
+bf16 by the executor.  The wrappers themselves take only int8 and fp32
+tensors and raise on a bf16 one.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ...core.registry import OPS
-from ..common import conv_out_size, normalize_2d, normalize_paddings
+from ..common import conv_out_size, normalize_2d, normalize_paddings, upcast
 from ..detection import exact_candidates, nms_attrs, nms_merge
 from ..nn import eff_scale
 from . import depthwise
@@ -49,10 +56,15 @@ def _packed(ctx, op, w2: torch.Tensor):
     return ctx.const(op, "w_nk", lambda: w2.t().contiguous())
 
 
+def _bias(bias):
+    """The kernels' fp32 bias: a bf16-staged one upcast, values kept."""
+    return None if bias is None else upcast(bias)
+
+
 def _gemm(ctx, op, x2, w2, x_name, w_name, bias):
     _int8(op, x2, w2)
     return int8_matmul(
-        x2.contiguous(), w2, eff_scale(ctx, op, x_name, w_name), bias,
+        x2.contiguous(), w2, eff_scale(ctx, op, x_name, w_name), _bias(bias),
         act=op.attrs.get("fuse_act"), act_attrs=op.attrs.get("act_attrs"),
         out_scale=op.attrs.get("out_scale"), w_nk=_packed(ctx, op, w2))
 
@@ -135,7 +147,7 @@ def depthwise_cuda(ctx, op, ins):
              and depthwise.supported_general(op.attrs, x.shape, w.shape), op,
              "outside the kernel's k ∈ {3,5} / stride ∈ {1,2} / SAME domain")
     y = depthwise.dw_conv_int8(
-        x, w, eff_scale(ctx, op, op.input("Input"), op.input("Filter")), bias,
+        x, w, eff_scale(ctx, op, op.input("Input"), op.input("Filter")), _bias(bias),
         stride=normalize_2d(op.attrs.get("strides", (1, 1)))[0],
         act=op.attrs.get("fuse_act"), act_attrs=op.attrs.get("act_attrs"),
         out_scale=op.attrs.get("out_scale"))

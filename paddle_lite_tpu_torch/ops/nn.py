@@ -12,10 +12,20 @@ input is a channels-last view, so no copy is made).
 
 Int8 semantics: int8×int8→int32 accumulation, then the epilogue
 ``acc·(s_x·s_w[c]) + bias → act → optional round(y / out_scale)`` clipped
-to ±127.  torch has no int8 convolution, so int8 convs run as an fp32 conv
-followed by ``round`` — exact while |acc| < 2^24, the reference's own CPU
-formulation (``nn.py:146-162``).  The int8 fc / mul run as a float64
-matmul cast back to an integer-valued fp32 tensor, exact for |acc| < 2^53.
+to ±127.  torch has no int8 convolution, so an int8 conv runs as fp32
+convs followed by ``round``.  One fp32 conv is exact while every partial
+sum stays below 2^24, which holds for every int8 input up to K = kh·kw·C =
+:data:`FP32_EXACT_K`; past it the input channels are split into chunks of
+K ≤ :data:`FP32_EXACT_K`, each chunk's conv is rounded, and the chunks are
+summed in int32: the reference's int32 accumulator on its target
+(``preferred_element_type=jnp.int32``, ``nn.py:158-160``), exact for any
+K, converted to fp32 once.  The int8 fc / mul run as a float64 matmul cast
+back to an integer-valued fp32 tensor, exact for |acc| < 2^53.
+
+Float ops on bf16 island values (``graph.meta["island_dtype"]``) take
+bf16 operands with fp32 accumulation and give fp32, as the reference's
+``preferred_element_type=jnp.float32``: the operands are upcast (a bf16
+product is exact in fp32) and the executor rounds the output to bf16.
 """
 
 from __future__ import annotations
@@ -34,7 +44,12 @@ from .common import (
     normalize_2d,
     normalize_paddings,
     quantize,
+    upcast,
 )
+
+# an fp32 conv of int8 operands is exact for every input while every
+# partial sum stays below 2^24: K·127² < 2^24 up to K = 1040
+FP32_EXACT_K = 1040
 
 # ---------------------------------------------------------------------------
 # conv2d / depthwise_conv2d
@@ -127,16 +142,90 @@ def conv2d_torch(ctx, op, ins):
     if op.op_type == "depthwise_conv2d":
         groups = x.shape[-1]
     int8_path = _check_dtypes(op, x, w)
-    # HWIO -> OIHW once per op (channels-last, the layout cuDNN reads NHWC with)
-    w_oihw = ctx.const(op, "w_oihw", lambda: w.to(torch.float32).permute(
-        3, 2, 0, 1).contiguous(memory_format=torch.channels_last))
-    acc = conv_nhwc(x.to(torch.float32), w_oihw, strides, padding, dilations,
-                    groups)
-    if int8_path:
-        acc = torch.round(acc)
+    kh, kw, c_per_group = w.shape[:3]
+    step = FP32_EXACT_K // (kh * kw) if int8_path else c_per_group
+    if step < c_per_group and (groups != 1 or step == 0):
+        raise NotImplementedError(
+            f"{op.op_type}: an int8 conv with {groups} groups and K = "
+            f"{kh * kw * c_per_group} a group is not exact on this route")
+    # HWIO -> OIHW once per op (channels-last, the layout cuDNN reads NHWC
+    # with), split into input-channel chunks of K <= FP32_EXACT_K if int8
+    chunks = ctx.const(op, "w_oihw", lambda: [
+        (c0, w[:, :, c0:c0 + step].to(torch.float32).permute(3, 2, 0, 1)
+         .contiguous(memory_format=torch.channels_last))
+        for c0 in range(0, c_per_group, step)])
+    xf = x.to(torch.float32)  # a bf16 island value: exact products in fp32
+    if len(chunks) == 1:
+        acc = conv_nhwc(xf, chunks[0][1], strides, padding, dilations, groups)
+        if int8_path:
+            acc = torch.round(acc)
+    else:  # exact per chunk; the int32 sum is exact, converted to fp32 once
+        acc = sum(torch.round(conv_nhwc(xf[..., c0:c0 + wc.shape[1]], wc, strides,
+                                        padding, dilations, 1)).to(torch.int32)
+                  for c0, wc in chunks).to(torch.float32)
     y = _conv_epilogue(ctx, op, acc, op.input("Input"), op.input("Filter"),
                        bias, residual, op.maybe_input("ResidualData"),
                        int8_acc=int8_path)
+    return {"Output": [y]}
+
+
+# ---------------------------------------------------------------------------
+# conv2d_transpose (``nn.py:173-253`` there)
+# ---------------------------------------------------------------------------
+
+@OPS.shape_fn("conv2d_transpose")
+def conv2d_transpose_shape(attrs, in_shapes):
+    (n, h, w, _), (kh, kw, _, oc_per_g) = in_shapes[0], in_shapes[1]
+    sh, sw = normalize_2d(attrs.get("strides", (1, 1)))
+    dh, dw = normalize_2d(attrs.get("dilations", (1, 1)))
+    (ph0, ph1), (pw0, pw1) = normalize_paddings(attrs.get("paddings", (0, 0)))
+    groups = int(attrs.get("groups", 1))
+    oph, opw = normalize_2d(attrs.get("output_padding", (0, 0)))
+    oh = (h - 1) * sh - ph0 - ph1 + dh * (kh - 1) + 1 + oph
+    ow = (w - 1) * sw - pw0 - pw1 + dw * (kw - 1) + 1 + opw
+    return [(n, oh, ow, oc_per_g * groups)]
+
+
+@OPS.kernel("conv2d_transpose", "torch")
+def conv2d_transpose_torch(ctx, op, ins):
+    """Transposed conv in fp32: int8 operands dequantized, bf16 ones upcast
+    (fp32 products and sums, the reference's ``preferred_element_type``).
+    kernel == stride without padding is one (N·H·W, Ci)·(Ci, kh·kw·Co)
+    product and a depth-to-space; otherwise the gradient form: the input
+    dilated by the stride, padded by ``d·(k−1) − p`` (cropped where that is
+    negative), convolved with the spatially flipped HWIO filter."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    bias = ins.get("Bias", [None])[0]
+    attrs = op.attrs
+    sh, sw = normalize_2d(attrs.get("strides", (1, 1)))
+    dh, dw = normalize_2d(attrs.get("dilations", (1, 1)))
+    (ph0, ph1), (pw0, pw1) = normalize_paddings(attrs.get("paddings", (0, 0)))
+    oph, opw = normalize_2d(attrs.get("output_padding", (0, 0)))
+    groups = int(attrs.get("groups", 1))
+    if x.dtype == torch.int8:
+        x = dequantize(x, ctx.var_quant(op.input("Input")).scale[0])
+    if w.dtype == torch.int8:
+        wq = ctx.var_quant(op.input("Filter"))
+        w = dequantize(w, wq.scale_array(), axis=wq.axis)
+    x, w = upcast(x), upcast(w)
+    kh, kw, ci, co = w.shape
+    n, h, wd, _ = x.shape
+    if ((sh, sw) == (kh, kw) and dh == dw == 1 and groups == 1
+            and ph0 == ph1 == pw0 == pw1 == 0 and oph == opw == 0):
+        wm = w.permute(2, 0, 1, 3).reshape(ci, kh * kw * co)
+        acc = (x.reshape(n * h * wd, ci) @ wm).reshape(n, h, wd, kh, kw, co)
+        acc = acc.permute(0, 1, 3, 2, 4, 5).reshape(n, h * kh, wd * kw, co)
+    else:
+        xd = x.new_zeros((n, (h - 1) * sh + 1, (wd - 1) * sw + 1, x.shape[3]))
+        xd[:, ::sh, ::sw] = x
+        pads = (dh * (kh - 1) - ph0, dh * (kh - 1) - ph1 + oph,
+                dw * (kw - 1) - pw0, dw * (kw - 1) - pw1 + opw)
+        xn = F.pad(xd.permute(0, 3, 1, 2), (pads[2], pads[3], pads[0], pads[1]))
+        wf = torch.flip(w, dims=(0, 1)).permute(3, 2, 0, 1)
+        acc = F.conv2d(xn, wf, dilation=(dh, dw), groups=groups)
+        acc = acc.permute(0, 2, 3, 1).contiguous()
+    y = _conv_epilogue(ctx, op, acc, op.input("Input"), op.input("Filter"),
+                       bias, None, None)
     return {"Output": [y]}
 
 
@@ -149,7 +238,7 @@ def _matmul_acc(x2: torch.Tensor, w: torch.Tensor, int8_path: bool) -> torch.Ten
         # float64 holds every int8·int8 sum exactly; cast to fp32 rounds the
         # same integer the way an int32 -> fp32 conversion does
         return (x2.to(torch.float64) @ w.to(torch.float64)).to(torch.float32)
-    return x2 @ w
+    return upcast(x2) @ upcast(w)  # bf16 operands: fp32 products and sums
 
 
 @OPS.shape_fn("fc")

@@ -69,8 +69,10 @@ def op_local_diffs(graph: Graph, weights: Dict[str, torch.Tensor],
                    kernel: str = "cuda") -> List[dict]:
     """Run `graph`; then, for every op tagged `kernel` except those in
     :data:`OTHER_FUNCTION` and :data:`HELD_TO_UNFUSED`, run its ``"torch"``
-    impl on the very inputs it got and compare outputs.  Returns one record
-    per output: {"op", "var", "numel", "n_diff", "max_diff"}."""
+    impl on the very inputs it got and compare outputs.  Under bf16 islands
+    the run's fp32 outputs were rounded to bf16 by the executor, so the
+    torch impl's are rounded the same way first.  Returns one record per
+    output: {"op", "var", "numel", "n_diff", "max_diff"}."""
     env = capture_all(graph, weights, feed, device)
     env.update(weights)
     ctx = ExecutionContext(graph=graph, device=device)
@@ -83,6 +85,8 @@ def op_local_diffs(graph: Graph, weights: Dict[str, torch.Tensor],
         ref = OPS.get(op.op_type).impls["torch"](ctx, op, ins)
         for slot, arrs in ref.items():
             for name, r in zip(op.outputs[slot], arrs):
+                if r.dtype == torch.float32 and env[name].dtype != r.dtype:
+                    r = r.to(env[name].dtype)  # the executor's island rounding
                 out.append(dict(_diff(env[name], r), op=op.op_type, var=name))
     return out
 

@@ -27,21 +27,40 @@ import importlib
 import json
 import subprocess
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..core.device import DeviceLike, resolve_device
 
-PORTED = ("mobilenet_v1", "resnet", "mobilenet_v3", "ssd")
+PORTED = ("mobilenet_v1", "resnet", "mobilenet_v3", "ssd", "ppocr_det", "dbnet",
+          "ppocr_rec", "crnn", "ppocr_rec_long", "crnn_long")
 MIN_WINDOW_S = 0.4  # the loop method's timed window, long beside one call's jitter
-NOT_PORTED = ("ppocr_det", "dbnet", "ppocr_rec", "crnn",
-              "ppocr_rec_long", "crnn_long", "ernie_tiny")
+NOT_PORTED = ("ernie_tiny",)
 
 
 def resolve_builder(model: str) -> Callable:
-    """Model name → its ``build(batch=..., image_size=...)``."""
+    """Model name → its ``build(batch=..., image_size=...)``; the two heads
+    of ``models/ppocr.py`` as the reference builds them
+    (``tools/benchmark.py:32-50`` there): DBNet at 640 px, CRNN at strip
+    width 320, the long strip at width 1600 with hidden 64 (an
+    ``image_size`` of None keeps those)."""
+    if model in ("ppocr_det", "dbnet"):
+        from ..models.ppocr import build_det
+
+        return lambda batch, image_size=None, **kw: build_det(
+            batch=batch, image_size=image_size or 640)
+    if model in ("ppocr_rec", "crnn"):
+        from ..models.ppocr import build_rec
+
+        return lambda batch, image_size=None, **kw: build_rec(
+            batch=batch, width=image_size or 320)
+    if model in ("ppocr_rec_long", "crnn_long"):
+        from ..models.ppocr import build_rec
+
+        return lambda batch, image_size=None, **kw: build_rec(
+            batch=batch, width=image_size or 1600, hidden=64)
     if model in PORTED:
         return importlib.import_module(f"..models.{model}", __package__).build
     if model in NOT_PORTED:
@@ -133,22 +152,28 @@ def dispatch_throughput(graph, feed, *, device: DeviceLike = None,
     return batch * calls / (time.perf_counter() - t0)
 
 
-def bench_model(model: str, *, batch: int, image_size: int = 224,
+def bench_model(model: str, *, batch: int, image_size: Optional[int] = None,
                 int8: bool = True, with_fp32: bool = False, method: str = "loop",
                 zoo_config: bool = True, device: DeviceLike = None) -> dict:
     """The reference's keys (``model``, ``batch``, ``method``,
     ``int8_items_per_sec``; with ``with_fp32`` also ``fp32_items_per_sec``
     and ``speedup``) and ``device``, the card the numbers were taken on.
     The int8 ``QuantConfig`` is ``models/zoo_config.py``'s entry, or with
-    ``zoo_config=False`` the defaults.  (The reference's ``seq_len``,
-    ``island_dtype`` and ``dw_compute`` serve models and options the port
-    does not have yet.)"""
+    ``zoo_config=False`` the defaults.  ``image_size`` None is the
+    model's own default (224 px; DBNet 640; CRNN strip widths 320 and
+    1600).  (The reference's ``seq_len``, ``island_dtype`` and
+    ``dw_compute`` serve models and options the port does not have yet.)"""
     from ..models.zoo_config import recommended_quant
     from ..quant.quantize_pass import QuantConfig
     from .opt import optimize
 
-    builder = resolve_builder(model)
+    build = resolve_builder(model)
     dev = resolve_device(device)
+
+    def builder(batch, image_size):
+        return build(batch=batch) if image_size is None else \
+            build(batch=batch, image_size=image_size)
+
     rng = np.random.default_rng(0)
 
     def make_feed(g):
@@ -184,12 +209,13 @@ def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", default="mobilenet_v1")
     p.add_argument("--batch", type=int, default=64)
-    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--image-size", type=int, default=None,
+                   help="pixels (a CRNN's strip width); the model's default if left out")
     p.add_argument("--fp32", action="store_true")
     p.add_argument("--method", default="loop", choices=["loop", "dispatch"])
     p.add_argument("--no-zoo-config", action="store_true",
                    help="ignore models/zoo_config.py; quantize with the "
-                        "QuantConfig defaults (SSD then runs fp32 islands)")
+                        "QuantConfig defaults (fp32 islands for SSD and CRNN)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args()
     print(json.dumps(bench_model(

@@ -4,7 +4,11 @@ Port of ``paddle_lite_tpu/tools/opt.py`` (analog of the reference's ``opt``
 CLI, ``lite/api/model_optimize_tool.cc``): fusions → (with ``quant``)
 calibration of the fp32 graph on ``device`` → PTQ quantize → (with
 ``fuse_dw_pw``) the dw+pw block fusion → precision-cast insertion → kernel
-pick.  The output is the optimized :class:`Graph`.
+pick.  The output is the optimized :class:`Graph`; with
+``QuantConfig(island_dtype="bfloat16")`` its ``meta["island_dtype"]`` is
+stamped after calibration (statistics are collected in fp32), where the
+reference stamps it (``opt.py:125-127`` there), and the executor then runs
+the float regions in bf16 (``core/executor.py``).
 
 Options of :class:`QuantConfig` that are off by default and not on the
 ported path raise ``NotImplementedError`` rather than being ignored.
@@ -48,7 +52,7 @@ def _unported(quant: QuantConfig) -> Optional[str]:
         return "conv1x1_dot"
     if quant.bias_correction:
         return "bias_correction"
-    if quant.island_dtype != "float32":
+    if quant.island_dtype not in ("float32", "bfloat16"):
         return f"island_dtype={quant.island_dtype!r}"
     if quant.method is not CalibMethod.ABS_MAX:
         return f"method={quant.method}"
@@ -88,4 +92,7 @@ def optimize(
             # dw + pw int8 blocks as one kernel (ops/fused.py)
             PassManager(["dw_pw_fuse"]).run(graph, verbose=verbose)
     PassManager(FINALIZE_PASSES).run(graph, verbose=verbose)
+    if quant is not None and quant.island_dtype != "float32":
+        # stamped after calibration, so statistics are collected in fp32
+        graph.meta["island_dtype"] = quant.island_dtype
     return graph

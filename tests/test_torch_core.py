@@ -155,8 +155,18 @@ def test_precision_torch_dtypes():
 
 
 def test_island_dtype_not_ported():
+    """bf16 islands run (fp32 outputs, bf16 values between ops); an island
+    dtype the port does not have (float16) raises instead of running fp32."""
     g = p_mnv1.build(batch=1, image_size=32, width_mult=0.25, seed=0)
     g.meta["island_dtype"] = "bfloat16"
+    w = P.stage_weights(g, CPU)
+    assert {v.dtype for v in w.values()} == {torch.bfloat16}
+    env = {}
+    feed = {"image": np.random.default_rng(0).normal(size=(1, 32, 32, 3)).astype(np.float32)}
+    out = P.build_callable(g, device=CPU, capture=env.__setitem__)(w, feed)
+    assert out[g.outputs[0]].dtype == torch.float32
+    assert {v.dtype for v in env.values()} == {torch.bfloat16}
+    g.meta["island_dtype"] = "float16"
     with pytest.raises(NotImplementedError, match="island"):
         P.build_callable(g, device=CPU)
 

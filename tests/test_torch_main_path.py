@@ -179,7 +179,7 @@ def test_predictor_validation_and_clone():
 
 @pytest.mark.parametrize("cfg", [
     dict(weight_only=8), dict(method=P.CalibMethod.ENTROPY), dict(conv1x1_dot=True),
-    dict(bias_correction=True), dict(island_dtype="bfloat16"),
+    dict(bias_correction=True), dict(island_dtype="float16"),
     dict(method=P.CalibMethod.PERCENTILE),
 ])
 def test_unported_options_raise(cfg):
