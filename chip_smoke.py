@@ -166,7 +166,25 @@ Phases:
    config, bf16 islands, against phase 4's fp32 islands in turns: launches
    as phase 4's are checked; img/s, detection agreement and the NMS op's
    input dtype are information.)
-11. The last lines: the card (nvidia-smi), the kernels' JSON line, then
+11. ERNIE-tiny b32 / len 128 INT8 with its zoo config (bf16 islands,
+   tanh-gelu; BASELINE config 5: vocabulary 18,000, hidden 1,024, 3
+   layers, 16 heads, FFN 4,096): the GEMM at every shape of the path (14
+   "cuda" fcs: 3 QKV, 3 output projections, 3 FFN1 with gelu and int8
+   out, 3 FFN2, the pooler with tanh and int8 out, the classifier at N =
+   2), bit-exact against its plain version without an activation and,
+   with gelu or tanh, within their tolerance (int8 out: the tie bound;
+   fp32 out: rtol 2e-6, atol 1e-6: the card's tanhf / erfcf and
+   PyTorch's tanh / erfc differ); a saturating FFN1 GEMM (accumulators
+   +-K·127², exact; gelu clipped to 127 and 0); no int8 fc on the torch
+   route; 3 compiled requests with 14 GEMM launches each at capture;
+   every kernel op within the tie bound of its torch op; the last encoder
+   hidden state (``l2.ln2``, by the eager loop's capture hook) against
+   the port's fp32 predictor at cosine > 0.99 and the probabilities
+   within 0.06 (the bar of ``tests/test_model_zoo_int8.py:90``); phase
+   7a's checks on the path.  Label agreement, the top probability's
+   drift, seqs/s with bf16 and fp32 islands in turns, fp32 seqs/s and
+   the profiled device time by kind of kernel are information.
+12. The last lines: the card (nvidia-smi), the kernels' JSON line, then
    ``{"ok": true, "device": {...}}``.
 
 With ``--json PATH`` the per-shape numbers are also written to PATH.
@@ -335,6 +353,28 @@ def _cmp(a: torch.Tensor, b: torch.Tensor):
     return int((d > 0).sum()), float(d.max()) if d.numel() else 0.0
 
 
+# The GEMM's epilogue codes with a transcendental (tanhf / erfcf), held to
+# their plain version within a tolerance: the card's tanhf / erfcf and
+# PyTorch's CUDA tanh / erfc are two implementations.  int8 out: the tie
+# bound (at most 1 LSB, in at most 1e-4 of the elements or 2); fp32 out:
+# rtol 2e-6, atol 1e-6.  Every other code is held bit for bit.
+TRANSCENDENTAL = ("gelu", "tanh")
+TRANSCENDENTAL_RTOL, TRANSCENDENTAL_ATOL = 2e-6, 1e-6
+
+
+def gemm_out_ok(got: torch.Tensor, ref: torch.Tensor, act) -> bool:
+    """The kernel's output against its plain version's: equal, or for a
+    transcendental activation within its tolerance."""
+    from paddle_lite_tpu_torch.testing import within_tie_bound
+
+    if act not in TRANSCENDENTAL:
+        return torch.equal(got, ref)
+    if got.dtype == torch.int8:
+        n_diff, err = _cmp(got, ref)
+        return within_tie_bound([{"numel": got.numel(), "n_diff": n_diff, "max_diff": err}])
+    return bool(torch.allclose(got, ref, rtol=TRANSCENDENTAL_RTOL, atol=TRANSCENDENTAL_ATOL))
+
+
 def check_gemm(rng, m, k, n, int8_out: bool, timed: bool, act: str = "relu",
                act_attrs: dict = None, eff_mul: float = 1.0):
     from paddle_lite_tpu_torch.ops.kernels import int8_matmul as km
@@ -358,7 +398,8 @@ def check_gemm(rng, m, k, n, int8_out: bool, timed: bool, act: str = "relu",
     row = {"kernel": "int8_gemm", "shape": [m, k, n], "act": act,
            "out": "int8" if int8_out else "fp32",
            "plan": km.plan(m, k, n, int8_out)._asdict(),
-           "acc_mismatch": bad_acc, "out_mismatch": bad, "max_abs_err": err}
+           "acc_mismatch": bad_acc, "out_mismatch": bad, "max_abs_err": err,
+           "out_ok": gemm_out_ok(got, ref, act)}
     if eff_mul != 1.0 or act_attrs:
         row["act"] = f"{act} {act_attrs or ''} eff x{eff_mul:g}"
     if timed:
@@ -372,7 +413,8 @@ def check_gemm(rng, m, k, n, int8_out: bool, timed: bool, act: str = "relu",
         row["library_nk_ms"] = (time_ms(lambda: torch._int_mm(x, w_nk.t()))
                                 if row["library_ms"] is not None else None)
         nbytes = m * k + k * n + m * n * (1 if int8_out else 4) + 8 * n
-        row.update(bound(nbytes, 2 * m * k * n / INT8_TC_OPS_PER_S))
+        row.update(bound(nbytes, 2 * m * k * n / INT8_TC_OPS_PER_S), bytes=nbytes,
+                   ops=2 * m * k * n)
     return row
 
 
@@ -429,10 +471,11 @@ def check_dw(rng, shape, int8_out: bool, timed: bool, fma_per_s: float,
 def gemm_edge_rows(rng):
     """The GEMM kernel at its edges, bit-exact against the plain version:
     K = 16, 18, 24, 30 (2-, 8- and 16-byte copies, one slab) and 2048; N =
-    18, 30, 1000, 1280; M = 1, 63, 65; every activation of ACTS at K < 256
-    and K >= 256 (the epilogue's two conversion paths), int8 and fp32 out;
-    hard_swish and relu at extreme magnitudes (requant's clipping).  Then a
-    wrapper call on a view misaligned for the plan's copies must raise."""
+    18, 30, 1000, 1280; M = 1, 63, 65; every activation of GEMM_ACTS (gelu
+    in both forms) at K < 256 and K >= 256 (the epilogue's two conversion
+    paths), int8 and fp32 out; hard_swish, relu and gelu at extreme
+    magnitudes (requant's clipping, gelu's cube past the fp32 range).  Then
+    a wrapper call on a view misaligned for the plan's copies must raise."""
     from paddle_lite_tpu_torch.ops.kernels import int8_matmul as km
 
     rows = []
@@ -444,13 +487,19 @@ def gemm_edge_rows(rng):
         rows.append(check_gemm(rng, m, k, n, int8_out, timed=False))
     rows.append(check_gemm(rng, 129, 96, 72, False, False, "hard_sigmoid",
                            {"slope": 0.2, "offset": 0.5}))
-    for act in sorted(a for a in km.ACTS if a) + [None]:
+    acts = [(a, None) for a in sorted(a for a in km.GEMM_ACTS if a)] + [
+        (None, None), ("gelu", {"approximate": True})]
+    for act, attrs in acts:
         for k in (80, 320):
             for int8_out in (True, False):
-                rows.append(check_gemm(rng, 300, k, 96, int8_out, False, act))
-    for act, mul in (("hard_swish", 1e19), ("relu", 1e-32), ("hard_swish", 1e-32)):
+                rows.append(check_gemm(rng, 300, k, 96, int8_out, False, act, attrs))
+    for act, attrs, mul in (("hard_swish", None, 1e19), ("relu", None, 1e-32),
+                            ("hard_swish", None, 1e-32),
+                            ("gelu", {"approximate": True}, 1e19), ("gelu", None, 1e19),
+                            ("tanh", None, 1e-32)):
         for int8_out in (True, False):
-            rows.append(check_gemm(rng, 256, 64, 64, int8_out, False, act, eff_mul=mul))
+            rows.append(check_gemm(rng, 256, 64, 64, int8_out, False, act, attrs,
+                                   eff_mul=mul))
     buf = _cuda_rand_int8(rng, (64 * 64 + 1,))
     try:
         km.int8_matmul(buf[1:].view(64, 64), _cuda_rand_int8(rng, (64, 32)),
@@ -543,7 +592,8 @@ def _report_rows(rows):
         print(f"  dw_conv stride {s}: {sum(r['per_request'] for r in mine)} "
               f"launches a request, " + ", ".join(f"{k} {v:.4f}" for k, v in sums.items()))
     bad = [r for r in rows
-           if r["acc_mismatch"] or r["out_mismatch"] or r.get("pair_mismatch")]
+           if r["acc_mismatch"] or not r.get("out_ok", not r["out_mismatch"])
+           or r.get("pair_mismatch")]
     if bad:
         fail(f"{len(bad)} kernel checks disagree with the plain version: {bad}")
 
@@ -642,7 +692,7 @@ def _device_breakdown(pred, feed, top: int = 8, reqs: int = PROFILED_REQUESTS) -
             "by_kernel_ms": by_kernel, "kernel_launches": counts,
             "sync_wait_ms": sync_ms, "profiler_ms": prof_ms, "requests": reqs,
             "graph_launch_ms": sum(h[0] for h in host if h[2] == "cudaGraphLaunch"),
-            "top": [{"ms": r[0], "count": r[1], "name": r[2][:80]}
+            "top": [{"ms": r[0], "count": r[1], "name": r[2][:80], "symbol": r[2]}
                     for r in rows[:top]],
             "host_self_ms": sum(r[0] for r in host),
             "host_top": [{"ms": r[0], "count": r[1], "name": r[2][:80]}
@@ -2383,6 +2433,185 @@ def phase_ssd_islands(ssd_pred8):
             "nms_input_dtypes": sorted({str(v) for v in seen.values()})}
 
 
+# ---- phase 11 --------------------------------------------------------------
+
+ERNIE_BATCH, ERNIE_SEQ = 32, 128  # BASELINE's ERNIE-tiny (tools/benchmark.py:27, :159-160)
+ERNIE_HIDDEN_COSINE = 0.99
+ERNIE_PROB_ATOL = 0.06  # the reference's bar (tests/test_model_zoo_int8.py:90)
+# rules on a kernel's full symbol for a request's device time, first match
+# wins: cuBLAS runs the attention matmuls (and in the fp32 predictor the
+# fcs too); the layer_norms' means are reductions; PyTorch's copy kernels
+# do the dtype casts (the bf16 islands' rounding, the upcasts) and the
+# layout copies (split pieces and transposes made contiguous)
+ERNIE_KERNEL_KINDS = (("int8_gemm", ("int8_gemm_kernel",)),
+                      ("cublas matmul", ("xmma_gemm", "cutlass", "sgemm", "gemm_")),
+                      ("softmax", ("softmax",)),
+                      ("reductions", ("reduce_kernel",)),
+                      ("embedding gather", ("gather_kernel", "index_kernel")),
+                      ("copies and casts", ("copy_kernel", "CatArrayBatchedCopy", "memcpy",
+                                            "Memcpy")))
+
+
+def _ernie_kinds(profile: dict) -> dict:
+    """A profiled request's device ms by kind of kernel (ERNIE_KERNEL_KINDS
+    over its top kernels; the rest, elementwise arithmetic, as "other")."""
+    out = {kind: 0.0 for kind, _ in ERNIE_KERNEL_KINDS}
+    out["other"] = 0.0
+    for r in profile["top"]:
+        kind = next((k for k, keys in ERNIE_KERNEL_KINDS
+                     if any(x in r["symbol"] for x in keys)), "other")
+        out[kind] += r["ms"]
+    out["not in the top kernels"] = profile["device_ms"] - sum(out.values())
+    return out
+
+
+def saturating_gemm(rng, m: int) -> dict:
+    """The GEMM at FFN1's K = 1,024 and N = 4,096 with one row of A all 127
+    against a column of B all 127 and one all -127: accumulators of
+    +-K·127² (16,516,096, exact in fp32), held to the exact int64 sum; then
+    gelu (tanh form) on them, int8 out (clipped to 127 and 0) and fp32 out,
+    against the plain version within the transcendental tolerance."""
+    from paddle_lite_tpu_torch.ops.kernels import int8_matmul as km
+
+    k, n = 1024, 4096
+    x = _cuda_rand_int8(rng, (m, k))
+    w = _cuda_rand_int8(rng, (k, n))
+    x[0] = 127
+    w[:, 0], w[:, 1] = 127, -127
+    w_nk = w.t().contiguous()
+    ones = torch.ones(n, device=DEV)
+    acc = km.int8_matmul(x, w, ones, w_nk=w_nk)
+    exact = (x[:4].cpu().long() @ w.cpu().long()).float()
+    acc_ok = torch.equal(acc[:4].cpu(), exact) and float(acc[0, 0]) == k * 127 ** 2 \
+        and float(acc[0, 1]) == -k * 127 ** 2
+    eff = torch.full((n,), 1e-5, device=DEV)
+    attrs = {"approximate": True}
+    out = {"shape": [m, k, n], "acc_exact": acc_ok, "acc_min_max": [float(acc.min()),
+                                                                   float(acc.max())]}
+    for out_scale in (0.5, None):
+        got = km.int8_matmul(x, w, eff, act="gelu", act_attrs=attrs, out_scale=out_scale,
+                             w_nk=w_nk)
+        ref = km.int8_matmul_plain(x, w, eff, act="gelu", act_attrs=attrs, out_scale=out_scale)
+        tag = "int8" if out_scale else "fp32"
+        out[f"{tag}_ok"] = gemm_out_ok(got, ref, "gelu")
+        out[f"{tag}_mismatch"], out[f"{tag}_max_abs_err"] = _cmp(got, ref)
+        out[f"{tag}_row0"] = [float(got[0, 0]), float(got[0, 1])]
+    print(f"  saturating GEMM {out['shape']}: accumulators {out['acc_min_max']}, exact "
+          f"{acc_ok}; gelu int8 out at +-K*127^2: {out['int8_row0']} (within tolerance "
+          f"{out['int8_ok']}, {out['int8_mismatch']} elements off), fp32 out "
+          f"{out['fp32_row0']} (within tolerance {out['fp32_ok']}, max abs err "
+          f"{out['fp32_max_abs_err']:.3g})")
+    if not (acc_ok and out["int8_ok"] and out["fp32_ok"]
+            and out["int8_row0"] == [127.0, 0.0]):
+        fail(f"the saturating GEMM disagrees: {out}")
+    return out
+
+
+def phase_ernie(fma_per_s: float):
+    """Phase 11: ERNIE-tiny b32 / len 128 INT8 with its zoo config (bf16
+    islands, tanh-gelu): the GEMM at every shape of the path and the
+    saturating case; 3 compiled requests with 14 GEMM launches each at
+    capture and no int8 fc on the torch route; the last encoder hidden
+    state and the probabilities against the port's fp32 predictor; phase
+    7a's checks on the path."""
+    from paddle_lite_tpu_torch import QuantConfig
+    from paddle_lite_tpu_torch.core.executor import build_callable
+    from paddle_lite_tpu_torch.models import ernie_tiny
+    from paddle_lite_tpu_torch.models.zoo_config import recommended_quant
+    from paddle_lite_tpu_torch.runtime.predictor import create_predictor
+
+    rng = np.random.default_rng(11)
+    shape = (ERNIE_BATCH, ERNIE_SEQ)
+
+    def make_feed():
+        return {"token_ids": rng.integers(0, 18000, shape).astype(np.int32),
+                "segment_ids": rng.integers(0, 4, shape).astype(np.int32)}
+
+    calib = [make_feed()]
+    feeds = [make_feed() for _ in range(REQUESTS)]
+    kw = dict(batch=ERNIE_BATCH, seq_len=ERNIE_SEQ, seed=0)
+    quant = recommended_quant("ernie_tiny")
+    t0 = time.perf_counter()
+    g8 = ernie_tiny.build(**kw)
+    pred8 = create_predictor(g8, quant=quant, calib_batches=calib, device=DEV)
+    pred8_f32 = create_predictor(ernie_tiny.build(**kw), quant=QuantConfig(),
+                                 calib_batches=calib, device=DEV)
+    pred32 = create_predictor(ernie_tiny.build(**kw), device=DEV)
+    print(f"phase 11: ERNIE-tiny b{ERNIE_BATCH} / len {ERNIE_SEQ} INT8 ({quant}): build + "
+          f"optimize + calibrate {time.perf_counter() - t0:.1f} s; ops {len(g8.ops)}; "
+          f"island {g8.meta.get('island_dtype')}")
+    left = torch_route_ops(g8, "ernie")
+    fc_left = [o for o in left if o[0] in ("fc", "mul")]
+    if fc_left:
+        fail(f"ernie: int8 fc / mul ops on the torch route: {fc_left}")
+
+    # (a) the GEMM at this path's shapes; the saturating case
+    rows, gemm, _ = path_kernel_rows(rng, g8, "ernie", fma_per_s)
+    print(f"  kernels at this path's shapes: {len(gemm)} GEMM ops, "
+          f"{len({tuple(r['shape']) for r in rows})} distinct (M, K, N)")
+    _report_rows(rows)
+    sat = saturating_gemm(rng, ERNIE_BATCH * ERNIE_SEQ)
+
+    # (b) 3 requests; every kernel op against its torch op
+    want = path_launches(g8)
+    print(f"  kernel ops a request: {want}")
+    if (want["int8_gemm"], want["dw_conv"], want["dw_pw_fused"], want["nms"]) != (14, 0, 0, 0):
+        fail(f"expected 14 GEMM ops on the kernels, got {want}")
+    checks = _path_checks("ernie", g8, pred8, feeds, want)
+    PATHS["ernie"] = (pred8, feeds, want)
+    out_name = g8.outputs[0]
+    last_ln = next(op.output("Y") for op in g8.ops if op.op_type == "layer_norm"
+                   and op.input("Scale") == "l2.ln2.scale")
+
+    def hidden(pred, feed):
+        seen = {}
+        build_callable(pred.graph, device=DEV, capture=lambda n, v: seen.__setitem__(
+            n, v.to(torch.float32)) if n == last_ln else None)(pred._weights, feed)
+        return seen[last_ln]
+
+    coss, diffs, agree, drift = [], [], [], []
+    for i, (f, o) in enumerate(zip(feeds, checks["outs"])):
+        y = o[out_name]
+        if (tuple(y.shape) != (ERNIE_BATCH, 2) or y.dtype != torch.float32
+                or not bool(torch.isfinite(y).all())):
+            fail(f"request {i}: probabilities {tuple(y.shape)} {y.dtype} not finite (b, 2)")
+        ref = pred32.run(f)[out_name]
+        coss.append(_cosine(hidden(pred8, f), hidden(pred32, f)))
+        diffs.append(float((y - ref).abs().max()))
+        agree.append(float((y.argmax(1) == ref.argmax(1)).float().mean()))
+        drift.append(float((y.max(1).values - ref.max(1).values).abs().mean()))
+        print(f"  request {i}: int8 vs fp32 last hidden state ({last_ln}) cosine "
+              f"{coss[-1]:.6f} (bar {ERNIE_HIDDEN_COSINE}); probabilities max abs diff "
+              f"{diffs[-1]:.6f} (bar {ERNIE_PROB_ATOL}); labels agree {agree[-1]:.4f}, "
+              f"mean top-probability drift {drift[-1]:.6f}")
+        if not (coss[-1] > ERNIE_HIDDEN_COSINE and diffs[-1] < ERNIE_PROB_ATOL):
+            fail(f"request {i}: hidden cosine {coss[-1]} or probabilities diff {diffs[-1]}")
+
+    # (c) information: bf16 against fp32 islands in turns, throughput, a
+    # profiled request by kind of kernel; then phase 7a's checks on the path
+    turns = {"bf16": [], "fp32": []}
+    for tag in ("bf16", "fp32", "fp32", "bf16"):
+        turns[tag].append(_ips(pred8 if tag == "bf16" else pred8_f32, feeds[0],
+                               batch=ERNIE_BATCH))
+    print(f"  seqs/s in turns, int8 with bf16 islands / fp32 islands: "
+          f"{turns['bf16'][0]:.1f}, {turns['fp32'][0]:.1f}, {turns['fp32'][1]:.1f}, "
+          f"{turns['bf16'][1]:.1f}")
+    del pred8_f32
+    serving = _serving_numbers(pred8, pred32, feeds[0], ERNIE_BATCH, top=40)
+    _check_profiled_launches("ernie", serving["profile"]["int8"], want)
+    kinds = {tag: _ernie_kinds(p) for tag, p in serving["profile"].items()}
+    for tag, k in kinds.items():
+        print(f"  {tag} request's device ms by kind of kernel: " + ", ".join(
+            f"{name} {ms:.4f}" for name, ms in k.items()))
+    compiled = compiled_vs_eager("ernie", pred8, feeds, want)
+    return rows, checks["launches"], dict(
+        serving, hidden_cosine=coss, prob_max_abs_diff=diffs, label_agreement=agree,
+        top_prob_drift=drift, islands_seqs_s_in_turns=turns, device_ms_by_kind=kinds,
+        saturating=sat, torch_route_ops=len(left),
+        op_local_worst_fraction=checks["op_local_worst_fraction"],
+        op_local_outputs_with_diff=checks["op_local_outputs_with_diff"]), compiled
+
+
 # ---- the kernels' line -----------------------------------------------------
 
 KERNELS = [  # name, source, TPU kernel it replaces, rows it covers
@@ -2515,20 +2744,23 @@ def main() -> None:
     r50_rows, r50_launches, r50, compiled["resnet50"] = phase_resnet(fma_per_s)
     db_rows, db_launches, db, compiled["dbnet"] = phase_dbnet(fma_per_s)
     rec_rows, rec_launches, rec, compiled["crnn"] = phase_crnn(fma_per_s)
-    all_rows = rows + ssd_rows + fused_rows + v3_rows + r50_rows + db_rows + rec_rows
+    ern_rows, ern_launches, ern, compiled["ernie"] = phase_ernie(fma_per_s)
+    all_rows = (rows + ssd_rows + fused_rows + v3_rows + r50_rows + db_rows + rec_rows
+                + ern_rows)
     kernels = _kernel_line(all_rows, {"mobilenet_v1": launches, "ssd": ssd_launches,
                                       "mobilenet_v1_fused": fused_launches,
                                       "mobilenet_v3": v3_launches,
                                       "serving": serving["launches"],
                                       "resnet50": r50_launches, "dbnet": db_launches,
-                                      "crnn": rec_launches},
+                                      "crnn": rec_launches, "ernie": ern_launches},
                            {"mobilenet_v1": e2e["profile"]["int8"],
                             "ssd": ssd["profile"]["int8"],
                             "mobilenet_v1_fused": fused["profile"]["int8"],
                             "mobilenet_v3": v3["profile"]["int8"],
                             "resnet50": r50["profile"]["int8"],
                             "dbnet": db["profile"]["int8"],
-                            "crnn": rec["profile"]["int8"]})
+                            "crnn": rec["profile"]["int8"],
+                            "ernie": ern["profile"]["int8"]})
     gemm = next(k for k in kernels if k["name"] == "int8_gemm")
     for p, v in gemm["by_path"].items():
         print(f"int8_gemm a {p} request: {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}); "
@@ -2537,6 +2769,16 @@ def main() -> None:
               f"weight {v['library_nk_ms']:.4f}); M >= 3136 shapes behind it: "
               f"{v['m3136_shapes_behind_library']}")
     print(f"int8_gemm profiled a request, every instantiation: {gemm['profiled_ms_by_path']}")
+    e = gemm["by_path"]["ernie"]
+    er = [r for r in ern_rows if r.get("per_request")]
+    ops, nbytes = (sum(r[key] * r["per_request"] for r in er) for key in ("ops", "bytes"))
+    print(f"int8_gemm an ERNIE request: {ops / 1e9:.1f} G int8 operations "
+          f"({1e3 * ops / INT8_TC_OPS_PER_S:.4f} ms at {INT8_TC_OPS_PER_S / 1e12:g} TOP/s), "
+          f"{nbytes / 1e9:.3f} GB ({1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:g} TB/s): bound {e['bound_ms']:.4f} ms (summed by "
+          f"shape); the kernel {e['ms']:.4f} ms one call a graph, torch._int_mm "
+          f"{e['library_ms']:.4f} where it takes the shape (all but the classifier's "
+          f"N = 2; the kernel there {e['ms_where_library']:.4f})")
     fu = next(k for k in kernels if k["name"] == "dw_pw_fused")
     print(f"dw_pw_fused a request: one call a graph {fu['ms']:.4f} ms (pair {fu['unfused_ms']:.4f}, "
           f"x{fu['ms_over_pair']:.3f}; bound {fu['bound_ms']:.4f}, x{fu['ms_over_bound']:.2f}); "
@@ -2556,6 +2798,7 @@ def main() -> None:
             json.dump({"card": card, "rows": all_rows, "main_path": e2e,
                        "ssd": ssd, "mobilenet_v1_fused": fused,
                        "mobilenet_v3": v3, "resnet50": r50, "dbnet": db, "crnn": rec,
+                       "ernie": ern,
                        "compiled": compiled,
                        "serving": serving,
                        "benchmark": bench, "kernels": kernels}, f, indent=1)

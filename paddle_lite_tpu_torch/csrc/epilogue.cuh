@@ -10,11 +10,15 @@
 // and can flip a requant tie.  rintf / __float2int_rn round half to even,
 // as jnp.round does; roundf would round half away from zero.
 //
-// The activations are those of paddle_lite_tpu/ops/common.py:36-61 whose
-// fp32 arithmetic is exact to reproduce (no transcendental): each formula
-// below is the reference's, operation for operation, with its parameters as
-// fp32 (a Python float applied to an fp32 array is fp32 there too).
-// hard_swish divides with IEEE division (plain `/` without fast-math).
+// The activations are those of paddle_lite_tpu/ops/common.py:36-98: each
+// formula below is the reference's, operation for operation, with its
+// parameters as fp32 (a Python float applied to an fp32 array is fp32 there
+// too).  hard_swish divides with IEEE division (plain `/` without
+// fast-math).  Codes 1-5 have no transcendental: their fp32 arithmetic is
+// reproduced bit for bit.  Codes 6-8 (gelu in jax.nn.gelu's two forms,
+// tanh; only the GEMM instantiates them) call tanhf / erfcf, never the
+// __tanhf-style intrinsics: the result differs from PyTorch's only where
+// the card's tanhf / erfcf and PyTorch's tanh / erfc differ.
 #pragma once
 
 #include <stdint.h>
@@ -28,7 +32,15 @@ enum Act : int {
   ACT_LEAKY_RELU = 3,    // p0 = alpha
   ACT_HARD_SWISH = 4,    // p0 = threshold, p1 = scale, p2 = offset
   ACT_HARD_SIGMOID = 5,  // p0 = slope, p1 = offset
+  ACT_GELU_TANH = 6,     // p0 = sqrt(2/pi), p1 = 0.044715
+  ACT_GELU_ERF = 7,      // p0 = sqrt(1/2)
+  ACT_TANH = 8,
 };
+
+// Not a code the host passes: the GEMM's one instantiation for the three
+// transcendental codes, which switches between them at run time
+// (apply_transcendental); their time goes to tanhf / erfcf, not the switch.
+constexpr int ACT_TRANSCENDENTAL = 100;
 
 struct ActParams {
   int code;
@@ -47,7 +59,21 @@ __device__ __forceinline__ float apply_act(float y, const ActParams& a) {
   if (ACT == ACT_HARD_SWISH) return y * fminf(fmaxf(y + a.p2, 0.0f), a.p0) / a.p1;
   // clip(slope * y + offset, 0, 1)
   if (ACT == ACT_HARD_SIGMOID) return fminf(fmaxf(a.p0 * y + a.p1, 0.0f), 1.0f);
+  // y * (0.5 * (1 + tanh(c * (y + 0.044715 * ((y * y) * y)))))
+  if (ACT == ACT_GELU_TANH)
+    return y * (0.5f * (1.0f + tanhf(a.p0 * (y + a.p1 * ((y * y) * y)))));
+  // (0.5 * y) * erfc(-y * sqrt(1/2))
+  if (ACT == ACT_GELU_ERF) return (0.5f * y) * erfcf(-y * a.p0);
+  if (ACT == ACT_TANH) return tanhf(y);
   return y;
+}
+
+__device__ __forceinline__ float apply_transcendental(float y, const ActParams& a) {
+  switch (a.code) {
+    case ACT_GELU_TANH: return apply_act<ACT_GELU_TANH>(y, a);
+    case ACT_GELU_ERF: return apply_act<ACT_GELU_ERF>(y, a);
+    default: return apply_act<ACT_TANH>(y, a);
+  }
 }
 
 __device__ __forceinline__ float apply_act(float y, const ActParams& a) {
@@ -99,6 +125,7 @@ __device__ __forceinline__ float act_value(float y, const plt::ActParams& a, flo
     bad |= m != 0u && m - 0x21800000u > 0x5D800000u - 0x21800000u;
     return m == 0u ? q : __fmaf_rn(__fmaf_rn(-q, a.p1, n), rb, q);
   }
+  if constexpr (ACT == plt::ACT_TRANSCENDENTAL) return plt::apply_transcendental(y, a);
   return plt::apply_act<ACT>(y, a);
 }
 

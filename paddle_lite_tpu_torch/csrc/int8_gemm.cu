@@ -42,10 +42,13 @@
 //   kernel), scale and bias staged in shared memory per column tile, and
 //   int->float, rint and float->int done without conversion instructions
 //   (a sixteenth of the FP32 rate), exactly as plt::requant
-//   (small_int_to_float, plt::requant_lo).  The int8 / fp32 tile is staged
-//   in shared memory (rows padded so the fragment writes are conflict-free)
-//   and written out row by row in `out_width`-byte pieces (16 where the row
-//   allows, else the widest that divides N's bytes), masked at the edge.
+//   (small_int_to_float, plt::requant_lo).  gelu (both forms) and tanh
+//   share one instantiation that switches per element between them
+//   (plt::ACT_TRANSCENDENTAL): their cost is tanhf / erfcf.  The int8 /
+//   fp32 tile is staged in shared memory (rows padded so the fragment
+//   writes are conflict-free) and written out row by row in
+//   `out_width`-byte pieces (16 where the row allows, else the widest that
+//   divides N's bytes), masked at the edge.
 // - The tiling is chosen by the caller's plan (int8_matmul.plan); the host
 //   side here checks it and refuses what the kernel cannot take.
 #include <cuda_runtime.h>
@@ -233,6 +236,11 @@ __device__ __forceinline__ void stage_tile_act(int8_t* staged, const int (&acc)[
     PLT_STAGE(plt::ACT_HARD_SWISH)
     PLT_STAGE(plt::ACT_HARD_SIGMOID)
 #undef PLT_STAGE
+    case plt::ACT_GELU_TANH:
+    case plt::ACT_GELU_ERF:
+    case plt::ACT_TANH:
+      return stage_tile_checked<plt::ACT_TRANSCENDENTAL, BN, OUT_I8>(
+          staged, acc, s_scale, s_bias, has_bias, act, rb, fast_div, inv);
     default:
       return stage_tile_checked<plt::ACT_NONE, BN, OUT_I8>(
           staged, acc, s_scale, s_bias, has_bias, act, rb, fast_div, inv);

@@ -54,12 +54,45 @@ ACT_PARAMS = {
     "hard_swish": (("threshold", 6.0), ("scale", 6.0), ("offset", 3.0)),
     "hard_sigmoid": (("slope", 0.2), ("offset", 0.5)),
 }
+# ``jax.nn.gelu``'s constants, in double: sqrt(2/pi) and 0.044715 of the
+# tanh form (``approximate``), sqrt(1/2) of the erf form
+GELU_TANH = (float(np.sqrt(2 / np.pi)), 0.044715)
+GELU_ERF = (float(np.sqrt(0.5)),)
+
+
+def gelu_approximate(attrs=None) -> bool:
+    """The reference's default: the erf form unless ``approximate``."""
+    return bool((attrs or {}).get("approximate", False))
 
 
 def act_params(act: Optional[str], attrs=None) -> Tuple[float, ...]:
-    """The parameters of `act` from its attrs, defaults filled in."""
+    """The parameters of `act` from its attrs, defaults filled in (gelu:
+    its form's constants)."""
+    if act == "gelu":
+        return GELU_TANH if gelu_approximate(attrs) else GELU_ERF
     attrs = attrs or {}
     return tuple(float(attrs.get(k, d)) for k, d in ACT_PARAMS.get(act, ()))
+
+
+def _in_dtype(v: float, dtype: torch.dtype) -> float:
+    """`v` rounded from double to fp32 (``np.float64(v).astype(np.float32)``,
+    as jax.nn.gelu casts its constants), then to `dtype`; as a Python float
+    exactly representable in `dtype`."""
+    f = float(np.float32(v))
+    return f if dtype == torch.float32 else float(torch.tensor(f).to(dtype))
+
+
+def gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
+    """``jax.nn.gelu``, operation for operation, its constants in x's
+    dtype.  Tanh form: ``x * (0.5 * (1 + tanh(c * (x + 0.044715 *
+    ((x * x) * x)))))``, c = sqrt(2/pi); erf form: ``(0.5 * x) *
+    erfc(-x * sqrt(1/2))``.  Every constant is exact in x's dtype, so each
+    product rounds once to it, as jnp's does."""
+    if approximate:
+        c, a = (_in_dtype(v, x.dtype) for v in GELU_TANH)
+        return x * (0.5 * (1.0 + torch.tanh(c * (x + a * ((x * x) * x)))))
+    (h,) = (_in_dtype(v, x.dtype) for v in GELU_ERF)
+    return (0.5 * x) * torch.special.erfc(-x * h)
 
 
 def apply_activation(x: torch.Tensor, act: Optional[str], attrs=None) -> torch.Tensor:
@@ -94,8 +127,7 @@ def apply_activation(x: torch.Tensor, act: Optional[str], attrs=None) -> torch.T
     if act == "relu_clipped":
         return torch.clamp(x, 0.0, attrs.get("Relu_clipped_coef", 6.0))
     if act == "gelu":
-        approx = "tanh" if attrs.get("approximate", False) else "none"
-        return F.gelu(x, approximate=approx)
+        return gelu(x, gelu_approximate(attrs))
     if act == "exp":
         return torch.exp(x)
     if act == "abs":

@@ -29,32 +29,43 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..common import act_params, apply_activation, f32
+from ..common import act_params, apply_activation, f32, gelu_approximate
 from . import _build
 
 # launches of the CUDA kernel, counted by the wrapper (CPU calls not counted)
 launches = 0
 
-# the activations of the CUDA epilogue (``csrc/epilogue.cuh``, ``plt::Act``):
-# those whose fp32 arithmetic the kernels reproduce exactly.  sigmoid,
-# swish, tanh, gelu and the other transcendental ones are not here.
+# the activations of every kernel's epilogue (``csrc/epilogue.cuh``,
+# ``plt::Act``): those whose fp32 arithmetic the kernels reproduce exactly.
+# The depthwise and fused dw+pw kernels compute these only.
 ACTS = {None: 0, "": 0, "linear": 0, "relu": 1, "relu6": 2, "leaky_relu": 3,
         "hard_swish": 4, "hard_sigmoid": 5}
+# the GEMM's: those, and gelu (code 6 for the tanh form, ACT_GELU_ERF for
+# the erf form) and tanh, whose tanhf / erfcf differ from PyTorch's tanh /
+# erfc only where the two libraries' functions differ.  sigmoid, swish and
+# the other transcendental ones are in no kernel.
+GEMM_ACTS = {**ACTS, "gelu": 6, "tanh": 8}
+ACT_GELU_ERF = 7
 
 
-def act_code(act: Optional[str]) -> int:
-    if act not in ACTS:
+def act_code(act: Optional[str], act_attrs=None, acts=ACTS) -> int:
+    """`act`'s ``plt::Act`` code in a kernel whose epilogue computes `acts`
+    (:data:`ACTS`, or :data:`GEMM_ACTS` for the GEMM); raises for another."""
+    if act not in acts:
         raise NotImplementedError(
-            f"activation {act!r} is not in the CUDA epilogue (supported: "
-            f"{', '.join(a for a in ACTS if a)}, none)")
-    return ACTS[act]
+            f"activation {act!r} is not in this kernel's epilogue (supported: "
+            f"{', '.join(a for a in acts if a)}, none)")
+    if act == "gelu" and not gelu_approximate(act_attrs):
+        return ACT_GELU_ERF
+    return acts[act]
 
 
-def act_args(act: Optional[str], act_attrs=None):
+def act_args(act: Optional[str], act_attrs=None, acts=ACTS):
     """(code, p0, p1, p2): the activation as the C entry points take it,
-    each parameter rounded once to fp32 as the reference applies it."""
+    each parameter rounded once from double to fp32 as the reference
+    applies it (gelu's: ``jax.nn.gelu``'s constants)."""
     p = act_params(act, act_attrs) + (0.0, 0.0, 0.0)
-    return (act_code(act),) + tuple(float(np.float32(v)) for v in p[:3])
+    return (act_code(act, act_attrs, acts),) + tuple(float(np.float32(v)) for v in p[:3])
 
 
 def inv_out_scale(out_scale: float) -> float:
@@ -247,7 +258,7 @@ def int8_matmul(
     scale = f32(eff_scale, dev).expand(n).contiguous()
     if bias is not None:
         _check(bias, "bias", torch.float32, (n,), dev)
-    act_c = act_args(act, act_attrs)
+    act_c = act_args(act, act_attrs, GEMM_ACTS)
     out = torch.empty((m, n), device=dev,
                       dtype=torch.float32 if out_scale is None else torch.int8)
     out_i8 = out_scale is not None

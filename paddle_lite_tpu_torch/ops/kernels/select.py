@@ -19,10 +19,11 @@ kernel takes is tagged ``"cuda"``:
 - ``depthwise_conv2d`` inside ``depthwise.supported_general`` → the
   depthwise kernel;
 
-in both cases only when the fused activation is one the kernels' epilogue
-computes (``int8_matmul.ACTS``).  Every ``multiclass_nms*`` op, int8 graph
-or not, takes the NMS kernel (``autotune.py:60-65``: NMS runs in the fp32
-island either way).  Everything else keeps the default ``"torch"`` impl.
+in both cases only when the fused activation is one the kernel's epilogue
+computes (``int8_matmul.GEMM_ACTS`` for the GEMM, gelu and tanh among
+them; ``int8_matmul.ACTS`` for the depthwise kernel).  Every
+``multiclass_nms*`` op, int8 graph or not, takes the NMS kernel
+(``autotune.py:60-65``: NMS runs in the fp32 island either way).  Everything else keeps the default ``"torch"`` impl.
 A table measured on the H100 is later work (``ROADMAP.md``).
 """
 
@@ -34,12 +35,13 @@ import numpy as np
 
 from ..common import normalize_2d
 from . import depthwise
-from .int8_matmul import ACTS
+from .int8_matmul import ACTS, GEMM_ACTS
 
 
-def _kernel_epilogue(op) -> bool:
-    """int8, with a fused activation the kernels' epilogue computes."""
-    return bool(op.attrs.get("enable_int8")) and op.attrs.get("fuse_act") in ACTS
+def _kernel_epilogue(op, acts) -> bool:
+    """int8, with a fused activation in `acts`, those the kernel's epilogue
+    computes."""
+    return bool(op.attrs.get("enable_int8")) and op.attrs.get("fuse_act") in acts
 
 
 def gemm_eligible(graph, op) -> bool:
@@ -47,7 +49,7 @@ def gemm_eligible(graph, op) -> bool:
     even (the kernel copies rows in pieces of 2 bytes or more,
     ``int8_matmul.copy_width``); a conv has group 1, dilation 1 and no
     residual."""
-    if not _kernel_epilogue(op):
+    if not _kernel_epilogue(op, GEMM_ACTS):
         return False
     if op.op_type == "fc":
         return graph.vars[op.input("W")].shape[0] % 2 == 0
@@ -72,7 +74,7 @@ def choose_kernel(graph, op) -> Optional[str]:
     if op.op_type == "depthwise_conv2d":
         x = graph.vars[op.input("Input")]
         w = graph.vars[op.input("Filter")]
-        if (_kernel_epilogue(op)
+        if (_kernel_epilogue(op, ACTS)
                 and depthwise.supported_general(op.attrs, x.shape, w.shape)
                 and not op.maybe_input("ResidualData")):
             return "cuda"

@@ -1,10 +1,14 @@
-"""Tensor-manipulation ops: ``reshape`` / ``reshape2``, ``concat``, the
-interpolations and ``pixel_shuffle``.
+"""Tensor-manipulation ops: ``reshape`` / ``reshape2``, ``transpose`` /
+``transpose2``, ``concat``, ``split``, ``slice``, ``lookup_table`` /
+``lookup_table_v2``, the interpolations and ``pixel_shuffle``.
 
 Port of the reshape family head of ``paddle_lite_tpu/ops/manip.py``
-(``:31-53``; int8 flows through unchanged, same scale), of its ``concat``
-(``:128-161``), of ``interp_xla`` (``:277-345``) and of ``pixel_shuffle``
-(``ops/extra.py:95-110``).
+(``:31-53``; int8 flows through unchanged, same scale), of its
+``transpose`` (``:113-125``), ``concat`` (``:128-161``), ``split``
+(``:164-190``), ``slice`` (``:206-229``), ``lookup_table`` (``:423-441``),
+of ``interp_xla`` (``:277-345``) and of ``pixel_shuffle``
+(``ops/extra.py:95-110``).  None of them reads a value back to the host,
+so each runs inside a CUDA graph.
 """
 
 from __future__ import annotations
@@ -40,6 +44,22 @@ def reshape_torch(ctx, op, ins):
 OPS.register("reshape2", infer_shape=reshape_shape)
 
 
+@OPS.shape_fn("transpose")
+def transpose_shape(attrs, in_shapes):
+    x = in_shapes[0]
+    return [tuple(x[a] for a in attrs["axis"])]
+
+
+@OPS.kernel("transpose", "torch")
+@OPS.kernel("transpose2", "torch")
+def transpose_torch(ctx, op, ins):
+    """``axis`` is the permutation; any dtype (data movement only)."""
+    return {"Out": [ins["X"][0].permute(*op.attrs["axis"])]}
+
+
+OPS.register("transpose2", infer_shape=transpose_shape)
+
+
 @OPS.shape_fn("concat")
 def concat_shape(attrs, in_shapes):
     axis = int(attrs.get("axis", 0))
@@ -72,6 +92,107 @@ def concat_torch(ctx, op, ins):
              if x.dtype == torch.int8 else x
              for x, name in zip(xs, op.inputs["X"])]
     return {"Out": [torch.cat(fixed, dim=axis)]}
+
+
+@OPS.shape_fn("split")
+def split_shape(attrs, in_shapes):
+    x = list(in_shapes[0])
+    axis = int(attrs.get("axis", 0))
+    sections = attrs.get("sections")
+    if sections:
+        outs = []
+        for s in sections:
+            shp = list(x)
+            shp[axis] = s
+            outs.append(tuple(shp))
+        return outs
+    num = int(attrs["num"])
+    shp = list(x)
+    shp[axis] = x[axis] // num
+    return [tuple(shp)] * num
+
+
+@OPS.kernel("split", "torch")
+def split_torch(ctx, op, ins):
+    """Pieces of the given ``sections`` along ``axis``, or ``num`` equal
+    pieces (``num`` must divide the axis, as ``jnp.split`` requires)."""
+    x = ins["X"][0]
+    axis = int(op.attrs.get("axis", 0))
+    sections = op.attrs.get("sections")
+    if sections:
+        return {"Out": list(torch.split(x, [int(s) for s in sections], dim=axis))}
+    num = int(op.attrs["num"])
+    if x.shape[axis] % num:
+        raise ValueError(f"split: axis {axis} of {tuple(x.shape)} does not divide "
+                         f"into {num} equal pieces")
+    return {"Out": list(torch.split(x, x.shape[axis] // num, dim=axis))}
+
+
+@OPS.shape_fn("slice")
+def slice_shape(attrs, in_shapes):
+    x = list(in_shapes[0])
+    for ax, st, en in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        dim = x[ax]
+        st = max(st + dim, 0) if st < 0 else min(st, dim)
+        en = max(en + dim, 0) if en < 0 else min(en, dim)
+        x[ax] = max(en - st, 0)
+    out = tuple(x)
+    for ax in sorted(attrs.get("decrease_axis", []), reverse=True):
+        out = out[:ax] + out[ax + 1:]
+    return [out]
+
+
+@OPS.kernel("slice", "torch")
+def slice_torch(ctx, op, ins):
+    """``x[starts:ends]`` on each of ``axes``, with Python's bounds (a
+    negative bound counts from the end, a bound past the end is clamped),
+    then the ``decrease_axis`` dims dropped."""
+    x = ins["X"][0]
+    idx = [slice(None)] * x.ndim
+    for ax, st, en in zip(op.attrs["axes"], op.attrs["starts"], op.attrs["ends"]):
+        idx[ax] = slice(int(st), int(en))
+    y = x[tuple(idx)]
+    if op.attrs.get("decrease_axis"):
+        y = y.reshape(ctx.var_shape(op.output("Out")))
+    return {"Out": [y]}
+
+
+@OPS.shape_fn("lookup_table")
+def lookup_table_shape(attrs, in_shapes):
+    w, ids = in_shapes[0], in_shapes[1]
+    out = tuple(ids)
+    if out and out[-1] == 1:
+        out = out[:-1]
+    return [out + (w[-1],)]
+
+
+@OPS.kernel("lookup_table", "torch")
+@OPS.kernel("lookup_table_v2", "torch")
+def lookup_table_torch(ctx, op, ins):
+    """Rows of ``W`` (V, D) at ``Ids`` (int32 after the reference's cast;
+    a trailing dim of 1 squeezed), as ``jnp.take(w, ids, axis=0)`` gives
+    them: an id in [-V, 0) counts from the end, an id outside [-V, V) gives
+    a filled row (the fill mode: NaN for a float table, the dtype's minimum
+    for a signed integer one, its maximum for an unsigned one).  Computed
+    on the device without a host sync: the ids wrapped and clamped into
+    range, the rows gathered, the invalid ones replaced."""
+    w, ids = ins["W"][0], ins["Ids"][0]
+    if ids.ndim and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    ids = ids.to(torch.int32)
+    v = w.shape[0]
+    valid = (ids >= -v) & (ids < v)
+    rows = w.index_select(0, torch.where(ids < 0, ids + v, ids).clamp(0, v - 1).reshape(-1))
+    rows = rows.reshape(tuple(ids.shape) + tuple(w.shape[1:]))
+    if w.is_floating_point():
+        fill = float("nan")
+    else:
+        fill = torch.iinfo(w.dtype).min if w.dtype.is_signed else torch.iinfo(w.dtype).max
+    invalid = ~valid.reshape(tuple(ids.shape) + (1,) * (w.ndim - 1))
+    return {"Out": [rows.masked_fill(invalid, fill)]}
+
+
+OPS.register("lookup_table_v2", infer_shape=lookup_table_shape)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """Core NN ops of the main path under the ``torch`` tag: conv2d /
-depthwise_conv2d / fc / mul / batch_norm / pool2d / softmax.
+depthwise_conv2d / fc / mul / matmul / batch_norm / pool2d / softmax /
+layer_norm.
 
 Port of ``paddle_lite_tpu/ops/nn.py`` (``conv2d_xla`` ``:94-170``,
-``fc_xla`` ``:257``, ``mul_xla`` ``:284``, ``batch_norm_xla`` ``:361``,
-``pool2d_xla`` ``:395``, ``softmax_xla`` ``:463``), the analog of the
-reference's ``lite/kernels/arm/{conv,fc,pool,softmax}_compute.cc``.
+``fc_xla`` ``:257``, ``mul_xla`` ``:284``, ``matmul_xla`` ``:304-349``,
+``batch_norm_xla`` ``:361``, ``pool2d_xla`` ``:395``, ``softmax_xla``
+``:463``, ``layer_norm_xla`` ``:470-490``), the analog of the reference's
+``lite/kernels/arm/{conv,fc,matmul,pool,softmax,layer_norm}_compute.cc``.
 
 Tensors are NHWC / HWIO at every function boundary, as in the JAX package;
 convolutions permute to torch's NCHW / OIHW inside the op (the permuted
@@ -20,7 +22,11 @@ K ≤ :data:`FP32_EXACT_K`, each chunk's conv is rounded, and the chunks are
 summed in int32: the reference's int32 accumulator on its target
 (``preferred_element_type=jnp.int32``, ``nn.py:158-160``), exact for any
 K, converted to fp32 once.  The int8 fc / mul run as a float64 matmul cast
-back to an integer-valued fp32 tensor, exact for |acc| < 2^53.
+back to an integer-valued fp32 tensor, exact for |acc| < 2^53.  The int8
+act×act ``matmul`` (no kernel computes it in either package) is an fp32
+matmul of the int8 values, exact up to K = :data:`FP32_EXACT_K`, and past
+it K is split into such chunks summed in int32, as the conv is: no
+float64, which the card runs at a fraction of the fp32 rate.
 
 Float ops on bf16 island values (``graph.meta["island_dtype"]``) take
 bf16 operands with fp32 accumulation and give fp32, as the reference's
@@ -286,6 +292,69 @@ def mul_torch(ctx, op, ins):
     return {"Out": [y.reshape(lead + tail)]}
 
 
+@OPS.shape_fn("matmul")
+def matmul_shape(attrs, in_shapes):
+    x = list(in_shapes[0])
+    y = list(in_shapes[1])
+    if attrs.get("transpose_X"):
+        x[-1], x[-2] = x[-2], x[-1]
+    if attrs.get("transpose_Y"):
+        y[-1], y[-2] = y[-2], y[-1]
+    batch = x[:-2] if len(x) >= len(y) else y[:-2]
+    return [tuple(batch) + (x[-2], y[-1])]
+
+
+def int8_matmul_exact(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """int8 (..., M, K) @ (..., K, N) with batch broadcasting: the int32
+    accumulator as an fp32 tensor, rounded once from the exact sum as the
+    reference's int32 → fp32 conversion rounds it.  One fp32 matmul is
+    exact while every partial sum stays below 2^24 (K ≤ FP32_EXACT_K, TF32
+    off: ``core.device.fp32_exact``); a longer K runs as chunks of that
+    depth, each exact, summed in int32."""
+    k = x.shape[-1]
+    if k <= FP32_EXACT_K:
+        return torch.matmul(x.to(torch.float32), y.to(torch.float32))
+    acc = sum(torch.matmul(x[..., k0:k0 + FP32_EXACT_K].to(torch.float32),
+                           y[..., k0:k0 + FP32_EXACT_K, :].to(torch.float32)).to(torch.int32)
+              for k0 in range(0, k, FP32_EXACT_K))
+    return acc.to(torch.float32)
+
+
+@OPS.kernel("matmul", "torch")
+def matmul_torch(ctx, op, ins):
+    """``X @ Y`` after the optional ``transpose_X`` / ``transpose_Y`` (the
+    last two axes), batch dims broadcast, then ``alpha``, the fused
+    activation and, with ``out_scale``, the int8 requant.  int8 × int8
+    (the act×act attention matmuls under ``quant_act_act_matmul``) scales
+    the exact accumulator by s_x·s_y, per tensor, or s_x·s_y[c] where Y's
+    scale is per channel; float × float (bf16 island operands upcast)
+    accumulates in fp32."""
+    x, y = ins["X"][0], ins["Y"][0]
+    attrs = op.attrs
+    int8_path = _check_dtypes(op, x, y)
+    if attrs.get("transpose_X"):
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y"):
+        y = y.transpose(-1, -2)
+    if int8_path:
+        def fold():
+            xq, yq = ctx.var_quant(op.input("X")), ctx.var_quant(op.input("Y"))
+            ys = yq.scale_array() if yq.per_channel else np.float32(yq.scale[0])
+            return ctx.tensor(np.float32(xq.scale[0]) * ys)
+
+        out = int8_matmul_exact(x, y) * ctx.const(op, "eff", fold)
+    else:
+        out = torch.matmul(upcast(x), upcast(y))
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * ctx.const(op, "alpha", lambda: ctx.tensor(np.float32(alpha)))
+    out = apply_activation(out, attrs.get("fuse_act"), attrs.get("act_attrs"))
+    out_scale = attrs.get("out_scale")
+    if out_scale is not None:
+        out = quantize(out, out_scale)
+    return {"Out": [out]}
+
+
 # ---------------------------------------------------------------------------
 # batch_norm (standalone; usually folded into conv by conv_bn_fuse)
 # ---------------------------------------------------------------------------
@@ -389,3 +458,34 @@ def softmax_shape(attrs, in_shapes):
 def softmax_torch(ctx, op, ins):
     axis = int(op.attrs.get("axis", -1))
     return {"Out": [torch.softmax(ins["X"][0].to(torch.float32), dim=axis)]}
+
+
+# ---------------------------------------------------------------------------
+# layer_norm (an fp island, as softmax)
+# ---------------------------------------------------------------------------
+
+@OPS.shape_fn("layer_norm")
+def layer_norm_shape(attrs, in_shapes):
+    return [in_shapes[0]]
+
+
+@OPS.kernel("layer_norm", "torch")
+def layer_norm_torch(ctx, op, ins):
+    """The reference's arithmetic, operation for operation (not
+    ``F.layer_norm``, whose fused roundings differ, and the output feeds a
+    requant): x in fp32, the mean over the axes from ``begin_norm_axis``,
+    the mean of the squared deviations, ``(x - mean) * rsqrt(var + eps)``,
+    then ``* Scale`` and ``+ Bias`` (bf16 island weights upcast, as jnp
+    promotes them)."""
+    x = ins["X"][0].to(torch.float32)
+    scale = ins.get("Scale", [None])[0]
+    bias = ins.get("Bias", [None])[0]
+    dims = tuple(range(int(op.attrs.get("begin_norm_axis", 1)), x.ndim))
+    mean = x.mean(dim=dims, keepdim=True)
+    var = torch.square(x - mean).mean(dim=dims, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + float(op.attrs.get("epsilon", 1e-5)))
+    if scale is not None:
+        y = y * upcast(scale)
+    if bias is not None:
+        y = y + upcast(bias)
+    return {"Y": [y]}

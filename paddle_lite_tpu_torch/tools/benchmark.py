@@ -16,8 +16,10 @@ Measures int8 (and optionally fp32) throughput of a zoo model through
   synchronise: the serving number, the input's copy to the card included.
 
 Runs on the card unless ``--device cpu`` is asked for.  Every result names
-the device it ran on (the card's name and power limit).  Models the port
-does not have yet raise ``NotImplementedError``.
+the device it ran on (the card's name and power limit).  Items are the
+batch's rows: images, text strips, or for ERNIE-tiny sequences of
+``seq_len`` tokens (``--seq-len``, 128 by default), its token and segment
+ids drawn from the seeded feed.
 """
 
 from __future__ import annotations
@@ -35,9 +37,8 @@ import torch
 from ..core.device import DeviceLike, resolve_device
 
 PORTED = ("mobilenet_v1", "resnet", "mobilenet_v3", "ssd", "ppocr_det", "dbnet",
-          "ppocr_rec", "crnn", "ppocr_rec_long", "crnn_long")
+          "ppocr_rec", "crnn", "ppocr_rec_long", "crnn_long", "ernie_tiny")
 MIN_WINDOW_S = 0.4  # the loop method's timed window, long beside one call's jitter
-NOT_PORTED = ("ernie_tiny",)
 
 
 def resolve_builder(model: str) -> Callable:
@@ -45,7 +46,9 @@ def resolve_builder(model: str) -> Callable:
     of ``models/ppocr.py`` as the reference builds them
     (``tools/benchmark.py:32-50`` there): DBNet at 640 px, CRNN at strip
     width 320, the long strip at width 1600 with hidden 64 (an
-    ``image_size`` of None keeps those)."""
+    ``image_size`` of None keeps those); ERNIE-tiny's
+    ``build(batch=..., seq_len=...)``, which takes no image size
+    (``:159-160`` there)."""
     if model in ("ppocr_det", "dbnet"):
         from ..models.ppocr import build_det
 
@@ -63,11 +66,7 @@ def resolve_builder(model: str) -> Callable:
             batch=batch, width=image_size or 1600, hidden=64)
     if model in PORTED:
         return importlib.import_module(f"..models.{model}", __package__).build
-    if model in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {model!r} is not ported to paddle_lite_tpu_torch yet "
-            f"(ported: {', '.join(PORTED)})")
-    raise ValueError(f"unknown model {model!r}; known: {PORTED + NOT_PORTED}")
+    raise ValueError(f"unknown model {model!r}; known: {PORTED}")
 
 
 def card(device: torch.device) -> Dict[str, object]:
@@ -153,16 +152,18 @@ def dispatch_throughput(graph, feed, *, device: DeviceLike = None,
 
 
 def bench_model(model: str, *, batch: int, image_size: Optional[int] = None,
-                int8: bool = True, with_fp32: bool = False, method: str = "loop",
-                zoo_config: bool = True, device: DeviceLike = None) -> dict:
+                int8: bool = True, with_fp32: bool = False, seq_len: int = 128,
+                method: str = "loop", zoo_config: bool = True,
+                device: DeviceLike = None) -> dict:
     """The reference's keys (``model``, ``batch``, ``method``,
     ``int8_items_per_sec``; with ``with_fp32`` also ``fp32_items_per_sec``
-    and ``speedup``) and ``device``, the card the numbers were taken on.
-    The int8 ``QuantConfig`` is ``models/zoo_config.py``'s entry, or with
-    ``zoo_config=False`` the defaults.  ``image_size`` None is the
-    model's own default (224 px; DBNet 640; CRNN strip widths 320 and
-    1600).  (The reference's ``seq_len``, ``island_dtype`` and
-    ``dw_compute`` serve models and options the port does not have yet.)"""
+    and ``speedup``) and ``device``, the card the numbers were taken on;
+    for ERNIE-tiny also ``seq_len``, its items being sequences of that
+    many tokens.  The int8 ``QuantConfig`` is ``models/zoo_config.py``'s
+    entry, or with ``zoo_config=False`` the defaults.  ``image_size`` None
+    is the model's own default (224 px; DBNet 640; CRNN strip widths 320
+    and 1600); ERNIE-tiny takes ``seq_len`` instead.  (The reference's
+    ``island_dtype`` and ``dw_compute`` overrides are not ported.)"""
     from ..models.zoo_config import recommended_quant
     from ..quant.quantize_pass import QuantConfig
     from .opt import optimize
@@ -171,6 +172,8 @@ def bench_model(model: str, *, batch: int, image_size: Optional[int] = None,
     dev = resolve_device(device)
 
     def builder(batch, image_size):
+        if model == "ernie_tiny":
+            return build(batch=batch, seq_len=seq_len)
         return build(batch=batch) if image_size is None else \
             build(batch=batch, image_size=image_size)
 
@@ -189,6 +192,8 @@ def bench_model(model: str, *, batch: int, image_size: Optional[int] = None,
 
     measure = device_throughput if method == "loop" else dispatch_throughput
     result = {"model": model, "batch": batch, "method": method, "device": card(dev)}
+    if model == "ernie_tiny":
+        result["seq_len"] = seq_len
     if with_fp32:
         # the same fusion pipeline; only quantization differs
         g32 = optimize(builder(batch=batch, image_size=image_size), device=dev)
@@ -211,6 +216,7 @@ def main() -> None:
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--image-size", type=int, default=None,
                    help="pixels (a CRNN's strip width); the model's default if left out")
+    p.add_argument("--seq-len", type=int, default=128, help="ERNIE-tiny's tokens a sequence")
     p.add_argument("--fp32", action="store_true")
     p.add_argument("--method", default="loop", choices=["loop", "dispatch"])
     p.add_argument("--no-zoo-config", action="store_true",
@@ -220,7 +226,7 @@ def main() -> None:
     args = p.parse_args()
     print(json.dumps(bench_model(
         args.model, batch=args.batch, image_size=args.image_size,
-        with_fp32=args.fp32, method=args.method,
+        with_fp32=args.fp32, seq_len=args.seq_len, method=args.method,
         zoo_config=not args.no_zoo_config, device=args.device)))
 
 
