@@ -12,6 +12,8 @@ Layer map:
   runtime.batcher     ContinuousBatcher over bucketed compiled predictors
   tools.opt           optimize: fusions, calibration, PTQ, kernel pick
   tools.benchmark     img/s of a zoo model; tools.batch_tune its buckets
+  tools.accuracy_report  calibration methods compared on torch twins
+                      (testing.twins, formats.importer, tools.profile)
   core                IR, builder, registry, passes, eager executor and
                       compile_graph (the graph captured as a CUDA graph)
   ops                 torch impls; ops.kernels: the CUDA kernels

@@ -200,6 +200,60 @@ def requant_epilogue(
     return y
 
 
+def unpack_w4(v: torch.Tensor, pack_axis: int) -> torch.Tensor:
+    """W4 storage (two signed 4-bit values an int8 byte along `pack_axis`,
+    the low nibble the even element) back to int8 (``_unpack_w4``,
+    ``common.py:182-193`` there): the low nibble sign-extended by
+    ``((v & 0xF) ^ 8) - 8``, the high one by an arithmetic ``>> 4``."""
+    lo = ((v & 0xF) ^ 8) - 8
+    hi = v >> 4
+    shape = list(v.shape)
+    shape[pack_axis] *= 2
+    return torch.stack([lo, hi], dim=pack_axis + 1).reshape(shape)
+
+
+_QUANT_INTS = (torch.int8, torch.int16)
+
+
+def maybe_dequant_mixed(ctx, op, a: torch.Tensor, a_name: str, b: torch.Tensor,
+                        b_name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mixed-operand repair for the conv / matmul family
+    (``maybe_dequant_mixed``, ``common.py:196-229`` there).  If exactly one
+    operand is an int8 / int16 tensor (the weight-only storage mode, or a
+    partly scaled QAT import), it is dequantized by its own scale, in its
+    stored layout (W4 unpacked first along ``pack_axis``); only the scale is
+    kept per op in ``ctx.const``, never the wide weight.  Then a bf16
+    operand is upcast against the float32 one, as jnp promotes them.  int8 ×
+    int8 and float × float pass through untouched; so does int16 only when
+    neither operand is one."""
+    def deq(v, name):
+        q = ctx.var_quant(name)
+        if q is None:
+            return v.to(torch.float32)
+        if q.pack_axis is not None and q.bits == 4:
+            v = unpack_w4(v, q.pack_axis)
+
+        def scale():
+            s = ctx.tensor(np.asarray(q.scale_array() if q.per_channel else q.scale[0],
+                                      np.float32))
+            if q.axis is not None and s.ndim == 1:
+                shape = [1] * v.ndim
+                shape[q.axis] = -1
+                s = s.reshape(shape)
+            return s
+
+        return v.to(torch.float32) * ctx.const(op, "dequant_scale " + name, scale)
+
+    a_int, b_int = a.dtype in _QUANT_INTS, b.dtype in _QUANT_INTS
+    if a_int == b_int and torch.int16 not in (a.dtype, b.dtype):
+        return a, b
+    if a_int:
+        a = deq(a, a_name)
+    if b_int:
+        b = deq(b, b_name)
+    return upcast(a), upcast(b)
+
+
 def effective_conv_scale(in_scale: float, weight_scales) -> np.ndarray:
     """Fold s_x * s_w[c] once, in numpy float32, as the reference does."""
     return np.float32(in_scale) * np.asarray(weight_scales, np.float32)

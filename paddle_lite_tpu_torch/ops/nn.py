@@ -28,6 +28,16 @@ matmul of the int8 values, exact up to K = :data:`FP32_EXACT_K`, and past
 it K is split into such chunks summed in int32, as the conv is: no
 float64, which the card runs at a fraction of the fp32 rate.
 
+Mixed operands (the weight-only storage mode: an int8 / int16 / packed
+int4 weight against a float activation) are repaired by
+``common.maybe_dequant_mixed`` in each conv / fc / mul / matmul, as the
+reference does it: the weight is dequantized in its stored layout on every
+run and never kept wide.  The ``conv1x1_dot`` attr (``nn.py:128-146``
+there, stamped by ``tools/opt.py``) changes no lowering here: the conv form
+below already gives an int8 1x1 conv's exact int32 accumulator for any K,
+as the reference's reshape + dot does, and on the card
+``select.gemm_eligible`` sends such convs to the GEMM.
+
 Float ops on bf16 island values (``graph.meta["island_dtype"]``) take
 bf16 operands with fp32 accumulation and give fp32, as the reference's
 ``preferred_element_type=jnp.float32``: the operands are upcast (a bf16
@@ -47,6 +57,7 @@ from .common import (
     dequantize,
     effective_conv_scale,
     f32,
+    maybe_dequant_mixed,
     normalize_2d,
     normalize_paddings,
     quantize,
@@ -84,19 +95,6 @@ def eff_scale(ctx, op, x_name: str, w_name: str) -> torch.Tensor:
     """s_x·s_w[c] as a device tensor, folded once per op."""
     return ctx.const(op, "eff", lambda: ctx.tensor(effective_conv_scale(
         ctx.var_quant(x_name).scale[0], ctx.var_quant(w_name).scale_array())))
-
-
-def _check_dtypes(op, a: torch.Tensor, b: torch.Tensor) -> bool:
-    """True for int8×int8, False for float×float; mixed operands (the
-    weight-only storage mode) are not ported yet."""
-    a_int, b_int = a.dtype == torch.int8, b.dtype == torch.int8
-    if a_int != b_int or (not a_int and not (a.is_floating_point()
-                                             and b.is_floating_point())):
-        raise NotImplementedError(
-            f"{op.op_type}: operands {a.dtype} x {b.dtype} (weight-only or "
-            f"mixed precision) are not ported yet"
-        )
-    return a_int
 
 
 def _conv_epilogue(ctx, op, acc, x_name, w_name, bias, residual, residual_name,
@@ -147,19 +145,26 @@ def conv2d_torch(ctx, op, ins):
     groups = int(attrs.get("groups", 1))
     if op.op_type == "depthwise_conv2d":
         groups = x.shape[-1]
-    int8_path = _check_dtypes(op, x, w)
+    stored = w
+    x, w = maybe_dequant_mixed(ctx, op, x, op.input("Input"), w, op.input("Filter"))
+    int8_path = x.dtype == torch.int8 and w.dtype == torch.int8
     kh, kw, c_per_group = w.shape[:3]
     step = FP32_EXACT_K // (kh * kw) if int8_path else c_per_group
     if step < c_per_group and (groups != 1 or step == 0):
         raise NotImplementedError(
             f"{op.op_type}: an int8 conv with {groups} groups and K = "
             f"{kh * kw * c_per_group} a group is not exact on this route")
-    # HWIO -> OIHW once per op (channels-last, the layout cuDNN reads NHWC
-    # with), split into input-channel chunks of K <= FP32_EXACT_K if int8
-    chunks = ctx.const(op, "w_oihw", lambda: [
-        (c0, w[:, :, c0:c0 + step].to(torch.float32).permute(3, 2, 0, 1)
-         .contiguous(memory_format=torch.channels_last))
-        for c0 in range(0, c_per_group, step)])
+
+    # HWIO -> OIHW (channels-last, the layout cuDNN reads NHWC with), split
+    # into input-channel chunks of K <= FP32_EXACT_K if int8
+    def oihw_chunks():
+        return [(c0, w[:, :, c0:c0 + step].to(torch.float32).permute(3, 2, 0, 1)
+                 .contiguous(memory_format=torch.channels_last))
+                for c0 in range(0, c_per_group, step)]
+
+    # once per op, but not a weight dequantized from narrow storage: the
+    # narrow one is what stays resident
+    chunks = ctx.const(op, "w_oihw", oihw_chunks) if w is stored else oihw_chunks()
     xf = x.to(torch.float32)  # a bf16 island value: exact products in fp32
     if len(chunks) == 1:
         acc = conv_nhwc(xf, chunks[0][1], strides, padding, dilations, groups)
@@ -262,7 +267,8 @@ def fc_torch(ctx, op, ins):
     in_num_col_dims = int(op.attrs.get("in_num_col_dims", x.ndim - 1))
     lead = tuple(x.shape[:in_num_col_dims])
     x2 = x.reshape((-1, int(np.prod(x.shape[in_num_col_dims:]))))
-    int8_path = _check_dtypes(op, x2, w)
+    x2, w = maybe_dequant_mixed(ctx, op, x2, op.input("Input"), w, op.input("W"))
+    int8_path = x2.dtype == torch.int8 and w.dtype == torch.int8
     acc = _matmul_acc(x2, w, int8_path)
     y = _conv_epilogue(ctx, op, acc, op.input("Input"), op.input("W"),
                        bias, None, None, int8_acc=int8_path)
@@ -279,13 +285,15 @@ def mul_shape(attrs, in_shapes):
 
 @OPS.kernel("mul", "torch")
 def mul_torch(ctx, op, ins):
-    x, w = ins["X"][0], ins["Y"][0]
+    # dequantized in the stored layout, where the scale's axis points
+    x, w = maybe_dequant_mixed(ctx, op, ins["X"][0], op.input("X"), ins["Y"][0],
+                               op.input("Y"))
     xd = int(op.attrs.get("x_num_col_dims", 1))
     yd = int(op.attrs.get("y_num_col_dims", 1))
     lead, tail = tuple(x.shape[:xd]), tuple(w.shape[yd:])
     x2 = x.reshape((int(np.prod(lead)) if lead else 1, -1))
     w2 = w.reshape((-1, int(np.prod(tail)) if tail else 1))
-    int8_path = _check_dtypes(op, x2, w2)
+    int8_path = x2.dtype == torch.int8 and w2.dtype == torch.int8
     acc = _matmul_acc(x2, w2, int8_path)
     y = _conv_epilogue(ctx, op, acc, op.input("X"), op.input("Y"),
                        None, None, None, int8_acc=int8_path)
@@ -329,9 +337,11 @@ def matmul_torch(ctx, op, ins):
     the exact accumulator by s_x·s_y, per tensor, or s_x·s_y[c] where Y's
     scale is per channel; float × float (bf16 island operands upcast)
     accumulates in fp32."""
-    x, y = ins["X"][0], ins["Y"][0]
     attrs = op.attrs
-    int8_path = _check_dtypes(op, x, y)
+    # dequantized before any transpose, in the stored layout
+    x, y = maybe_dequant_mixed(ctx, op, ins["X"][0], op.input("X"), ins["Y"][0],
+                               op.input("Y"))
+    int8_path = x.dtype == torch.int8 and y.dtype == torch.int8
     if attrs.get("transpose_X"):
         x = x.transpose(-1, -2)
     if attrs.get("transpose_Y"):

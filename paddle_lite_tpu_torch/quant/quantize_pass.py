@@ -1,8 +1,8 @@
 """Quantization graph passes.
 
-Copy of ``paddle_lite_tpu/quant/quantize_pass.py`` (numpy only) without the
-weight-only storage mode, which is not ported yet.  The op lists come from
-this package's ``calibrate`` (the reference's imports jax,
+Copy of ``paddle_lite_tpu/quant/quantize_pass.py`` (numpy only), the
+weight-only storage mode (:func:`weight_only_quantize`) included.  The op
+lists come from this package's ``calibrate`` (the reference's imports jax,
 ``quantize_pass.py:33``).  Together these are the quantization machinery of
 the MIR pipeline:
 
@@ -41,10 +41,9 @@ from .calibrate import (CalibrationResult, PASSTHROUGH_OPS, QUANTIZABLE_OPS,
 class QuantConfig:
     """Quantization scheme config (QuantConfig analog of CxxConfig's quant
     options + PaddleSlim's strategy knobs).  The same fields and defaults
-    as the JAX package's; ``tools/opt.optimize`` raises
-    ``NotImplementedError`` for the options the port does not run yet
-    (``weight_only``, ``conv1x1_dot``, ``bias_correction``, a bf16
-    ``island_dtype``, and methods other than abs-max)."""
+    as the JAX package's; ``tools/opt.optimize`` runs every option the
+    JAX package runs, and raises ``NotImplementedError`` for an
+    ``island_dtype`` other than ``"float32"`` and ``"bfloat16"``."""
 
     method: CalibMethod = CalibMethod.ABS_MAX
     per_channel_weights: bool = True
@@ -548,3 +547,69 @@ def ptq_quantize(
 ) -> None:
     """PTQ entry: apply quantization with calibrated activation scales."""
     apply_quantization(graph, calib.scales, config=config)
+
+
+def weight_only_quantize(graph: Graph, bits: int = 8) -> int:
+    """Calibration-free weight-only quantization (``SaveModelNaive``'s
+    quantize-on-save, lite/model_parser/model_parser.cc + the
+    weight_quantization_preprocess pass).
+
+    Stores conv/fc/mul/matmul weights as packed int4 pairs (bits=4,
+    riding int8 containers — see core/types.QuantInfo.pack_axis), int8
+    (bits=8), or int16 (bits=16) with per-output-channel scales;
+    activations stay float and the op impls inline-dequantize the weight
+    (``ops/common.maybe_dequant_mixed``) on every run, so the narrow weight
+    is what stays resident. No ``enable_int8`` marking — this is a
+    storage/bandwidth mode, not the int8 kernel path.
+    A bits=4 weight with no even-length non-scale axis to pack along
+    (e.g. an RGB stem's 3-channel input axis with odd kernel dims) falls
+    back to int8 storage for that weight. Returns the number of weights
+    quantized.
+    """
+    if bits not in (4, 8, 16):
+        raise ValueError(f"weight_only bits must be 4, 8 or 16, got {bits}")
+    qmax = float(2 ** (bits - 1) - 1)
+    dtype = np.int8 if bits <= 8 else np.int16
+    prec = Precision.INT8 if bits <= 8 else Precision.INT16
+    n = 0
+    for op in graph.ops:
+        w_slot = _WEIGHT_SLOTS.get(op.op_type)
+        if w_slot is None:
+            continue
+        w_name = op.maybe_input(w_slot)
+        if w_name is None:
+            continue
+        w_var = graph.vars[w_name]
+        if not w_var.is_weight or w_var.quant is not None:
+            continue
+        w = graph.weights[w_name]
+        if w.dtype != np.float32:
+            continue
+        axis = _WEIGHT_AXIS[op.op_type] % w.ndim
+        eff_bits, pack_axis = bits, None
+        if bits == 4:
+            pack_axis = next(
+                (i for i in range(w.ndim)
+                 if i != axis and w.shape[i] % 2 == 0), None)
+            if pack_axis is None:
+                eff_bits = 8  # nothing even to pack along — int8 fallback
+        eff_qmax = float(2 ** (eff_bits - 1) - 1)
+        red = tuple(i for i in range(w.ndim) if i != axis)
+        amax = np.maximum(np.abs(w).max(axis=red), 1e-10).astype(np.float32)
+        scale = amax / eff_qmax
+        shape = [1] * w.ndim
+        shape[axis] = -1
+        q = np.clip(np.round(w / scale.reshape(shape)), -eff_qmax,
+                    eff_qmax).astype(dtype)
+        if eff_bits == 4:
+            lo = np.take(q, np.arange(0, q.shape[pack_axis], 2), pack_axis)
+            hi = np.take(q, np.arange(1, q.shape[pack_axis], 2), pack_axis)
+            q = ((lo & 0xF) | (hi << 4)).astype(np.int8)
+        graph.weights[w_name] = q
+        w_var.ttype = dataclasses.replace(w_var.ttype, precision=prec)
+        w_var.quant = QuantInfo(scale=tuple(float(s) for s in scale),
+                                axis=axis, bits=eff_bits,
+                                pack_axis=pack_axis if eff_bits == 4
+                                else None)
+        n += 1
+    return n

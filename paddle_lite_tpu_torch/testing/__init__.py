@@ -25,9 +25,9 @@ from typing import Any, Dict, List
 
 import torch
 
-from .core.executor import ExecutionContext, build_callable
-from .core.ir import Graph
-from .core.registry import OPS
+from ..core.executor import ExecutionContext, build_callable
+from ..core.ir import Graph
+from ..core.registry import OPS
 
 # an op fed identical inputs: at most this fraction of its int8 outputs
 # (or TIE_COUNT elements, for small tensors) may differ, each by at most
@@ -104,8 +104,8 @@ def fused_local_diffs(graph: Graph, weights: Dict[str, torch.Tensor],
     the GEMM: ``against="unfused"``) and to the fused kernel's plain
     version (``against="plain"``).  Records as :func:`op_local_diffs`
     gives, plus "against"; both must have no difference."""
-    from .ops.fused import block_scales
-    from .ops.kernels import depthwise, dw_pw_fused, int8_matmul
+    from ..ops.fused import block_scales
+    from ..ops.kernels import depthwise, dw_pw_fused, int8_matmul
 
     env = capture_all(graph, weights, feed, device)
     env.update(weights)
