@@ -211,7 +211,31 @@ Phases:
    its nibbles swapped 0.22; tests/test_torch_accuracy_report.py).  Items/s in turns
    (fp32, PTQ int8, W16, W8, W4), staged bytes, a request's peak memory,
    one fc's device time a call and a profiled W4 request are information.
-13. The last lines: the card (nvidia-smi), the kernels' JSON line, then
+13. The fluid front door and the light path.  (a) Full-width MobileNetV1
+   (1.0 / 224 px / 1,000 classes, seed 0) written as a Paddle fluid
+   directory by ``testing/fluid_programs.py``, imported by
+   ``formats.fluid_convert.load_fluid_model(dir, batch=64)`` and optimized
+   on the card (abs-max PTQ, 4 calibration batches) beside its zoo twin
+   (``models/mobilenet_v1.build`` with the same weights), the import fed
+   NCHW and the twin NHWC: the same int8 op counts, the same activation
+   scales bit for bit, the first request's launches twice 14 GEMM and 13
+   depthwise (9 s1, 4 s2), the softmax against the twin's with argmax
+   equal on every row and cosine > 0.999.  (b) Compiled img/s of the
+   import and the twin in turns, numpy input and input on the card.  (c)
+   ``Predictor.save`` -> ``load_predictor`` on the card: no pass run, the
+   launches as (a), outputs bit-identical to the saving predictor's; the
+   artifact's MB, save and load times and img/s in turns are information;
+   a copy with one byte of a weight blob flipped must be refused.  (d)
+   ``python -m paddle_lite_tpu_torch.tools.cli compile --model <dir>
+   --int8 --batch 64`` and ``info`` as subprocesses, both exiting 0, the
+   artifact through ``load_predictor`` with the launches of (a).  (e) The
+   committed fixtures at their sizes: ``qat_ssd_head`` through
+   ``quant_dequant_fuse`` with its NMS on the kernel (one launch a
+   request), its detections at least 90 % found in the QAT fp32 graph's
+   and back; ``qat_lenet`` at cosine > 0.999 against its QAT fp32 graph;
+   ``crnn_fluid`` (``gru``, ``squeeze2``) PTQ int8 agreeing with fp32 on
+   more than 95 % of the per-step argmaxes (the reference's bars).
+14. The last lines: the card (nvidia-smi), the kernels' JSON line, then
    ``{"ok": true, "device": {...}}``.
 
 With ``--json PATH`` the per-shape numbers are also written to PATH.
@@ -2955,6 +2979,383 @@ def phase_quant() -> tuple:
     return out, launches
 
 
+# ---- phase 13 --------------------------------------------------------------
+
+FLUID_WIDTH, FLUID_CLASSES, FLUID_SEED = 1.0, 1000, 0
+FLUID_CALIB_BATCHES = 4
+TWIN_COSINE = 0.999  # the reference's bar (tests/test_fluid_full_model.py:97-121)
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
+FIXTURE_BATCH = 2
+QAT_COSINE = 0.999  # the reference's bar (tests/test_fluid.py:281-294)
+QAT_DET_AGREEMENT = 0.9  # the reference's bar (tests/test_qat_ssd_fixture.py:152-157)
+CRNN_STEP_AGREEMENT = 0.95  # the reference's bar (tests/test_fluid_full_model.py:235)
+
+
+def _mnv1_twin(params: dict, batch: int, size: int):
+    """``models/mobilenet_v1.build`` with the fluid program's weights
+    grafted in, op by op (filters OIHW -> HWIO), as the reference's twin
+    (``tests/test_fluid_full_model.py:37-67``)."""
+    from paddle_lite_tpu_torch.models import mobilenet_v1
+
+    g = mobilenet_v1.build(batch=batch, image_size=size, num_classes=FLUID_CLASSES,
+                           width_mult=FLUID_WIDTH, seed=0)
+    convs = ["conv1_w"] + [w for i in range(1, 14) for w in (f"dw{i}_w", f"pw{i}_w")]
+    bns = ["bn1"] + [n for i in range(1, 14) for n in (f"bn_dw{i}", f"bn_pw{i}")]
+    ci = bi = 0
+    for op in g.ops:
+        if op.op_type in ("conv2d", "depthwise_conv2d"):
+            g.weights[op.input("Filter")] = np.ascontiguousarray(
+                np.transpose(params[convs[ci]], (2, 3, 1, 0)))
+            ci += 1
+        elif op.op_type == "batch_norm":
+            for slot, suffix in (("Scale", "scale"), ("Bias", "bias"),
+                                 ("Mean", "mean"), ("Variance", "var")):
+                g.weights[op.input(slot)] = params[f"{bns[bi]}_{suffix}"]
+            bi += 1
+        elif op.op_type == "fc":
+            g.weights[op.input("W")] = params["fc_w"]
+            g.weights[op.input("Bias")] = params["fc_b"]
+    if (ci, bi) != (27, 27):
+        fail(f"the twin took {ci} convs and {bi} batch norms, not 27 and 27")
+    return g
+
+
+def _int8_ops(g) -> dict:
+    out = {}
+    for op in g.ops:
+        if op.attrs.get("enable_int8"):
+            out[op.op_type] = out.get(op.op_type, 0) + 1
+    return out
+
+
+def _act_scales(g) -> list:
+    """Each int8 op's activation-input scale and output scale, in op order
+    (the vars' names differ between an import and its twin)."""
+    out = []
+    for op in g.ops:
+        if op.attrs.get("enable_int8"):
+            x = op.inputs.get("Input", op.inputs.get("X"))[0]
+            out.append((op.op_type, g.vars[x].quant.scale, op.attrs.get("out_scale")))
+    return out
+
+
+def _first_request_launches(tag: str, pred, feeds, want: dict) -> tuple:
+    """Counts to 0, the predictor's first requests, the counts."""
+    _reset_counts()
+    outs = [pred.run(f) for f in feeds]
+    torch.cuda.synchronize()
+    launches = _counts()
+    _check_first_run(tag, launches, want)
+    return launches, outs
+
+
+def _in_turns(a, feed_a, b, feed_b) -> tuple:
+    """img/s of predictors `a` and `b` in turns (a, b, b, a), host clock."""
+    t = {"a": [], "b": []}
+    for tag in ("a", "b", "b", "a"):
+        t[tag].append(_ips(a, feed_a) if tag == "a" else _ips(b, feed_b))
+    return t["a"], t["b"]
+
+
+def _greedy(probs: torch.Tensor) -> list:
+    """CTC greedy decodes: per-step argmax, repeats merged, blank 0 dropped."""
+    out = []
+    for row in probs.argmax(-1).cpu().tolist():
+        out.append([c for i, c in enumerate(row) if c and (i == 0 or c != row[i - 1])])
+    return out
+
+
+def _fluid_import(tmp: str):
+    """13a: full-width MobileNetV1 written as a fluid directory, imported,
+    optimized on the card beside its zoo twin."""
+    from paddle_lite_tpu_torch import QuantConfig
+    from paddle_lite_tpu_torch.formats.fluid_convert import load_fluid_model
+    from paddle_lite_tpu_torch.runtime.predictor import create_predictor
+    from paddle_lite_tpu_torch.testing import fluid_programs
+
+    model_dir = os.path.join(tmp, "mobilenet_v1")
+    t0 = time.perf_counter()
+    params = fluid_programs.write_mobilenet_v1(model_dir, width=FLUID_WIDTH,
+                                               image_size=SIZE, classes=FLUID_CLASSES,
+                                               seed=FLUID_SEED)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g8 = load_fluid_model(model_dir, batch=BATCH)
+    load_s = time.perf_counter() - t0
+    ops = {}
+    for op in g8.ops:
+        ops[op.op_type] = ops.get(op.op_type, 0) + 1
+    disk_mb = sum(os.path.getsize(os.path.join(model_dir, f))
+                  for f in os.listdir(model_dir)) / 1e6
+    print(f"  13a: wrote the fluid directory in {write_s:.2f} s ({disk_mb:.2f} MB, params "
+          f"{sum(v.nbytes for v in params.values()) / 1e6:.2f} MB fp32); load + convert "
+          f"{load_s:.3f} s; ops {ops}")
+
+    rng = np.random.default_rng(13)
+    nchw = (BATCH, 3, SIZE, SIZE)
+    calib = [{"image": rng.normal(size=nchw).astype(np.float32)}
+             for _ in range(FLUID_CALIB_BATCHES)]
+    feeds = [{"image": rng.normal(size=nchw).astype(np.float32)} for _ in range(REQUESTS)]
+
+    def nhwc(fs):
+        return [{"image": np.ascontiguousarray(f["image"].transpose(0, 2, 3, 1))} for f in fs]
+
+    t0 = time.perf_counter()
+    pred8 = create_predictor(g8, quant=QuantConfig(), calib_batches=calib, device=DEV)
+    opt_s = time.perf_counter() - t0
+    twin8 = create_predictor(_mnv1_twin(params, BATCH, SIZE), quant=QuantConfig(),
+                             calib_batches=nhwc(calib), device=DEV)
+    counts, twin_counts = _int8_ops(g8), _int8_ops(twin8.graph)
+    print(f"  optimize + calibrate ({FLUID_CALIB_BATCHES} batches) {opt_s:.1f} s; int8 ops "
+          f"imported {counts}, twin {twin_counts}")
+    if counts != twin_counts:
+        fail(f"13a: the import's int8 ops {counts} differ from the twin's {twin_counts}")
+    scales, twin_scales = _act_scales(g8), _act_scales(twin8.graph)
+    if scales != twin_scales:
+        bad = [(a, b) for a, b in zip(scales, twin_scales) if a != b][:3]
+        fail(f"13a: activation scales differ from the twin's: {bad}")
+    print(f"  activation scales of the {len(scales)} int8 ops equal to the twin's, bit for bit")
+
+    want = path_launches(g8)
+    if (want["int8_gemm"], want["dw_conv_s1"], want["dw_conv_s2"]) != (14, 9, 4):
+        fail(f"13a: expected 14 GEMM and 9 + 4 depthwise ops on the kernels, got {want}")
+    launches, outs = _first_request_launches("fluid_mobilenet_v1", pred8, feeds, want)
+    twin_outs = [twin8.run(f) for f in nhwc(feeds)]
+    out_name, twin_out = g8.outputs[0], twin8.graph.outputs[0]
+    for i, (o, t) in enumerate(zip(outs, twin_outs)):
+        y, yt = o[out_name], t[twin_out]
+        if tuple(y.shape) != (BATCH, FLUID_CLASSES) or not bool(torch.isfinite(y).all()):
+            fail(f"13a: request {i}: output {tuple(y.shape)} not finite (b, 1000)")
+        cos = _cosine(y, yt)
+        same = bool((y.argmax(-1) == yt.argmax(-1)).all())
+        print(f"  request {i}: against the twin: argmax equal on every row {same}, "
+              f"cosine {cos:.7f}")
+        if not same or not cos > TWIN_COSINE:
+            fail(f"13a: request {i}: the import disagrees with its twin (argmax equal "
+                 f"{same}, cosine {cos})")
+    info = {"write_s": write_s, "load_convert_s": load_s, "optimize_s": opt_s,
+            "dir_mb": disk_mb, "ops": ops, "int8_ops": counts}
+    return model_dir, pred8, twin8, feeds, nhwc(feeds), launches, info
+
+
+def _light_path(tmp: str, pred8, feeds) -> tuple:
+    """13c: ``Predictor.save`` -> ``load_predictor`` on the card: no pass,
+    the same outputs bit for bit, a corrupt copy refused."""
+    import shutil
+
+    from paddle_lite_tpu_torch.core import pass_manager
+    from paddle_lite_tpu_torch.formats import artifact
+    from paddle_lite_tpu_torch.runtime.predictor import load_predictor
+
+    path = os.path.join(tmp, "mobilenet_v1.pnb")
+    t0 = time.perf_counter()
+    pred8.save(path)
+    save_s = time.perf_counter() - t0
+    runs = []
+    orig = pass_manager.PassManager.run
+    pass_manager.PassManager.run = lambda self, g, **kw: runs.append(1) or orig(self, g, **kw)
+    try:
+        t0 = time.perf_counter()
+        loaded = load_predictor(path, device=DEV)
+        load_s = time.perf_counter() - t0
+    finally:
+        pass_manager.PassManager.run = orig
+    if runs:
+        fail(f"13c: load_predictor ran {len(runs)} pass pipelines")
+    if loaded.device.type != "cuda":
+        fail(f"13c: load_predictor gave a predictor on {loaded.device}")
+    want = path_launches(loaded.graph)
+    launches, outs = _first_request_launches("fluid_loaded", loaded, feeds, want)
+    out_name = loaded.graph.outputs[0]
+    for i, (f, o) in enumerate(zip(feeds, outs)):
+        if not torch.equal(o[out_name], pred8.run(f)[out_name]):
+            fail(f"13c: request {i}: the loaded predictor's output differs from the "
+                 f"saving predictor's")
+    mb = os.path.getsize(path) / 1e6
+    print(f"  13c: artifact {mb:.3f} MB, save {save_s:.3f} s, load {load_s:.3f} s (no "
+          f"pass run); {REQUESTS} requests bit-identical to the saving predictor's")
+
+    bad = path + ".corrupt"
+    shutil.copyfile(path, bad)
+    blob = max(artifact.load_meta(bad)["tensors"], key=lambda t: t["nbytes"])
+    with open(bad, "r+b") as f:
+        f.seek(blob["offset"] + blob["nbytes"] // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    try:
+        load_predictor(bad, device=DEV)
+    except IOError as e:
+        print(f"  a byte flipped in blob {blob['name']!r}: load_predictor raised {e}")
+    else:
+        fail("13c: load_predictor took an artifact with a corrupt blob")
+    return path, loaded, launches, {"artifact_mb": mb, "save_s": save_s, "load_s": load_s}
+
+
+def _cli(model_dir: str, tmp: str, feeds) -> tuple:
+    """13d: the opt tool as a subprocess: compile the fluid directory, info,
+    then the artifact through ``load_predictor`` on the card."""
+    from paddle_lite_tpu_torch.runtime.predictor import load_predictor
+
+    out = os.path.join(tmp, "cli.pnb")
+    root = os.path.dirname(os.path.abspath(__file__))
+    res = {}
+    for cmd in (["compile", "--model", model_dir, "--int8", "--batch", str(BATCH),
+                 "--out", out], ["info", "--artifact", out]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "paddle_lite_tpu_torch.tools.cli", *cmd],
+                              cwd=root, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"13d: cli {cmd[0]} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        res[cmd[0]] = {"s": secs, "out": json.loads(proc.stdout.strip().splitlines()[-1])}
+        print(f"  13d: cli {cmd[0]} exited 0 in {secs:.1f} s: {proc.stdout.strip()[-300:]}")
+    pred = load_predictor(out, device=DEV)
+    want = path_launches(pred.graph)
+    if (want["int8_gemm"], want["dw_conv"]) != (14, 13):
+        fail(f"13d: the CLI's artifact has {want} kernel ops, not 14 GEMM and 13 depthwise")
+    launches, outs = _first_request_launches("fluid_cli", pred, feeds, want)
+    y = outs[0][pred.graph.outputs[0]]
+    if not bool(torch.isfinite(y).all()):
+        fail("13d: the CLI's artifact gives non-finite outputs")
+    return launches, res
+
+
+def _fixtures() -> tuple:
+    """13e: the committed fluid fixtures on the card at their sizes."""
+    from paddle_lite_tpu_torch import QuantConfig
+    from paddle_lite_tpu_torch.core.executor import build_callable, stage_weights
+    from paddle_lite_tpu_torch.formats.fluid_convert import load_fluid_model
+    from paddle_lite_tpu_torch.runtime.predictor import Predictor, create_predictor
+    from paddle_lite_tpu_torch.tools.opt import optimize
+
+    rng = np.random.default_rng(14)
+    launches, out = {}, {}
+
+    def unoptimized(d):
+        """The imported QAT graph as it is, fake ops and all: what the
+        training graph computed, in fp32, by the eager loop on the card
+        (its "torch" NMS waits for the host, so it is not compiled)."""
+        g = load_fluid_model(d, batch=FIXTURE_BATCH)
+        fn, w = build_callable(g, device=DEV), stage_weights(g, DEV)
+        return lambda feed: fn(w, feed)
+
+    def feeds_for(g, n):
+        shape = g.vars[g.inputs[0]].shape
+        return [{g.inputs[0]: (rng.normal(size=shape) * 0.7).astype(np.float32)}
+                for _ in range(n)]
+
+    # qat_ssd_head: quant_dequant_fuse -> int8 on the card; its NMS on the kernel
+    d = os.path.join(FIXTURES, "qat_ssd_head")
+    g8 = optimize(load_fluid_model(d, batch=FIXTURE_BATCH), device=DEV)
+    if any(op.op_type.startswith("fake_") for op in g8.ops):
+        fail("13e: qat_ssd_head kept fake-quant ops after optimize()")
+    pred8 = Predictor(g8, device=DEV)
+    qat32 = unoptimized(d)
+    feeds = feeds_for(g8, REQUESTS)
+    want = path_launches(g8)
+    if want["nms"] != 1:
+        fail(f"13e: qat_ssd_head has {want['nms']} NMS ops on the kernel, not 1")
+    launches["qat_ssd_head"], outs = _first_request_launches("qat_ssd_head", pred8, feeds, want)
+    name = g8.outputs[0]
+    det8, det32 = outs[0][name], qat32(feeds[0])[name]
+    agree = (_det_agreement(det8, det32), _det_agreement(det32, det8))
+    n_det = int((det8[..., 0] >= 0).sum())
+    print(f"  13e: qat_ssd_head: int8 ops {_int8_ops(g8)}, kernel ops {want}; {n_det} "
+          f"detections; int8 vs fp32 (QAT round trip) agreement {agree[0]:.4f} / "
+          f"{agree[1]:.4f}")
+    if n_det == 0 or min(agree) < QAT_DET_AGREEMENT:
+        fail(f"13e: qat_ssd_head int8 detections disagree with fp32: {agree}")
+    out["qat_ssd_head"] = {"detections": n_det, "agreement": agree, "kernel_ops": want}
+
+    # qat_lenet: calibration-free int8 against the QAT fp32 semantics
+    d = os.path.join(FIXTURES, "qat_lenet")
+    g8 = optimize(load_fluid_model(d, batch=FIXTURE_BATCH), device=DEV)
+    pred8 = Predictor(g8, device=DEV)
+    qat32 = unoptimized(d)
+    feeds = feeds_for(g8, REQUESTS)
+    want = path_launches(g8)
+    launches["qat_lenet"], outs = _first_request_launches("qat_lenet", pred8, feeds, want)
+    name = g8.outputs[0]
+    y8, y32 = outs[0][name], qat32(feeds[0])[name]
+    cos = _cosine(y8, y32)
+    top1 = float((y8.argmax(-1) == y32.argmax(-1)).float().mean())
+    print(f"  13e: qat_lenet: int8 ops {_int8_ops(g8)}, kernel ops {want}; cosine "
+          f"{cos:.6f}, top-1 agreement {top1}")
+    if not cos > QAT_COSINE or top1 < 0.5:
+        fail(f"13e: qat_lenet int8 disagrees with fp32: cosine {cos}, top-1 {top1}")
+    out["qat_lenet"] = {"cosine": cos, "top1": top1, "kernel_ops": want}
+
+    # crnn_fluid: its gru and squeeze2, PTQ int8 against fp32
+    d = os.path.join(FIXTURES, "crnn_fluid")
+    g32 = load_fluid_model(d, batch=FIXTURE_BATCH)
+    types = {op.op_type for op in g32.ops}
+    if not {"gru", "squeeze2"} <= types:
+        fail(f"13e: crnn_fluid imported without gru / squeeze2: {sorted(types)}")
+    feeds = feeds_for(g32, REQUESTS)
+    pred8 = create_predictor(load_fluid_model(d, batch=FIXTURE_BATCH), quant=QuantConfig(),
+                             calib_batches=feeds_for(g32, 1), device=DEV)
+    pred32 = create_predictor(g32, device=DEV)
+    want = path_launches(pred8.graph)
+    launches["crnn_fluid"], outs = _first_request_launches("crnn_fluid", pred8, feeds, want)
+    name = pred8.graph.outputs[0]
+    steps, decodes_equal = [], True
+    for f, o in zip(feeds, outs):
+        p8, p32 = o[name], pred32.run(f)[name]
+        steps.append(float((p8.argmax(-1) == p32.argmax(-1)).float().mean()))
+        decodes_equal &= _greedy(p8) == _greedy(p32)
+    print(f"  13e: crnn_fluid: int8 ops {_int8_ops(pred8.graph)}, kernel ops {want}; per-step "
+          f"argmax agreement {steps} (bar: above {CRNN_STEP_AGREEMENT}), greedy decodes "
+          f"equal {decodes_equal} (information: the seeded weights leave near ties)")
+    if min(steps) <= CRNN_STEP_AGREEMENT:
+        fail(f"13e: crnn_fluid int8 per-step argmaxes differ from fp32: {steps}")
+    out["crnn_fluid"] = {"step_agreement": steps, "decodes_equal": decodes_equal,
+                         "kernel_ops": want}
+    return launches, out
+
+
+def phase_fluid() -> tuple:
+    """Phase 13: the fluid front door, the light path and the opt tool."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    print(f"phase 13: MobileNetV1 {FLUID_WIDTH} / {SIZE} px / {FLUID_CLASSES} classes "
+          f"imported from a fluid directory, b{BATCH}")
+    launches, out = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fluid_") as tmp:
+        model_dir, pred8, twin8, feeds, twin_feeds, launches["fluid_import"], \
+            out["import"] = _fluid_import(tmp)
+
+        # 13b: throughput, the import and its twin in turns
+        on_dev = {k: torch.from_numpy(v).to(DEV) for k, v in feeds[0].items()}
+        twin_dev = {k: torch.from_numpy(v).to(DEV) for k, v in twin_feeds[0].items()}
+        turns = {}
+        for label, a, b in (("numpy", feeds[0], twin_feeds[0]), ("on_card", on_dev, twin_dev)):
+            imp, twin = _in_turns(pred8, a, twin8, b)
+            turns[label] = {"import": imp, "twin": twin}
+        print("  13b: compiled img/s in turns (import, twin, twin, import; host clock, 10 "
+              "requests): " + "; ".join(
+                  f"{lab}: import {v['import'][0]:.1f} / {v['import'][1]:.1f}, twin "
+                  f"{v['twin'][0]:.1f} / {v['twin'][1]:.1f}" for lab, v in turns.items()))
+        out["img_s_in_turns"] = turns
+
+        path, loaded, launches["fluid_loaded"], out["light"] = _light_path(tmp, pred8, feeds)
+        saving, light = _in_turns(pred8, on_dev, loaded, on_dev)
+        print(f"  13c: compiled img/s in turns, input on the card (saving, loaded, loaded, "
+              f"saving): saving {saving[0]:.1f} / {saving[1]:.1f}, loaded "
+              f"{light[0]:.1f} / {light[1]:.1f}")
+        out["light"]["img_s_in_turns"] = {"saving": saving, "loaded": light}
+        del pred8, twin8, loaded
+        torch.cuda.empty_cache()
+
+        launches["fluid_cli"], out["cli"] = _cli(model_dir, tmp, feeds)
+    fx_launches, out["fixtures"] = _fixtures()
+    launches.update(fx_launches)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 13: {out['seconds']:.1f} s")
+    return out, launches
+
+
 # ---- the kernels' line -----------------------------------------------------
 
 KERNELS = [  # name, source, TPU kernel it replaces, rows it covers
@@ -3089,6 +3490,7 @@ def main() -> None:
     rec_rows, rec_launches, rec, compiled["crnn"] = phase_crnn(fma_per_s)
     ern_rows, ern_launches, ern, compiled["ernie"] = phase_ernie(fma_per_s)
     quant, quant_launches = phase_quant()
+    fluid, fluid_launches = phase_fluid()
     all_rows = (rows + ssd_rows + fused_rows + v3_rows + r50_rows + db_rows + rec_rows
                 + ern_rows)
     kernels = _kernel_line(all_rows, {"mobilenet_v1": launches, "ssd": ssd_launches,
@@ -3097,7 +3499,7 @@ def main() -> None:
                                       "serving": serving["launches"],
                                       "resnet50": r50_launches, "dbnet": db_launches,
                                       "crnn": rec_launches, "ernie": ern_launches,
-                                      **quant_launches},
+                                      **quant_launches, **fluid_launches},
                            {"mobilenet_v1": e2e["profile"]["int8"],
                             "ssd": ssd["profile"]["int8"],
                             "mobilenet_v1_fused": fused["profile"]["int8"],
@@ -3143,7 +3545,7 @@ def main() -> None:
             json.dump({"card": card, "rows": all_rows, "main_path": e2e,
                        "ssd": ssd, "mobilenet_v1_fused": fused,
                        "mobilenet_v3": v3, "resnet50": r50, "dbnet": db, "crnn": rec,
-                       "ernie": ern, "quant": quant,
+                       "ernie": ern, "quant": quant, "fluid": fluid,
                        "compiled": compiled,
                        "serving": serving,
                        "benchmark": bench, "kernels": kernels}, f, indent=1)

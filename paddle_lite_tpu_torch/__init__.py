@@ -8,7 +8,8 @@ and the TPU's Pallas kernels are rewritten by hand in CUDA C++ for
 This package imports neither ``jax`` nor any module of the JAX package.
 
 Layer map:
-  runtime.predictor   Predictor / create_predictor (device="cuda" default)
+  runtime.predictor   Predictor / create_predictor (device="cuda" default),
+                      Predictor.save / load_predictor (the light path)
   runtime.batcher     ContinuousBatcher over bucketed compiled predictors
   tools.opt           optimize: fusions, calibration, PTQ, kernel pick
   tools.benchmark     img/s of a zoo model; tools.batch_tune its buckets
@@ -17,7 +18,10 @@ Layer map:
   core                IR, builder, registry, passes, eager executor and
                       compile_graph (the graph captured as a CUDA graph)
   ops                 torch impls; ops.kernels: the CUDA kernels
-  formats.interop     graphs carried across from the JAX package
+  tools.cli           the opt tool: compile / info / ops / passes / profile
+  formats             fluid model directories (fluid_convert), the nbf
+                      artifact shared with the JAX package (artifact,
+                      native/nbf.cc), graphs carried across (interop)
 """
 
 from . import ops  # registers all operators & kernels

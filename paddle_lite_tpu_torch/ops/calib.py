@@ -1,7 +1,11 @@
-"""Precision ops inserted by the cast pass: ``quantize`` / ``dequantize``.
+"""Precision ops inserted by the cast pass: ``quantize`` / ``dequantize``;
+and ``assign``, the alias the fluid converter emits for a transpose that is
+already the physical layout.
 
 Port of ``paddle_lite_tpu/ops/calib.py:26-47`` (the reference's ``calib``
-kernels, ``lite/kernels/arm/calib_compute.cc``).
+kernels, ``lite/kernels/arm/calib_compute.cc``) and of its ``assign``
+(``:67-73``: the identity; the reference's ``feed`` / ``fetch`` /
+``io_copy`` names there are later work).
 """
 
 from __future__ import annotations
@@ -33,3 +37,14 @@ def dequantize_torch(ctx, op, ins):
     q = ctx.var_quant(op.input("X"))
     scale = q.scale_array() if q.per_channel else q.scale[0]
     return {"Out": [_dq(ins["X"][0], scale, axis=q.axis)]}
+
+
+@OPS.shape_fn("assign")
+def assign_shape(attrs, in_shapes):
+    return [in_shapes[0]]
+
+
+@OPS.kernel("assign", "torch")
+def assign_torch(ctx, op, ins):
+    """The input itself (an alias: no copy)."""
+    return {"Out": [next(iter(ins.values()))[0]]}

@@ -1,22 +1,27 @@
-"""Detection ops of the SSD path under the ``torch`` tag: ``prior_box``,
-``box_coder`` (decode) and ``multiclass_nms`` / ``multiclass_nms2``.
+"""Detection ops under the ``torch`` tag: ``prior_box``,
+``density_prior_box``, ``box_coder`` (decode), ``yolo_box`` and
+``multiclass_nms`` / ``multiclass_nms2``.
 
 Port of ``paddle_lite_tpu/ops/detection.py``: ``prior_box`` (``:35-104``),
-``box_coder`` (``:169-203``), the NMS shape function (``:321-325``),
+``density_prior_box`` (``:107-160``), ``box_coder`` (``:169-203``),
+``yolo_box`` (``:211-260``), the NMS shape function (``:321-325``),
 ``_iou_matrix`` / ``_nms_single_class`` (``:262-318``), ``_nms_merge``
 (``:328-358``) and ``multiclass_nms_xla`` (``:361-396``).  The kernel form
 of ``multiclass_nms`` (the reference's ``"pallas"`` impl) is in
 ``ops/kernels/ops_cuda.py``.  All of it runs in fp32, outside the int8
 regions, as in the reference.
 
-``prior_box`` depends only on shapes, so it is computed once per op (in
-numpy float32, the reference's arithmetic) and kept on the device; XLA
-constant-folds it there.  Top-k selections follow ``jax.lax.top_k``
+``prior_box`` and ``density_prior_box`` depend only on shapes, so each is
+computed once per op (in numpy float32, the reference's arithmetic) and
+kept on the device; XLA constant-folds them there.  ``density_prior_box``'s
+shape function counts ``len(fixed_ratios)`` boxes for each density cell, as
+its impl makes them in both packages; the reference's shape function
+counts one (a fault there when there are several ratios).  Top-k selections follow ``jax.lax.top_k``
 exactly (:func:`topk_stable`): descending in IEEE total order, so +0.0
 ranks above −0.0, and equal values by lower index.
 
-Not ported yet: ``density_prior_box``, ``yolo_box``, ``anchor_generator``,
-``roi_align``, ``generate_proposals`` (ROADMAP queue 1, item 10).
+Not ported yet: ``anchor_generator``, ``roi_align``, ``generate_proposals``
+(``ROADMAP.md`` queue 1).
 """
 
 from __future__ import annotations
@@ -162,6 +167,125 @@ def box_coder_torch(ctx, op, ins):
     out = torch.stack([cx - w * 0.5, cy - h * 0.5,
                        cx + w * 0.5 - one, cy + h * 0.5 - one], dim=-1)
     return {"OutputBox": [out]}
+
+
+# ---------------------------------------------------------------------------
+# density_prior_box (``detection.py:107-160`` there)
+# ---------------------------------------------------------------------------
+
+def _density_count(attrs) -> int:
+    cells = sum(int(d) * int(d) for _, d in zip(attrs.get("fixed_sizes", []),
+                                                attrs.get("densities", [])))
+    return cells * len(attrs.get("fixed_ratios", [1.0]))
+
+
+@OPS.shape_fn("density_prior_box")
+def density_prior_box_shape(attrs, in_shapes):
+    feat = in_shapes[0]  # NHWC feature map
+    n = _density_count(attrs)
+    return [(feat[1], feat[2], n, 4), (feat[1], feat[2], n, 4)]
+
+
+def density_prior_boxes(attrs, fh: int, fw: int, ih: int, iw: int):
+    """(fh, fw, n, 4) boxes and variances, numpy float32: for each fixed
+    size, ratio and density, a density × density grid of boxes around each
+    cell's centre."""
+    f = np.float32
+    step_w = attrs.get("step_w", 0.0) or iw / fw
+    step_h = attrs.get("step_h", 0.0) or ih / fh
+    offset = attrs.get("offset", 0.5)
+    whs: List[Tuple[float, float, float, float]] = []  # (dx, dy, w, h)
+    for size, density in zip(attrs["fixed_sizes"], attrs["densities"]):
+        size, density = float(size), int(density)
+        for ar in attrs.get("fixed_ratios", [1.0]):
+            bw = size * math.sqrt(float(ar))
+            bh = size / math.sqrt(float(ar))
+            step = size / density
+            for di in range(density):
+                for dj in range(density):
+                    whs.append(((dj + 0.5) * step - size / 2.0,
+                                (di + 0.5) * step - size / 2.0, bw, bh))
+    cx = (np.arange(fw, dtype=f) + f(offset)) * f(step_w)
+    cy = (np.arange(fh, dtype=f) + f(offset)) * f(step_h)
+    cxg, cyg = np.meshgrid(cx, cy)
+    d = np.asarray(whs, f).reshape(-1, 4)
+    cxs = cxg[:, :, None] + d[None, None, :, 0]
+    cys = cyg[:, :, None] + d[None, None, :, 1]
+    bw = d[None, None, :, 2] / f(2.0)
+    bh = d[None, None, :, 3] / f(2.0)
+    boxes = np.stack([(cxs - bw) / f(iw), (cys - bh) / f(ih),
+                      (cxs + bw) / f(iw), (cys + bh) / f(ih)], axis=-1)
+    if attrs.get("clip", True):
+        boxes = np.clip(boxes, f(0.0), f(1.0))
+    var = np.asarray(attrs.get("variances", [0.1, 0.1, 0.2, 0.2]), f)
+    return boxes.astype(f), np.broadcast_to(var, boxes.shape).copy()
+
+
+@OPS.kernel("density_prior_box", "torch")
+def density_prior_box_torch(ctx, op, ins):
+    (_, fh, fw, _), (_, ih, iw, _) = ins["Input"][0].shape, ins["Image"][0].shape
+    boxes, variances = ctx.const(op, "priors", lambda: tuple(
+        ctx.tensor(a) for a in density_prior_boxes(op.attrs, fh, fw, ih, iw)))
+    return {"Boxes": [boxes], "Variances": [variances]}
+
+
+# ---------------------------------------------------------------------------
+# yolo_box (``detection.py:211-260`` there)
+# ---------------------------------------------------------------------------
+
+@OPS.shape_fn("yolo_box")
+def yolo_box_shape(attrs, in_shapes):
+    n, h, w, _ = in_shapes[0]
+    boxes = h * w * (len(attrs["anchors"]) // 2)
+    return [(n, boxes, 4), (n, boxes, int(attrs["class_num"]))]
+
+
+@OPS.kernel("yolo_box", "torch")
+def yolo_box_torch(ctx, op, ins):
+    """Decode a YOLOv3 head (N, H, W, an·(5 + classes)) NHWC against the
+    image sizes (N, 2) [h, w]: boxes in pixels (clipped to the image with
+    ``clip_bbox``), scores the class sigmoid times the objectness, zero
+    where the objectness is not above ``conf_thresh``.  On the device."""
+    x, img_size = ins["X"][0], ins["ImgSize"][0]
+    a = op.attrs
+    ncls = int(a["class_num"])
+    n, h, w, _ = x.shape
+    dev = x.device
+    anchors = np.asarray(a["anchors"], np.float32).reshape(-1, 2)
+    an = anchors.shape[0]
+    down = a.get("downsample_ratio", 32)
+
+    def make_consts():
+        gx = np.broadcast_to(np.arange(w, dtype=np.float32)[None, :], (h, w))
+        gy = np.broadcast_to(np.arange(h, dtype=np.float32)[:, None], (h, w))
+        aw = anchors[:, 0] / np.float32(w * down)
+        ah = anchors[:, 1] / np.float32(h * down)
+        return tuple(ctx.tensor(v) for v in (gx, gy, aw, ah))
+
+    gx, gy, aw, ah = ctx.const(op, "grid", make_consts)
+    x = x.reshape(n, h, w, an, 5 + ncls)
+    bx = (torch.sigmoid(x[..., 0]) + gx[None, :, :, None]) / f32(w, dev)
+    by = (torch.sigmoid(x[..., 1]) + gy[None, :, :, None]) / f32(h, dev)
+    bw = torch.exp(x[..., 2]) * aw
+    bh = torch.exp(x[..., 3]) * ah
+    conf = torch.sigmoid(x[..., 4])
+    probs = torch.sigmoid(x[..., 5:]) * conf[..., None]
+    probs = torch.where(conf[..., None] > f32(a.get("conf_thresh", 0.01), dev),
+                        probs, torch.zeros((), dtype=probs.dtype, device=dev))
+    imgh = img_size[:, 0].to(torch.float32)[:, None, None, None]
+    imgw = img_size[:, 1].to(torch.float32)[:, None, None, None]
+    half = f32(2.0, dev)
+    boxes = torch.stack([(bx - bw / half) * imgw, (by - bh / half) * imgh,
+                         (bx + bw / half) * imgw, (by + bh / half) * imgh], dim=-1)
+    if a.get("clip_bbox", True):
+        zero, one = f32(0.0, dev), f32(1.0, dev)
+        boxes = torch.stack(
+            [torch.minimum(torch.maximum(boxes[..., 0], zero), imgw - one),
+             torch.minimum(torch.maximum(boxes[..., 1], zero), imgh - one),
+             torch.minimum(torch.maximum(boxes[..., 2], zero), imgw - one),
+             torch.minimum(torch.maximum(boxes[..., 3], zero), imgh - one)], dim=-1)
+    return {"Boxes": [boxes.reshape(n, -1, 4)],
+            "Scores": [probs.reshape(n, -1, ncls)]}
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,28 @@
-"""Tensor-manipulation ops: ``reshape`` / ``reshape2``, ``transpose`` /
-``transpose2``, ``concat``, ``split``, ``slice``, ``lookup_table`` /
-``lookup_table_v2``, the interpolations and ``pixel_shuffle``.
+"""Tensor-manipulation ops: ``reshape`` / ``reshape2``, ``flatten`` /
+``flatten2``, ``squeeze`` / ``squeeze2``, ``unsqueeze`` / ``unsqueeze2``,
+``transpose`` / ``transpose2``, ``concat``, ``split``, ``stack``,
+``slice``, ``lookup_table`` / ``lookup_table_v2``, the interpolations,
+``pixel_shuffle``, the reductions ``reduce_mean`` / ``_sum`` / ``_max`` /
+``_min`` / ``_prod``, ``arg_max``, ``fill_constant`` and ``shape``.
 
 Port of the reshape family head of ``paddle_lite_tpu/ops/manip.py``
-(``:31-53``; int8 flows through unchanged, same scale), of its
+(``:31-110``; int8 flows through unchanged, same scale), of its
 ``transpose`` (``:113-125``), ``concat`` (``:128-161``), ``split``
-(``:164-190``), ``slice`` (``:206-229``), ``lookup_table`` (``:423-441``),
-of ``interp_xla`` (``:277-345``) and of ``pixel_shuffle``
-(``ops/extra.py:95-110``).  None of them reads a value back to the host,
-so each runs inside a CUDA graph.
+(``:164-190``), ``stack`` (``:193-203``), ``slice`` (``:206-229``),
+``lookup_table`` (``:423-441``), of ``interp_xla`` (``:277-345``), of
+the reductions and ``arg_max`` (``:346-396``), of ``fill_constant`` and
+``shape`` (``:444-463``) and of ``pixel_shuffle`` (``ops/extra.py:95-110``).
+None of them reads a value back to the host, so each runs inside a CUDA
+graph; ``fill_constant``'s and ``shape``'s outputs depend on attrs and
+shapes only, so each is made once per op and kept on the device, as XLA
+folds them.
+
+Two departures from the reference, each a fault there:
+- ``reduce_*`` with ``reduce_all`` set reduces every axis, whatever
+  ``dim`` says (fluid's contract: ``layers.reduce_mean(x)`` exports
+  ``dim=[0], reduce_all=True``); the reference reads only ``dim``;
+- ``arg_max`` with ``keepdims`` set keeps the reduced axis as 1; the
+  reference drops it either way.
 """
 
 from __future__ import annotations
@@ -309,3 +323,169 @@ def pixel_shuffle_torch(ctx, op, ins):
     co = c // (r * r)
     y = x.reshape(n, h, w, r, r, co).permute(0, 1, 3, 2, 4, 5)
     return {"Out": [y.reshape(n, h * r, w * r, co)]}
+
+
+# ---------------------------------------------------------------------------
+# flatten / squeeze / unsqueeze (``manip.py:56-110`` there): views
+# ---------------------------------------------------------------------------
+
+@OPS.shape_fn("flatten")
+def flatten_shape(attrs, in_shapes):
+    x = in_shapes[0]
+    axis = int(attrs.get("axis", 1))
+    lead = int(np.prod(x[:axis])) if axis else 1
+    return [(lead, int(np.prod(x[axis:])))]
+
+
+def _squeeze_shape(attrs, in_shapes):
+    x = list(in_shapes[0])
+    axes = attrs.get("axes", [])
+    if axes:
+        drop = [a % len(x) for a in axes]
+        keep = [d for i, d in enumerate(x) if i not in drop]
+    else:
+        keep = [d for d in x if d != 1]
+    return [tuple(keep)]
+
+
+def _unsqueeze_shape(attrs, in_shapes):
+    x = list(in_shapes[0])
+    for a in sorted(attrs["axes"]):
+        x.insert(a if a >= 0 else a + len(x) + 1, 1)
+    return [tuple(x)]
+
+
+for _name, _shape in (("flatten", flatten_shape), ("flatten2", flatten_shape),
+                      ("squeeze", _squeeze_shape), ("squeeze2", _squeeze_shape),
+                      ("unsqueeze", _unsqueeze_shape), ("unsqueeze2", _unsqueeze_shape)):
+    OPS.register(_name, infer_shape=_shape)
+    OPS.get(_name).impls["torch"] = reshape_torch  # a view; int8 keeps its scale
+
+
+# ---------------------------------------------------------------------------
+# stack (``manip.py:193-203`` there)
+# ---------------------------------------------------------------------------
+
+@OPS.shape_fn("stack")
+def stack_shape(attrs, in_shapes):
+    axis = int(attrs.get("axis", 0))
+    out = list(in_shapes[0])
+    out.insert(axis if axis >= 0 else axis + len(out) + 1, len(in_shapes))
+    return [tuple(out)]
+
+
+@OPS.kernel("stack", "torch")
+def stack_torch(ctx, op, ins):
+    return {"Y": [torch.stack(ins["X"], dim=int(op.attrs.get("axis", 0)))]}
+
+
+# ---------------------------------------------------------------------------
+# reductions and arg_max (``manip.py:346-396`` there)
+# ---------------------------------------------------------------------------
+
+def reduce_dims(attrs, rank: int):
+    """The reduced axes, non-negative: every axis when ``reduce_all`` is set
+    or ``dim`` is absent, else ``dim``."""
+    if attrs.get("reduce_all") or "dim" not in attrs:
+        return tuple(range(rank))
+    return tuple(sorted({int(d) % rank for d in attrs["dim"]}))
+
+
+def _reduce_shape(attrs, in_shapes):
+    x = list(in_shapes[0])
+    dims = reduce_dims(attrs, len(x))
+    if attrs.get("keep_dim"):
+        return [tuple(1 if i in dims else d for i, d in enumerate(x))]
+    out = tuple(d for i, d in enumerate(x) if i not in dims)
+    return [out if out else (1,)]
+
+
+_NARROW_INTS = (torch.int16, torch.int32, torch.uint8)
+
+
+def reduce_impl(fn):
+    """The impl of a reduction `fn(x, dims, keep_dim)`: int8 input
+    dequantized; a 0-d result as shape (1,), as the reference gives it."""
+    def impl(ctx, op, ins):
+        x = ins["X"][0]
+        if x.dtype == torch.int8:
+            x = dequantize(x, ctx.var_quant(op.input("X")).scale[0])
+        dims = reduce_dims(op.attrs, x.ndim)
+        # no axis reduces nothing, as jnp's axis=() (torch's dim=() is all)
+        y = fn(x, dims, bool(op.attrs.get("keep_dim"))) if dims else x
+        if y.dtype == torch.int64 != x.dtype and x.dtype in _NARROW_INTS:
+            y = y.to(x.dtype)  # torch sums ints in int64, jnp in their own type
+        return {"Out": [y.reshape(1) if y.ndim == 0 else y]}
+
+    return impl
+
+
+def _prod(x, dims, keep):
+    for d in sorted(dims, reverse=True):  # torch.prod takes one axis at a time
+        x = torch.prod(x, dim=d, keepdim=keep)
+    return x
+
+
+REDUCES = {
+    "reduce_mean": lambda x, dims, keep: torch.mean(x, dim=dims, keepdim=keep),
+    "reduce_sum": lambda x, dims, keep: torch.sum(x, dim=dims, keepdim=keep),
+    "reduce_max": lambda x, dims, keep: torch.amax(x, dim=dims, keepdim=keep),
+    "reduce_min": lambda x, dims, keep: torch.amin(x, dim=dims, keepdim=keep),
+    "reduce_prod": _prod,
+}
+
+for _name, _fn in REDUCES.items():
+    OPS.register(_name, infer_shape=_reduce_shape)
+    OPS.get(_name).impls["torch"] = reduce_impl(_fn)
+
+
+@OPS.shape_fn("arg_max")
+def argmax_shape(attrs, in_shapes):
+    x = list(in_shapes[0])
+    axis = int(attrs.get("axis", -1)) % len(x)
+    if attrs.get("keepdims"):
+        x[axis] = 1
+    else:
+        del x[axis]
+    return [tuple(x) if x else (1,)]
+
+
+@OPS.kernel("arg_max", "torch")
+def argmax_torch(ctx, op, ins):
+    """int64 index of the first greatest value along ``axis`` (NaN ranks
+    above every number, as in ``jnp.argmax``)."""
+    y = torch.argmax(ins["X"][0], dim=int(op.attrs.get("axis", -1)),
+                     keepdim=bool(op.attrs.get("keepdims")))
+    return {"Out": [y.reshape(ctx.var_shape(op.output("Out")))]}
+
+
+# ---------------------------------------------------------------------------
+# fill_constant and shape (``manip.py:444-463`` there): constants
+# ---------------------------------------------------------------------------
+
+@OPS.shape_fn("fill_constant")
+def fill_constant_shape(attrs, in_shapes):
+    return [tuple(attrs["shape"])]
+
+
+@OPS.kernel("fill_constant", "torch")
+def fill_constant_torch(ctx, op, ins):
+    """``value`` cast to ``dtype`` (a numpy dtype name) over ``shape``, as
+    ``jnp.full`` makes it; made once per op."""
+    return {"Out": [ctx.const(op, "value", lambda: ctx.tensor(np.full(
+        tuple(op.attrs["shape"]), op.attrs.get("value", 0.0),
+        dtype=np.dtype(op.attrs.get("dtype", "float32")))))]}
+
+
+@OPS.shape_fn("shape")
+def shape_shape(attrs, in_shapes):
+    return [(len(in_shapes[0]),)]
+
+
+@OPS.kernel("shape", "torch")
+def shape_torch(ctx, op, ins):
+    """The input's shape as int32; made once per op."""
+    shape = tuple(ins["Input"][0].shape)
+    return {"Out": [ctx.const(op, "shape", lambda: ctx.tensor(
+        np.asarray(shape, np.int32)))]}
+

@@ -1,11 +1,12 @@
 """Core NN ops of the main path under the ``torch`` tag: conv2d /
 depthwise_conv2d / fc / mul / matmul / batch_norm / pool2d / softmax /
-layer_norm.
+layer_norm / dropout / prelu.
 
 Port of ``paddle_lite_tpu/ops/nn.py`` (``conv2d_xla`` ``:94-170``,
 ``fc_xla`` ``:257``, ``mul_xla`` ``:284``, ``matmul_xla`` ``:304-349``,
 ``batch_norm_xla`` ``:361``, ``pool2d_xla`` ``:395``, ``softmax_xla``
-``:463``, ``layer_norm_xla`` ``:470-490``), the analog of the reference's
+``:463``, ``layer_norm_xla`` ``:470-490``, ``dropout_xla`` and
+``prelu_xla`` ``:493-520``), the analog of the reference's
 ``lite/kernels/arm/{conv,fc,matmul,pool,softmax,layer_norm}_compute.cc``.
 
 Tensors are NHWC / HWIO at every function boundary, as in the JAX package;
@@ -499,3 +500,45 @@ def layer_norm_torch(ctx, op, ins):
     if bias is not None:
         y = y + upcast(bias)
     return {"Y": [y]}
+
+
+# ---------------------------------------------------------------------------
+# dropout and prelu (``nn.py:493-520`` there)
+# ---------------------------------------------------------------------------
+
+@OPS.shape_fn("dropout")
+def dropout_shape(attrs, in_shapes):
+    return [in_shapes[0]]
+
+
+@OPS.kernel("dropout", "torch")
+def dropout_torch(ctx, op, ins):
+    """Inference: ``downgrade_in_infer`` multiplies by 1 - p (in float32),
+    ``upscale_in_train`` is the identity."""
+    x = ins["X"][0]
+    impl = op.attrs.get("dropout_implementation", "downgrade_in_infer")
+    if impl == "downgrade_in_infer":
+        keep = 1.0 - float(op.attrs.get("dropout_prob", 0.0))
+        return {"Out": [x * f32(keep, x.device)]}
+    return {"Out": [x]}
+
+
+@OPS.shape_fn("prelu")
+def prelu_shape(attrs, in_shapes):
+    return [in_shapes[0]]
+
+
+@OPS.kernel("prelu", "torch")
+def prelu_torch(ctx, op, ins):
+    """``x`` where ``x >= 0``, else ``alpha · x``; ``alpha`` one value
+    (``mode="all"``), one a channel (NHWC: the last axis) or one an element
+    past the batch axis."""
+    x, alpha = ins["X"][0], ins["Alpha"][0]
+    mode = op.attrs.get("mode", "channel")
+    if mode == "all":
+        a = alpha.reshape(())
+    elif mode == "channel":
+        a = alpha.reshape((1,) * (x.ndim - 1) + (-1,))
+    else:  # element
+        a = alpha.reshape(tuple(x.shape[1:]))
+    return {"Out": [torch.where(x >= 0, x, a * x)]}

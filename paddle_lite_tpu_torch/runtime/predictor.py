@@ -1,10 +1,13 @@
 """Predictor — the user-facing inference API.
 
 Port of ``paddle_lite_tpu/runtime/predictor.py`` (``PredictorConfig``,
-``Predictor`` with ``run`` / ``__call__`` / ``clone`` and its input
-validation, ``create_predictor``), the analog of the reference's
-``CxxPaddleApiImpl`` / ``CreatePaddlePredictor<CxxConfig>``.  ``save`` and
-``load_predictor`` wait for the formats port.
+``Predictor`` with ``run`` / ``__call__`` / ``clone`` / ``save`` and its
+input validation, ``create_predictor``, ``load_predictor``), the analog of
+the reference's ``CxxPaddleApiImpl`` / ``CreatePaddlePredictor<CxxConfig>``
+(the full path: optimize, then run) and of the ``opt`` tool's
+``SaveOptimizedModel`` → ``.nb`` → ``LightPredictor`` (the light path:
+:meth:`Predictor.save` writes the optimized graph and its packed weights,
+:func:`load_predictor` loads them and runs no pass and no calibration).
 
 The predictor runs on the card unless asked for the CPU
 (``device="cpu"``); with no card, the default raises.  It stages the graph's
@@ -102,6 +105,14 @@ class Predictor:
         c._weights = self._weights
         return c
 
+    # ---- save/load -------------------------------------------------------
+    def save(self, path: str) -> None:
+        """Write the optimized graph and its weights as an ``nbf`` artifact
+        (``formats/artifact.py``), which either package loads."""
+        from ..formats import artifact
+
+        artifact.save(self.graph, path)
+
 
 def create_predictor(
     graph: Graph,
@@ -121,3 +132,15 @@ def create_predictor(
 
         _optimize(graph, quant=quant, calib_batches=calib_batches, device=dev)
     return Predictor(graph, config, device=dev)
+
+
+def load_predictor(path: str, config: Optional[PredictorConfig] = None, *,
+                   device: DeviceLike = None) -> Predictor:
+    """Light-path constructor: load an artifact written by either package
+    and wrap it in a Predictor, running no pass and no calibration.  Its
+    ``"cuda"`` ops launch the kernels on the card; on an explicit CPU device
+    the graph runs as an optimized graph runs there (each kernel's plain
+    version)."""
+    from ..formats import artifact
+
+    return Predictor(artifact.load(path), config, device=device)

@@ -1,0 +1,165 @@
+"""CLI — the ``opt`` tool analog (``lite/api/model_optimize_tool.cc``).
+
+Port of ``paddle_lite_tpu/tools/cli.py`` (``:22-200``):
+
+    python -m paddle_lite_tpu_torch.tools.cli compile --model mobilenet_v1 \\
+        --batch 64 --image-size 224 --int8 --out model.pnb
+    python -m paddle_lite_tpu_torch.tools.cli compile --model <fluid dir> \\
+        --batch 64 --int8 --out model.pnb
+    python -m paddle_lite_tpu_torch.tools.cli info --artifact model.pnb
+    python -m paddle_lite_tpu_torch.tools.cli ops       # --print_all_ops analog
+    python -m paddle_lite_tpu_torch.tools.cli passes
+    python -m paddle_lite_tpu_torch.tools.cli profile --model mobilenet_v1
+
+``--model`` is a zoo name (a module of ``models/``) or a fluid model
+directory (``__model__`` + params).  ``compile`` and ``profile`` calibrate
+and run on ``--device`` (``cuda`` unless asked for ``cpu``); the artifact
+``compile`` writes loads in either package (``formats/artifact.py``) and
+runs through ``runtime.predictor.load_predictor``.  ``tune`` waits for the
+port's kernel tables (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import os
+import sys
+
+import numpy as np
+
+
+def _build_model(name: str, **kw):
+    if os.path.isdir(name):  # fluid model dir (__model__ [+ params])
+        from ..formats.fluid_convert import load_fluid_model
+
+        return load_fluid_model(name, batch=kw.get("batch", 1))
+    mod = importlib.import_module(f"paddle_lite_tpu_torch.models.{name}")
+    return mod.build(**kw)
+
+
+def _synthetic_feed(g, rng):
+    return {g.inputs[0]: rng.normal(size=tuple(g.vars[g.inputs[0]].shape))
+            .astype(np.float32)}
+
+
+def cmd_compile(args) -> None:
+    from .. import QuantConfig
+    from ..core.types import CalibMethod
+    from ..formats import artifact
+    from .opt import optimize
+
+    g = _build_model(args.model, batch=args.batch, image_size=args.image_size)
+    quant = None
+    calib = None
+    if args.weight_only:
+        quant = QuantConfig(weight_only=args.weight_only,
+                            island_dtype=args.island_dtype)
+    elif args.int8:
+        quant = QuantConfig(method=CalibMethod(args.calib_method),
+                            island_dtype=args.island_dtype)
+        rng = np.random.default_rng(0)
+        calib = [_synthetic_feed(g, rng) for _ in range(args.calib_batches)]
+        print(f"calibrating with {args.calib_batches} synthetic batches "
+              f"({args.calib_method}) on {args.device}; pass real data via the "
+              f"library API for deployment-grade scales", file=sys.stderr)
+    optimize(g, quant=quant, calib_batches=calib, device=args.device)
+    artifact.save(g, args.out)
+    n_int8 = sum(1 for op in g.ops if op.attrs.get("enable_int8"))
+    print(json.dumps({"out": args.out, "ops": len(g.ops), "int8_ops": n_int8}))
+
+
+def cmd_info(args) -> None:
+    from ..formats import artifact
+
+    g = artifact.load(args.artifact)
+    by_type: dict = {}
+    for op in g.ops:
+        by_type[op.op_type] = by_type.get(op.op_type, 0) + 1
+    print(json.dumps({
+        "name": g.name,
+        "inputs": {n: g.vars[n].shape for n in g.inputs},
+        "outputs": g.outputs,
+        "ops": len(g.ops),
+        "int8_ops": sum(1 for op in g.ops if op.attrs.get("enable_int8")),
+        "op_histogram": dict(sorted(by_type.items())),
+        "weight_bytes": int(sum(w.nbytes for w in g.weights.values())),
+    }, default=str))
+
+
+def cmd_ops(args) -> None:
+    from ..core.registry import OPS
+
+    for name in OPS.names():
+        impls = sorted(OPS.get(name).impls)
+        print(f"{name:<32} kernels: {', '.join(impls) or '-'}")
+
+
+def cmd_passes(args) -> None:
+    from ..core.pass_manager import registered_passes
+
+    for name in registered_passes():
+        print(name)
+
+
+def cmd_profile(args) -> None:
+    """Per-layer int8-vs-fp32 precision report."""
+    from .. import QuantConfig
+    from ..core.pass_manager import PassManager
+    from .opt import FUSION_PASSES, optimize
+    from .profile import print_precision_report
+
+    g_fp = _build_model(args.model, batch=args.batch, image_size=args.image_size)
+    g_q = _build_model(args.model, batch=args.batch, image_size=args.image_size)
+    PassManager(FUSION_PASSES).run(g_fp)
+    feed = _synthetic_feed(g_q, np.random.default_rng(0))
+    optimize(g_q, quant=QuantConfig(), calib_batches=[feed], device=args.device)
+    print_precision_report(g_fp, g_q, feed, top=args.top, device=args.device)
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(prog="paddle_lite_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    c = sub.add_parser("compile", help="optimize (+quantize) a model to an artifact")
+    c.add_argument("--model", required=True, help="zoo name or fluid model directory")
+    c.add_argument("--batch", type=int, default=1)
+    c.add_argument("--image-size", type=int, default=224)
+    c.add_argument("--int8", action="store_true")
+    c.add_argument("--weight-only", type=int, choices=[8, 16], default=None,
+                   help="calibration-free weight-only storage quantization "
+                        "(SaveModelNaive quantize-on-save analog)")
+    c.add_argument("--island-dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    c.add_argument("--calib-method", default="abs_max",
+                   choices=["abs_max", "moving_average_abs_max", "percentile", "entropy"])
+    c.add_argument("--calib-batches", type=int, default=4)
+    c.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    c.add_argument("--out", required=True)
+    c.set_defaults(fn=cmd_compile)
+
+    i = sub.add_parser("info", help="inspect an artifact")
+    i.add_argument("--artifact", required=True)
+    i.set_defaults(fn=cmd_info)
+
+    o = sub.add_parser("ops", help="list registered ops/kernels")
+    o.set_defaults(fn=cmd_ops)
+
+    ps = sub.add_parser("passes", help="list registered passes")
+    ps.set_defaults(fn=cmd_passes)
+
+    pr = sub.add_parser("profile", help="per-layer int8-vs-fp32 precision report")
+    pr.add_argument("--model", required=True)
+    pr.add_argument("--batch", type=int, default=1)
+    pr.add_argument("--image-size", type=int, default=224)
+    pr.add_argument("--top", type=int, default=20)
+    pr.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    pr.set_defaults(fn=cmd_profile)
+
+    args = p.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()
