@@ -235,7 +235,30 @@ Phases:
    and back; ``qat_lenet`` at cosine > 0.999 against its QAT fp32 graph;
    ``crnn_fluid`` (``gru``, ``squeeze2``) PTQ int8 agreeing with fp32 on
    more than 95 % of the per-step argmaxes (the reference's bars).
-14. The last lines: the card (nvidia-smi), the kernels' JSON line, then
+14. The rest of the op library (no kernel launch: plain PyTorch under
+   the ``"torch"`` tag).  (a) The arena: every registered op name (the
+   reference's 208) as a one-op graph through the eager executor on the
+   card and on the CPU, on the same seeded inputs at the case table's
+   card size (``testing/op_cases.cases(card=True)``): integer, boolean and
+   exact cases equal, float outputs within the case's tolerance; the
+   registry's names must equal the table's.  (b) Faster R-CNN R50-C4's RPN
+   stage at its published test settings (PaddleDetection
+   ``faster_rcnn_r50_1x``), b1: an 800x1333 image's 50x84x1,024 C4 map at
+   stride 16, ``anchor_generator`` (sizes 32-512 x ratios 0.5 / 1 / 2: 15
+   a cell, 63,000 anchors, variances 1), ``generate_proposals``
+   (pre-NMS 6,000, post-NMS 1,000, NMS 0.7, min size 0), ``roi_align``
+   14x14 at 1/16 over the 1,000 proposals (sampling ratio 0, taken as 2):
+   the anchors equal the CPU's, the proposals agree with the CPU's (>=
+   0.99 found at IoU 0.5), ``roi_align`` on the CPU's proposals within
+   rtol / atol 1e-5 of the CPU's on the first 64 RoIs (the CPU runs 64);
+   ms a call of each op.  (c) A beam-search decode loop under ``while``
+   (``models/beam_decode``: b32, beam 4, hidden 1,024, vocabulary 18,000,
+   32 steps) through ``Predictor``: 32 trips, the compiled predictor's
+   segments and block captured, its outputs bit-equal to the eager
+   ``build_callable``'s on the card and to ``load_predictor`` of its saved
+   artifact, the final scores within rtol 1e-4 of the CPU's (ids
+   agreement information); ms a trip, compiled and eager.
+15. The last lines: the card (nvidia-smi), the kernels' JSON line, then
    ``{"ok": true, "device": {...}}``.
 
 With ``--json PATH`` the per-shape numbers are also written to PATH.
@@ -766,19 +789,21 @@ def _host_ms(pred, feed, reps: int = 20) -> float:
 
 
 def _graph_launch_ms(pred, reps: int = 20) -> float:
-    """Host time of one ``cudaGraphLaunch`` of the predictor's captured
-    graph without the profiler: the host clock around its replay with the
-    card idle before it (median of `reps`); 0 for a predictor that has not
-    captured.  Under the profiler the same call also pays the profiler's
-    own work for each of the graph's kernels."""
-    graph = getattr(getattr(pred, "_fn", None), "_cuda_graph", None)
-    if graph is None:
-        return 0.0
+    """Host time of one request's ``cudaGraphLaunch`` calls, the replays
+    of every CUDA graph the predictor's compiled function captured,
+    without the profiler: the host clock around them with the card idle
+    before (median of `reps`).  Fails for a predictor that captured no
+    graph.  Under the profiler the same calls also pay the profiler's own
+    work for each of the graphs' kernels."""
+    graphs = [g for g in pred._fn._graphs if g is not None]
+    if not graphs:
+        fail("the compiled predictor captured no CUDA graph to time")
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        graph.replay()
+        for graph in graphs:
+            graph.replay()
         times.append(1e3 * (time.perf_counter() - t0))
     torch.cuda.synchronize()
     return statistics.median(times)
@@ -3356,6 +3381,230 @@ def phase_fluid() -> tuple:
     return out, launches
 
 
+# ---- phase 14 ---------------------------------------------------------------
+
+CPU = torch.device("cpu")
+# Faster R-CNN R50-C4's RPN at PaddleDetection faster_rcnn_r50_1x's test
+# settings: an 800x1333 image, the C4 map at stride 16
+RPN_IMAGE = (800, 1333)
+RPN_FEAT = (50, 84, 1024)
+RPN_ATTRS = {
+    "anchor_generator": {"anchor_sizes": [32.0, 64.0, 128.0, 256.0, 512.0],
+                         "aspect_ratios": [0.5, 1.0, 2.0], "stride": [16.0, 16.0],
+                         "variances": [1.0, 1.0, 1.0, 1.0], "offset": 0.5},
+    "generate_proposals": {"pre_nms_topN": 6000, "post_nms_topN": 1000,
+                           "nms_thresh": 0.7, "min_size": 0.0, "eta": 1.0},
+    "roi_align": {"pooled_height": 14, "pooled_width": 14, "spatial_scale": 1.0 / 16,
+                  "sampling_ratio": 0},
+}
+RPN_AGREEMENT = 0.99
+RPN_CPU_ROIS = 64
+ROI_TOL = 1e-5
+DECODE = dict(batch=32, beam=4, hidden=1024, vocab=18000, steps=32)
+DECODE_SCORE_RTOL = 1e-4
+
+
+def _arena() -> dict:
+    """14a: every registered op name on the card and on the CPU."""
+    from paddle_lite_tpu_torch.core.registry import OPS
+    from paddle_lite_tpu_torch.testing import arena, op_cases
+
+    cases = op_cases.cases(card=True)
+    if sorted(cases) != OPS.names():
+        fail(f"14a: the case table's names differ from the registry's: "
+             f"{sorted(set(cases) ^ set(OPS.names()))}")
+    failures = {}
+    t0 = time.perf_counter()
+    for name, case in sorted(cases.items()):
+        try:
+            got = arena.run_case(case, DEV)
+            torch.cuda.synchronize()
+            err = arena.compare(got, arena.run_case(case, CPU), case, card=True)
+        except Exception as e:  # noqa: BLE001  (reported, and the phase fails)
+            err = f"{type(e).__name__}: {e}"
+        if err:
+            failures[name] = err
+    out = {"names": len(cases), "failures": failures, "seconds": time.perf_counter() - t0}
+    print(f"  14a: {len(cases)} op names on the card and the CPU, {len(failures)} "
+          f"failures ({out['seconds']:.1f} s)" + "".join(
+              f"\n    {n}: {e}" for n, e in failures.items()))
+    return out
+
+
+def _rpn_op(op_type, inputs: dict, outs, device, weights=()):
+    """`op_type` with RPN_ATTRS as a one-op graph on `device`: a call runs
+    it and returns its outputs."""
+    from paddle_lite_tpu_torch.core.executor import build_callable, stage_weights
+    from paddle_lite_tpu_torch.testing import arena
+
+    case = arena.OpTestCase(op_type, inputs, RPN_ATTRS[op_type], outs=outs,
+                            weight_slots=weights)
+    g = arena.build_graph(case)
+    fn, w = build_callable(g, device=device), stage_weights(g, device)
+    feed = {k: torch.from_numpy(v).to(device) for k, v in case.feed().items()}
+    return lambda: [fn(w, feed)[n] for n in g.outputs]
+
+
+def _rpn() -> dict:
+    """14b: anchor_generator -> generate_proposals -> roi_align at full size."""
+    rng = np.random.default_rng(14)
+    fh, fw, c = RPN_FEAT
+    a = len(RPN_ATTRS["anchor_generator"]["anchor_sizes"]) * len(
+        RPN_ATTRS["anchor_generator"]["aspect_ratios"])
+    feat = rng.normal(0, 1, (1, fh, fw, c)).astype(np.float32)
+    scores = rng.uniform(0, 1, (1, fh, fw, a)).astype(np.float32)
+    deltas = (rng.normal(0, 1, (1, fh, fw, 4 * a)) * 0.2).astype(np.float32)
+    im_shape = np.array([RPN_IMAGE], np.float32)
+    two = (("Anchors", "FP32"), ("Variances", "FP32"))
+    out, ms = {}, {}
+
+    anc = {}
+    for where, dev in (("card", DEV), ("cpu", CPU)):
+        run = _rpn_op("anchor_generator", {"Input": [feat]}, two, dev)
+        anc[where] = [t.cpu().numpy() for t in run()]
+        if where == "card":
+            ms["anchor_generator"] = eager_ms(run)
+    anchors_equal = all(np.array_equal(x, y) for x, y in zip(anc["card"], anc["cpu"]))
+    anchors, variances = anc["cpu"]
+
+    gp_in = {"Scores": [scores], "BboxDeltas": [deltas], "ImShape": [im_shape],
+             "Anchors": [anchors], "Variances": [variances]}
+    props = {}
+    for where, dev in (("card", DEV), ("cpu", CPU)):
+        run = _rpn_op("generate_proposals", gp_in,
+                         (("RpnRois", "FP32"), ("RpnRoiProbs", "FP32")), dev,
+                         weights=("Anchors", "Variances"))
+        props[where] = [t.cpu() for t in run()]
+        if where == "card":
+            ms["generate_proposals"] = eager_ms(run, reps=10, warmup=2)
+
+    def rows(rois, probs):
+        """[label, score, box] rows, label -1 where the slot is empty or
+        the box has no area (clipped flat to the image's edge: IoU cannot
+        match it, so it is counted apart)."""
+        flat = (rois[..., 2] <= rois[..., 0]) | (rois[..., 3] <= rois[..., 1])
+        lab = torch.where((probs > 0) & ~flat, 0.0, -1.0)
+        return torch.cat([lab[..., None], probs[..., None], rois], dim=-1), int(
+            ((probs > 0) & flat).sum())
+
+    (det, det_flat), (ref, ref_flat) = rows(*props["card"]), rows(*props["cpu"])
+    agree = min(_det_agreement(det, ref), _det_agreement(ref, det))
+    kept = {k: int((v[1] > 0).sum()) for k, v in props.items()}
+    flat = {"card": det_flat, "cpu": ref_flat}
+
+    cpu_rois = props["cpu"][0][0].numpy()  # (1000, 4), the CPU's proposals
+    run = _rpn_op("roi_align", {"X": [feat], "ROIs": [cpu_rois]}, (("Out", "FP32"),), DEV)
+    pooled = run()[0]
+    torch.cuda.synchronize()
+    ms["roi_align"] = eager_ms(run, reps=10, warmup=2)
+    run_cpu = _rpn_op("roi_align", {"X": [feat], "ROIs": [cpu_rois[:RPN_CPU_ROIS]]},
+                      (("Out", "FP32"),), CPU)
+    pooled_cpu = run_cpu()[0]
+    head = pooled[:RPN_CPU_ROIS].cpu()
+    roi_ok = torch.allclose(head, pooled_cpu, rtol=ROI_TOL, atol=ROI_TOL)
+    roi_err = float((head - pooled_cpu).abs().max())
+    out.update(anchors=int(anchors.reshape(-1, 4).shape[0]), anchors_equal=anchors_equal,
+               proposals_kept=kept, proposals_flat=flat, proposal_agreement=agree, roi_align_shape=list(pooled.shape),
+               roi_align_mb=pooled.numel() * 4 / 1e6, roi_align_max_abs_err=roi_err,
+               roi_align_cpu_rois=RPN_CPU_ROIS, ms=ms)
+    print(f"  14b: RPN at {RPN_IMAGE[0]}x{RPN_IMAGE[1]} ({fh}x{fw}x{c} C4 map): "
+          f"{out['anchors']} anchors, equal to the CPU's: {anchors_equal}; proposals kept "
+          f"{kept} ({flat} of no area), agreement with the CPU's {agree:.4f} (>= "
+          f"{RPN_AGREEMENT}, at IoU 0.5, those with an area); roi_align "
+          f"{tuple(pooled.shape)} ({out['roi_align_mb']:.0f} MB), max abs diff "
+          f"{roi_err:.3g} on the CPU's first {RPN_CPU_ROIS} RoIs (rtol / atol {ROI_TOL}); "
+          f"ms a call: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    if not anchors_equal or agree < RPN_AGREEMENT or not roi_ok or det_flat != ref_flat:
+        fail(f"14b: anchors equal {anchors_equal}, proposal agreement {agree}, boxes of no "
+             f"area {flat}, roi_align max abs diff {roi_err}")
+    del pooled, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def _decode() -> dict:
+    """14c: the beam-search decode loop under while, through Predictor."""
+    import tempfile
+
+    from paddle_lite_tpu_torch.core.executor import build_callable, stage_weights
+    from paddle_lite_tpu_torch.models import beam_decode
+    from paddle_lite_tpu_torch.runtime.predictor import Predictor, load_predictor
+
+    g = beam_decode.build(**DECODE)
+    feed = beam_decode.feed(**{k: DECODE[k] for k in ("batch", "beam", "hidden")})
+    on_dev = {k: torch.from_numpy(v).to(DEV) for k, v in feed.items()}
+    ids, scores, steps = g.outputs
+    pred = Predictor(g, device=DEV)
+    got = pred.run(feed)
+    (loop,) = pred._fn.control_flow
+    trips = loop.trips
+    captured = {"graphs": pred._fn.n_graphs, "block_graphs": loop.body.n_graphs,
+                "segments": sum(1 for st in pred._fn._steps if not isinstance(st, tuple))}
+    eager_fn = build_callable(g, device=DEV)
+    w_dev = stage_weights(g, DEV)
+    eager = eager_fn(w_dev, on_dev)
+    same_eager = all(torch.equal(got[n], eager[n]) for n in g.outputs)
+    again = pred.run(on_dev)
+    same_again = all(torch.equal(got[n], again[n]) for n in g.outputs)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_decode_") as tmp:
+        path = os.path.join(tmp, "decode.pnb")
+        pred.save(path)
+        loaded = load_predictor(path, device=DEV)
+        from_disk = loaded.run(feed)
+        same_loaded = all(torch.equal(got[n], from_disk[n]) for n in g.outputs)
+        mb = os.path.getsize(path) / 1e6
+    cpu = build_callable(g, device=CPU)(stage_weights(g, CPU), feed)
+    score_ok = torch.allclose(got[scores].cpu(), cpu[scores], rtol=DECODE_SCORE_RTOL, atol=0)
+    score_err = float(((got[scores].cpu() - cpu[scores]).abs()
+                       / cpu[scores].abs().clamp_min(1e-30)).max())
+    ids_agree = float((got[ids].cpu() == cpu[ids]).double().mean())
+
+    def per_trip(call, reps=5):
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps / DECODE["steps"]
+
+    ms_compiled = per_trip(lambda: pred.run(on_dev))
+    ms_eager = per_trip(lambda: eager_fn(w_dev, on_dev))
+    out = {"trips": trips, "steps_out": float(got[steps]), "captured": captured,
+           "equal_to_eager": same_eager, "equal_on_second_call": same_again,
+           "equal_after_load": same_loaded, "artifact_mb": mb,
+           "score_max_rel_err": score_err, "ids_agreement": ids_agree,
+           "ms_a_trip": {"compiled": ms_compiled, "eager": ms_eager}}
+    print(f"  14c: decode b{DECODE['batch']} beam {DECODE['beam']} hidden {DECODE['hidden']} "
+          f"vocab {DECODE['vocab']}: {trips} trips (step out {out['steps_out']:g}); captured "
+          f"{captured}; compiled == eager on the card: {same_eager}, second call: {same_again}, "
+          f"loaded artifact ({mb:.1f} MB): {same_loaded}; scores vs the CPU max rel diff "
+          f"{score_err:.3g} (rtol {DECODE_SCORE_RTOL}), ids agreement {ids_agree:.4f}; "
+          f"ms a trip: compiled {ms_compiled:.4f}, eager {ms_eager:.4f} (host clock, "
+          f"5 requests)")
+    if (trips != DECODE["steps"] or out["steps_out"] != DECODE["steps"]
+            or not pred._fn.captured or captured["block_graphs"] < 1
+            or not (same_eager and same_again and same_loaded and score_ok)):
+        fail(f"14c: {out}")
+    del pred, loaded, eager_fn, w_dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_op_library() -> dict:
+    """Phase 14: the rest of the op library, the RPN stage, the decode loop."""
+    t0 = time.perf_counter()
+    print("phase 14: the op library on the card (no kernel launch)")
+    out = {"arena": _arena()}
+    if out["arena"]["failures"]:
+        fail(f"14a: {len(out['arena']['failures'])} op names fail on the card")
+    out["rpn"] = _rpn()
+    out["decode"] = _decode()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 14: {out['seconds']:.1f} s")
+    return out
+
+
 # ---- the kernels' line -----------------------------------------------------
 
 KERNELS = [  # name, source, TPU kernel it replaces, rows it covers
@@ -3491,6 +3740,10 @@ def main() -> None:
     ern_rows, ern_launches, ern, compiled["ernie"] = phase_ernie(fma_per_s)
     quant, quant_launches = phase_quant()
     fluid, fluid_launches = phase_fluid()
+    _reset_counts()
+    op_library = phase_op_library()
+    if any(_counts().values()):
+        fail(f"phase 14 launched a kernel: {_counts()}")
     all_rows = (rows + ssd_rows + fused_rows + v3_rows + r50_rows + db_rows + rec_rows
                 + ern_rows)
     kernels = _kernel_line(all_rows, {"mobilenet_v1": launches, "ssd": ssd_launches,
@@ -3546,6 +3799,7 @@ def main() -> None:
                        "ssd": ssd, "mobilenet_v1_fused": fused,
                        "mobilenet_v3": v3, "resnet50": r50, "dbnet": db, "crnn": rec,
                        "ernie": ern, "quant": quant, "fluid": fluid,
+                       "op_library": op_library,
                        "compiled": compiled,
                        "serving": serving,
                        "benchmark": bench, "kernels": kernels}, f, indent=1)

@@ -10,7 +10,9 @@ topological order, with the same name-keyed ``env`` and the same
 output, ``executor.py:97-117`` there).  ``compile_graph`` is the port's
 ``jax.jit``: on the card it captures that loop once, on the first call, as
 a ``torch.cuda.CUDAGraph`` over static input and output buffers, and every
-later call replays it (:class:`CompiledGraph`).
+later call replays it (:class:`CompiledGraph`); a graph with ``while`` /
+``conditional_block`` ops is captured as one CUDA graph a segment between
+them, the control flow run on the host, each block compiled the same way.
 
 bf16 islands (``graph.meta["island_dtype"] == "bfloat16"``, the
 reference's rule at ``executor.py:86-136``): every float32 graph input and
@@ -104,42 +106,70 @@ def build_callable(
     return _runner(graph, ExecutionContext(graph=graph, device=device), capture)
 
 
+def _op_runner(graph: Graph, ops: List[OpNode], ctx: ExecutionContext,
+               capture: Optional[Callable[[str, torch.Tensor], None]] = None):
+    """``run(env)``: `ops` in order over the name-keyed `env`, each output
+    written into it (rounded to the island dtype).  Impls are resolved
+    here, so an unknown tag raises now."""
+    impls = [OPS.get(op.op_type).impl_for(op.attrs.get("kernel")) for op in ops]
+    island = island_dtype(graph)
+
+    def run(env: Dict[str, Any]) -> None:
+        for op, impl in zip(run.ops, impls):
+            outs = impl(ctx, op, _resolve_inputs(op, env))
+            for slot, arrs in outs.items():
+                for n, a in zip(op.outputs.get(slot, []), arrs):
+                    env[n] = _to_island(a, island)
+                    if capture is not None:
+                        capture(n, env[n])
+
+    run.ops = ops
+    return run
+
+
+def _to_island(a, island: Optional[torch.dtype]):
+    if island is not None and a.dtype == torch.float32:
+        return a.to(island)
+    return a
+
+
+def _load_env(graph: Graph, weights: Dict[str, Any], inputs: Dict[str, Any],
+              device: torch.device, capture=None) -> Dict[str, Any]:
+    """The env a run starts from: the weights and the graph inputs, moved
+    to `device`, cast to the input var's precision and rounded to the
+    island dtype."""
+    island = island_dtype(graph)
+    env: Dict[str, Any] = dict(weights)
+    for name in graph.inputs:
+        x = to_tensor(inputs[name], device)
+        want = graph.vars[name].precision.torch_dtype
+        env[name] = _to_island(x if x.dtype == want else x.to(want), island)
+        if capture is not None:
+            capture(name, env[name])
+    return env
+
+
+def _public_outputs(graph: Graph, env: Dict[str, Any]) -> Dict[str, Any]:
+    """The graph's outputs; under islands float32, the public contract."""
+    island = island_dtype(graph)
+    out = {n: env[n] for n in graph.outputs}
+    if island is not None:
+        out = {n: v.to(torch.float32) if v.dtype == island else v
+               for n, v in out.items()}
+    return out
+
+
 def _runner(graph: Graph, ctx: ExecutionContext,
             capture: Optional[Callable[[str, torch.Tensor], None]] = None):
     """The eager loop of `graph` over `ctx` (its device and per-op
-    constants); impls are resolved here, so an unknown tag raises now."""
-    order = graph.topological_order()
-    impls = [OPS.get(op.op_type).impl_for(op.attrs.get("kernel"))
-             for op in order]
-    device = ctx.device
-    island = island_dtype(graph)
-
-    def to_island(a):
-        if island is not None and a.dtype == torch.float32:
-            return a.to(island)
-        return a
+    constants)."""
+    ops = _op_runner(graph, graph.topological_order(), ctx, capture)
 
     def run(weights: Dict[str, Any], inputs: Dict[str, Any]) -> Dict[str, Any]:
-        env: Dict[str, Any] = dict(weights)
         with fp32_exact():
-            for name in graph.inputs:
-                x = to_tensor(inputs[name], device)
-                want = graph.vars[name].precision.torch_dtype
-                env[name] = to_island(x if x.dtype == want else x.to(want))
-                if capture is not None:
-                    capture(name, env[name])
-            for op, impl in zip(order, impls):
-                outs = impl(ctx, op, _resolve_inputs(op, env))
-                for slot, arrs in outs.items():
-                    for n, a in zip(op.outputs.get(slot, []), arrs):
-                        env[n] = to_island(a)
-                        if capture is not None:
-                            capture(n, env[n])
-            out = {n: env[n] for n in graph.outputs}
-            if island is not None:  # the public contract stays float32
-                out = {n: v.to(torch.float32) if v.dtype == island else v
-                       for n, v in out.items()}
-        return out
+            env = _load_env(graph, weights, inputs, ctx.device, capture)
+            ops(env)
+            return _public_outputs(graph, env)
 
     return run
 
@@ -158,32 +188,160 @@ def stage_weights(graph: Graph, device: torch.device) -> Dict[str, torch.Tensor]
 
 # one capture at a time in the process: a capture must not see another
 # thread's capture begin or end, and the warm-up that precedes it fills
-# per-op constants that clones share
-_CAPTURE_LOCK = threading.Lock()
+# per-op constants that clones share.  Reentrant: capturing a graph with
+# control flow compiles each block (warm-up and capture) between the
+# outer segments' captures, on the same thread
+_CAPTURE_LOCK = threading.RLock()
 
 
-def host_syncing_ops(graph: Graph) -> List[str]:
-    """"op_type (tag)" of every op of `graph` whose impl waits for the card
-    on the host (registered with ``syncs_host=True``)."""
-    return [f"{op.op_type} (kernel {op.attrs.get('kernel') or 'torch'!r}, "
-            f"output {next(iter(op.outputs.values()))[0]})"
-            for op in graph.topological_order()
-            if OPS.get(op.op_type).syncs_host(op.attrs.get("kernel"))]
+# ops the compiled path runs on the host between captured segments: each
+# reads a condition back, and its block is compiled into graphs of its own
+CONTROL_FLOW = ("while", "conditional_block")
+
+
+def nested_graphs(op: OpNode) -> List[Graph]:
+    """The graphs an op carries in its attrs (control-flow blocks, a
+    subgraph's region)."""
+    return [v for v in op.attrs.values() if isinstance(v, Graph)]
+
+
+def host_syncing_ops(graph: Graph, cut: bool = True) -> List[str]:
+    """"op_type (tag)" of every op of `graph`, or of a graph nested in it,
+    whose impl waits for the card on the host (registered with
+    ``syncs_host=True``), less the control-flow ops (:data:`CONTROL_FLOW`)
+    of a graph that the compiled path cuts into segments (`cut`): the top
+    level and the control-flow blocks.  A ``subgraph``'s region stays
+    inline in its segment's capture, so control flow there counts."""
+    found = []
+    for op in graph.topological_order():
+        flow = cut and op.op_type in CONTROL_FLOW
+        if not flow and OPS.get(op.op_type).syncs_host(op.attrs.get("kernel")):
+            found.append(f"{op.op_type} (kernel {op.attrs.get('kernel') or 'torch'!r}, "
+                         f"output {next(iter(op.outputs.values()))[0]})")
+        for g in nested_graphs(op):
+            found += host_syncing_ops(g, cut=flow)
+    return found
+
+
+def _plan(graph: Graph) -> list:
+    """The topological order cut at the control-flow ops: lists of ops (a
+    segment, one CUDA graph each) and control-flow ops, in order; the
+    first step is a segment, maybe empty."""
+    steps: list = [[]]
+    for op in graph.topological_order():
+        if op.op_type in CONTROL_FLOW:
+            steps.append(op)
+        elif steps and isinstance(steps[-1], list):
+            steps[-1].append(op)
+        else:
+            steps.append([op])
+    return steps
+
+
+def _shares_storage(t: torch.Tensor, others) -> bool:
+    p = t.untyped_storage().data_ptr()
+    return any(o.untyped_storage().data_ptr() == p for o in others)
+
+
+class _While:
+    """A ``while`` op in the compiled path: its block compiled once
+    (:class:`CompiledGraph`, its own graphs), its static input buffers the
+    loop state.  A call copies the state in, then replays the block once a
+    trip and copies its outputs back into the state, while the condition,
+    read on the host, holds and fewer than ``max_iters`` trips ran (the
+    reference's contract, ``ops/control_flow.while``).  A state var that
+    the block passes through under its own name (a carried weight) is its
+    input buffer itself, neither copied out nor back.  The final state
+    buffers are the op's outputs."""
+
+    def __init__(self, op: OpNode, device: torch.device):
+        block = op.attrs["block"]
+        if len(block.outputs) != len(block.inputs):
+            raise ValueError("while block must output one var per state input")
+        self.names = list(block.inputs)
+        self.outs = list(block.outputs)
+        self.body = CompiledGraph(block, device, stage_weights(block, device),
+                                  carried={n for n, o in zip(self.names, self.outs)
+                                           if n == o})
+        self.cond = self.names[int(op.attrs.get("cond_index", 0))]
+        self.max_iters = int(op.attrs.get("max_iters", 1000))
+        self.trips = 0  # of the last call
+
+    def __call__(self, ins: Dict[str, List[Any]]) -> Dict[str, List[Any]]:
+        state = self.body._inputs
+        for n, x in zip(self.names, ins["X"]):
+            state[n].copy_(x)
+        trips = 0
+        while trips < self.max_iters and bool(state[self.cond].reshape(-1)[0]):
+            out = self.body.run_static()
+            for n, o in zip(self.names, self.outs):
+                if out[o] is not state[n]:
+                    state[n].copy_(out[o])
+            trips += 1
+        self.trips = trips
+        return {"Out": [state[n] for n in self.names]}
+
+    @property
+    def n_graphs(self) -> int:
+        return self.body.n_graphs
+
+
+class _ConditionalBlock:
+    """A ``conditional_block`` op in the compiled path: its block compiled
+    once; a call reads ``Cond`` on the host and either runs the block on
+    the inputs or passes them through, into static output buffers."""
+
+    def __init__(self, op: OpNode, device: torch.device):
+        block = op.attrs["block"]
+        self.body = CompiledGraph(block, device, stage_weights(block, device))
+        self.names = list(block.inputs)
+        self.outs = list(block.outputs)
+        self.buffers: Optional[List[torch.Tensor]] = None
+
+    def __call__(self, ins: Dict[str, List[Any]]) -> Dict[str, List[Any]]:
+        xs = ins["Input"]
+        if self.buffers is None:
+            self.buffers = [torch.empty_like(x) for x in xs]
+        if bool(ins["Cond"][0].reshape(-1)[0]):
+            for n, x in zip(self.names, xs):
+                self.body._inputs[n].copy_(x)
+            out = self.body.run_static()
+            for buf, o in zip(self.buffers, self.outs):
+                buf.copy_(out[o])
+        else:
+            for buf, x in zip(self.buffers, xs):
+                buf.copy_(x)
+        return {"Out": list(self.buffers)}
+
+    @property
+    def n_graphs(self) -> int:
+        return self.body.n_graphs
+
+
+_CONTROL_EXEC = {"while": _While, "conditional_block": _ConditionalBlock}
 
 
 class CompiledGraph:
     """``fn(weights, inputs) -> outputs`` over static buffers: the
     ``jax.jit``-compiled function of the reference.
 
-    On ``"cuda"`` the first call copies the inputs into the static input
-    buffers, runs the eager loop once on them (the warm-up: it fills the
-    per-op constants, folded scales and repacked weights, and loads and
-    sets up the kernel libraries, none of which may happen inside a
-    capture), then captures the loop as one ``torch.cuda.CUDAGraph`` with
-    TF32 off; every call replays it.  A capture that fails raises; nothing
-    falls back to the eager loop.  On ``"cpu"`` there is no CUDA graph: the
-    same eager loop runs on the same static buffers, so the contract is the
-    same on both devices:
+    The graph is cut at its control-flow ops (``while``,
+    ``conditional_block``) into segments.  On ``"cuda"`` the first call
+    copies the inputs into the static input buffers, runs the segments
+    eagerly once on them (the warm-up: it fills the per-op constants, folded
+    scales and repacked weights, and loads and sets up the kernel libraries,
+    none of which may happen inside a capture), then captures each segment as a
+    ``torch.cuda.CUDAGraph`` with TF32 off; every call replays them.  A
+    control-flow op runs on the host between two segments: its block is
+    compiled by this class into graphs of its own, once, and replayed once
+    a trip on static state buffers; the condition is read on the host
+    (:class:`_While`, :class:`_ConditionalBlock`).  A graph without control
+    flow is one segment, one CUDA graph.  ``subgraph`` stays inline in its
+    segment.  A capture that fails raises; nothing falls back to the eager
+    loop.  :attr:`n_graphs` counts the CUDA graphs captured, nested ones
+    included.  On ``"cpu"`` there is no CUDA graph: the segments run
+    eagerly, and the control-flow ops through their compiled blocks, on
+    the same static buffers, so the contract is the same on both devices:
 
     - inputs are cast to the input var's precision; an input of another
       shape raises;
@@ -193,12 +351,15 @@ class CompiledGraph:
       graph holds their pointers); any other dict raises.
 
     Calls on one instance are serialised; :meth:`clone` gives a function
-    with its own buffers and graph that shares the weights and constants.
+    with its own buffers and graphs that shares the weights and constants.
+    `carried` names inputs that the graph outputs unchanged under the same
+    name (a ``while`` block's carried state): such an output is the static
+    input buffer itself, not a copy of it.
     """
 
     def __init__(self, graph: Graph, device: torch.device,
                  weights: Dict[str, torch.Tensor],
-                 ctx: Optional[ExecutionContext] = None):
+                 ctx: Optional[ExecutionContext] = None, carried=frozenset()):
         syncing = host_syncing_ops(graph)
         if syncing:
             raise ValueError(
@@ -209,26 +370,45 @@ class CompiledGraph:
         self.device = device
         self.weights = weights
         self.ctx = ctx or ExecutionContext(graph=graph, device=device)
-        self._run = _runner(graph, self.ctx)
+        self.carried = frozenset(carried)
+        self._steps = [_op_runner(graph, s, self.ctx) if isinstance(s, list)
+                       else (s, _CONTROL_EXEC[s.op_type](s, device))
+                       for s in _plan(graph)]
         self._inputs = {
             n: torch.empty(graph.vars[n].shape,
                            dtype=graph.vars[n].precision.torch_dtype, device=device)
             for n in graph.inputs}
         self._outputs: Optional[Dict[str, torch.Tensor]] = None
-        self._cuda_graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graphs: List[Optional[torch.cuda.CUDAGraph]] = []
+        self._env: Dict[str, Any] = {}
         self._stager = InputStager() if device.type == "cuda" else None
         self._ptrs = {k: v.data_ptr() for k, v in weights.items()}
         self._lock = threading.RLock()
 
     @property
     def captured(self) -> bool:
-        return self._cuda_graph is not None
+        return bool(self._graphs)
+
+    @property
+    def n_graphs(self) -> int:
+        """CUDA graphs captured: one a segment, and those of the blocks of
+        the control-flow ops."""
+        return (sum(g is not None for g in self._graphs)
+                + sum(ex.n_graphs for s, ex in
+                      (st for st in self._steps if isinstance(st, tuple))))
+
+    @property
+    def control_flow(self) -> List[Any]:
+        """The control-flow executors, in order (a ``_While`` reports its
+        last call's ``trips``)."""
+        return [st[1] for st in self._steps if isinstance(st, tuple)]
 
     def clone(self) -> "CompiledGraph":
-        """The same function with its own static buffers and its own graph
+        """The same function with its own static buffers and its own graphs
         (captured on its first call), sharing the weights and the per-op
         constants."""
-        return CompiledGraph(self.graph, self.device, self.weights, self.ctx)
+        return CompiledGraph(self.graph, self.device, self.weights, self.ctx,
+                             self.carried)
 
     def _check_weights(self, weights: Dict[str, Any]) -> None:
         if weights is self.weights:
@@ -259,36 +439,110 @@ class CompiledGraph:
                 self._stager.copy(name, value, dst)
 
     def warm_up(self, weights: Dict[str, Any], inputs: Dict[str, Any]) -> None:
-        """Load `inputs` and run the eager loop once on the static buffers
-        (the first call does this before it captures)."""
+        """Load `inputs` and run the segments eagerly once on the static
+        buffers (the first call does this before it captures)."""
         self._check_weights(weights)
         with self._lock, _CAPTURE_LOCK:
             self._load(inputs)
-            self._run(self.weights, self._inputs)
+            self._eager()
+
+    def _start_env(self) -> Dict[str, Any]:
+        return _load_env(self.graph, self.weights, self._inputs, self.device)
+
+    def _finish(self, env: Dict[str, Any]) -> Dict[str, Any]:
+        """The outputs over `env`; one that shares storage with a static
+        input buffer or a weight is copied, so a block's outputs never
+        alias its state, unless it is the buffer of its own name and that
+        name is carried."""
+        own = list(self._inputs.values()) + list(self.weights.values())
+        return {n: (v.clone() if _shares_storage(v, own) and not (
+                    n in self.carried and v is self._inputs[n]) else v)
+                for n, v in _public_outputs(self.graph, env).items()}
 
     def capture(self) -> None:
-        """Capture the eager loop over the static buffers as a CUDA graph
-        (after :meth:`warm_up`; the first call does both)."""
+        """Capture each segment over the static buffers as a CUDA graph
+        (after :meth:`warm_up`; the first call does both); the first one
+        also holds the inputs' island rounding.  Where control flow follows
+        a segment, the segment is replayed and the control flow run once,
+        so that every later capture reads real values."""
         with self._lock, _CAPTURE_LOCK, fp32_exact():
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                outputs = self._run(self.weights, self._inputs)
-            self._outputs, self._cuda_graph = outputs, graph
+            island = island_dtype(self.graph)
+            env: Dict[str, Any] = {}
+            graphs: List[Optional[torch.cuda.CUDAGraph]] = []
+            outputs = None
+            for i, step in enumerate(self._steps):
+                last = i == len(self._steps) - 1
+                if isinstance(step, tuple):  # never the first step (_plan)
+                    self._control(*step, env)
+                    graphs.append(None)
+                    continue
+                if i == 0 and not step.ops and island is None:
+                    env.update(self._start_env())  # nothing to capture
+                    graphs.append(None)
+                    continue
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    if i == 0:
+                        env.update(self._start_env())
+                    step(env)
+                    if last:
+                        outputs = self._finish(env)
+                if not last:
+                    graph.replay()
+                graphs.append(graph)
+            if outputs is None:
+                outputs = self._finish(env)
+            self._env, self._outputs, self._graphs = env, outputs, graphs
+
+    def _control(self, op: OpNode, ex, env: Dict[str, Any]) -> None:
+        outs = ex(_resolve_inputs(op, env))
+        for slot, arrs in outs.items():
+            for n, a in zip(op.outputs.get(slot, []), arrs):
+                env[n] = a
+
+    def _eager(self) -> Dict[str, torch.Tensor]:
+        """One run over the static buffers, the segments eager, the control
+        flow between them: the warm-up on the card, every run on the CPU."""
+        with fp32_exact():
+            env = self._start_env()
+            for step in self._steps:
+                if isinstance(step, tuple):
+                    self._control(*step, env)
+                else:
+                    step(env)
+            return self._finish(env)
+
+    def _execute(self) -> Dict[str, torch.Tensor]:
+        """One run over the static buffers: the captured graphs replayed
+        (on the CPU the segments run eagerly), the control flow run
+        between them.  Returns the output tensors themselves."""
+        if not self._graphs:
+            return self._eager()
+        with fp32_exact():
+            for step, graph in zip(self._steps, self._graphs):
+                if graph is not None:
+                    graph.replay()
+                elif isinstance(step, tuple):
+                    self._control(*step, self._env)
+            return self._outputs
+
+    def run_static(self) -> Dict[str, torch.Tensor]:
+        """Run on what the static input buffers hold (a control-flow block's
+        state); the first call on the card warms up and captures.  Returns
+        the output tensors themselves, overwritten by the next call."""
+        with self._lock:
+            if self.device.type == "cuda" and not self._graphs:
+                with _CAPTURE_LOCK:
+                    self._eager()  # the warm-up
+                self.capture()
+            return self._execute()
 
     def __call__(self, weights: Dict[str, Any],
                  inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         self._check_weights(weights)
         with self._lock:
-            if self.device.type == "cuda" and self._cuda_graph is None:
-                self.warm_up(weights, inputs)
-                self.capture()
             self._load(inputs)
-            if self._cuda_graph is None:  # the CPU: the eager loop
-                outputs = self._run(self.weights, self._inputs)
-            else:
-                self._cuda_graph.replay()
-                outputs = self._outputs
-            return {n: v.clone() for n, v in outputs.items()}
+            return {n: v.clone() for n, v in self.run_static().items()}
 
 
 def compile_graph(graph: Graph, *, device: torch.device
@@ -297,6 +551,8 @@ def compile_graph(graph: Graph, *, device: torch.device
     reference returns ``(jax.jit(fn), weights)``; call ``fn(weights,
     inputs)``.  The ``GenRuntimeProgram`` + first-``Run`` analog.  Raises
     ``ValueError`` for a graph holding an impl that synchronises with the
-    host (the ``"torch"`` NMS), naming the op."""
+    host (the ``"torch"`` NMS), naming the op; ``while`` and
+    ``conditional_block`` are run on the host between captured segments
+    (:class:`CompiledGraph`)."""
     weights = stage_weights(graph, device)
     return CompiledGraph(graph, device, weights), weights

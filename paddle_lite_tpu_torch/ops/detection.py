@@ -20,8 +20,18 @@ counts one (a fault there when there are several ratios).  Top-k selections foll
 exactly (:func:`topk_stable`): descending in IEEE total order, so +0.0
 ranks above −0.0, and equal values by lower index.
 
-Not ported yet: ``anchor_generator``, ``roi_align``, ``generate_proposals``
-(``ROADMAP.md`` queue 1).
+Faster R-CNN's RPN ops (``detection.py:523-684`` there):
+``anchor_generator`` (shape-only, made once per op in numpy float32 as
+``prior_box`` is), ``generate_proposals`` (top ``pre_nms_topN`` by
+objectness, box decode and clip, the ``min_size`` filter, then greedy NMS
+through :func:`nms_single_class` over the top ``post_nms_topN`` of those,
+as the reference's ``_nms_single_class`` takes them) and ``roi_align``.
+``generate_proposals`` reads the NMS fixed point back every round, so it
+is marked ``syncs_host``.  ``roi_align`` processes the RoIs in chunks, so
+that 1,000 RoIs × 1,024 channels never gather several GB at once.  One
+departure, a fault there: the reference's ``roi_align`` pools every RoI
+from image 0 whatever N is and ignores ``RoisBatchIndex``; the port raises
+for N > 1.
 """
 
 from __future__ import annotations
@@ -403,3 +413,154 @@ def multiclass_nms_torch(ctx, op, ins):
     out = nms_merge(kept.reshape(n, c, k), cand, background=a["background"],
                     keep_top_k=a["keep_top_k"])
     return {"Out": [out]}
+
+
+# ---------------------------------------------------------------------------
+# anchor_generator / roi_align / generate_proposals (Faster R-CNN's RPN)
+# ---------------------------------------------------------------------------
+
+@OPS.shape_fn("anchor_generator")
+def anchor_generator_shape(attrs, in_shapes):
+    h, w = in_shapes[0][1], in_shapes[0][2]
+    n = len(attrs["anchor_sizes"]) * len(attrs["aspect_ratios"])
+    return [(h, w, n, 4), (h, w, n, 4)]
+
+
+def anchors(attrs, fh: int, fw: int):
+    """(fh, fw, n, 4) anchors and variances, numpy float32: for each ratio
+    r and size s, w = sqrt(s² / r), h = w·r (in double, then float32),
+    centred at ``(i + offset) · stride``."""
+    f = np.float32
+    whs = []
+    for r in (float(v) for v in attrs["aspect_ratios"]):
+        for s in (float(v) for v in attrs["anchor_sizes"]):
+            w_ = math.sqrt(s * s / r)
+            whs.append((w_, w_ * r))
+    stride = attrs.get("stride", [16.0, 16.0])
+    offset = f(attrs.get("offset", 0.5))
+    cx = (np.arange(fw, dtype=f) + offset) * f(stride[0])
+    cy = (np.arange(fh, dtype=f) + offset) * f(stride[1])
+    cxg, cyg = np.meshgrid(cx, cy)
+    wh = np.asarray(whs, f)
+    bw, bh = wh[None, None, :, 0] / f(2), wh[None, None, :, 1] / f(2)
+    cxg, cyg = cxg[:, :, None], cyg[:, :, None]
+    out = np.stack([cxg - bw, cyg - bh, cxg + bw, cyg + bh], axis=-1).astype(f)
+    var = np.asarray(attrs.get("variances", [0.1, 0.1, 0.2, 0.2]), f)
+    return out, np.ascontiguousarray(np.broadcast_to(var, out.shape))
+
+
+@OPS.kernel("anchor_generator", "torch")
+def anchor_generator_torch(ctx, op, ins):
+    fh, fw = ins["Input"][0].shape[1:3]
+    a, v = ctx.const(op, "anchors", lambda: tuple(
+        ctx.tensor(t) for t in anchors(op.attrs, fh, fw)))
+    return {"Anchors": [a], "Variances": [v]}
+
+
+@OPS.shape_fn("roi_align")
+def roi_align_shape(attrs, in_shapes):
+    return [(in_shapes[1][0], int(attrs["pooled_height"]), int(attrs["pooled_width"]),
+             in_shapes[0][3])]
+
+
+# samples x channels a chunk of RoIs gathers at once (4 corners of these)
+_ROI_CHUNK_ELEMS = 1 << 25
+
+
+@OPS.kernel("roi_align", "torch")
+def roi_align_torch(ctx, op, ins):
+    """RoIAlign (NHWC, one image): each bin the mean of ``sampling_ratio``²
+    bilinear samples (0 counts as 2), each RoI at least 1×1 after
+    ``spatial_scale``; the reference's arithmetic, RoIs in chunks."""
+    x, rois = ins["X"][0], ins["ROIs"][0]
+    if x.shape[0] != 1:
+        raise ValueError(
+            f"roi_align: X holds {x.shape[0]} images; only one image is supported "
+            f"(the RoIs carry no image index here), so run it once per image")
+    a = op.attrs
+    ph, pw = int(a["pooled_height"]), int(a["pooled_width"])
+    ratio = int(a.get("sampling_ratio", 2) or 2)
+    img = x[0]
+    h, w, c = img.shape
+    dev = x.device
+    scale, rt = f32(float(a.get("spatial_scale", 1.0)), dev), f32(ratio, dev)
+    one = f32(1.0, dev)
+    iy = torch.arange(ph * ratio, device=dev, dtype=torch.float32) + 0.5
+    ix = torch.arange(pw * ratio, device=dev, dtype=torch.float32) + 0.5
+    out = x.new_empty((rois.shape[0], ph, pw, c))
+    step = max(1, _ROI_CHUNK_ELEMS // (ph * pw * ratio * ratio * c))
+    for r0 in range(0, rois.shape[0], step):
+        r = rois[r0:r0 + step].to(torch.float32) * scale
+        x1, y1, x2, y2 = r.unbind(-1)
+        bin_h = torch.maximum(y2 - y1, one) / f32(ph, dev)
+        bin_w = torch.maximum(x2 - x1, one) / f32(pw, dev)
+        gy = y1[:, None] + iy * bin_h[:, None] / rt  # (R, ph·ratio)
+        gx = x1[:, None] + ix * bin_w[:, None] / rt
+        y0 = torch.floor(gy).to(torch.int64).clamp(0, h - 1)
+        x0 = torch.floor(gx).to(torch.int64).clamp(0, w - 1)
+        y1i, x1i = (y0 + 1).clamp(0, h - 1), (x0 + 1).clamp(0, w - 1)
+        wy = torch.clamp(gy - y0, 0.0, 1.0)[:, :, None, None]
+        wx = torch.clamp(gx - x0, 0.0, 1.0)[:, None, :, None]
+
+        def at(yi, xi):
+            return img[yi[:, :, None], xi[:, None, :]]  # (R, Sy, Sx, C)
+
+        v = (at(y0, x0) * (1 - wy) * (1 - wx) + at(y0, x1i) * (1 - wy) * wx
+             + at(y1i, x0) * wy * (1 - wx) + at(y1i, x1i) * wy * wx)
+        out[r0:r0 + step] = v.reshape(-1, ph, ratio, pw, ratio, c).mean(dim=(2, 4))
+    return {"Out": [out]}
+
+
+@OPS.shape_fn("generate_proposals")
+def generate_proposals_shape(attrs, in_shapes):
+    post = int(attrs.get("post_nms_topN", 1000))
+    return [(in_shapes[0][0], post, 4), (in_shapes[0][0], post)]
+
+
+@OPS.kernel("generate_proposals", "torch", syncs_host=True)
+def generate_proposals_torch(ctx, op, ins):
+    """RPN proposals of each image, batched: (N, post_nms_topN, 4) boxes
+    [x1, y1, x2, y2] and their scores, the kept ones first in score order,
+    empty slots zero.  Marked ``syncs_host``: :func:`nms_single_class`'s
+    fixed point reads back every round."""
+    scores, deltas = ins["Scores"][0], ins["BboxDeltas"][0]
+    im_shape = ins["ImShape"][0].to(torch.float32)
+    anc = ins["Anchors"][0].reshape(-1, 4)
+    variances = ins.get("Variances", [None])[0]
+    a = op.attrs
+    pre_n, post_n = int(a.get("pre_nms_topN", 6000)), int(a.get("post_nms_topN", 1000))
+    min_size = float(a.get("min_size", 0.0))
+    n, total = scores.shape[0], anc.shape[0]
+    dev = scores.device
+    var = variances.reshape(-1, 4) if variances is not None else anc.new_ones((total, 4))
+    aw = anc[:, 2] - anc[:, 0] + 1.0
+    ah = anc[:, 3] - anc[:, 1] + 1.0
+    acx, acy = anc[:, 0] + aw * 0.5, anc[:, 1] + ah * 0.5
+    k = min(pre_n, total)
+    top_s, idx = topk_stable(scores.reshape(n, -1), k)  # (N, k)
+    d = deltas.reshape(n, -1, 4).gather(1, idx[..., None].expand(n, k, 4))
+    v = var[idx]
+    cx = v[..., 0] * d[..., 0] * aw[idx] + acx[idx]
+    cy = v[..., 1] * d[..., 1] * ah[idx] + acy[idx]
+    clip = f32(4.135, dev)  # log(1000 / 16), as the reference
+    bw = torch.exp(torch.minimum(v[..., 2] * d[..., 2], clip)) * aw[idx]
+    bh = torch.exp(torch.minimum(v[..., 3] * d[..., 3], clip)) * ah[idx]
+    zero = f32(0.0, dev)
+    hi_h, hi_w = (im_shape[:, 0] - 1.0)[:, None], (im_shape[:, 1] - 1.0)[:, None]
+    x1 = torch.minimum(torch.maximum(cx - bw * 0.5, zero), hi_w)
+    y1 = torch.minimum(torch.maximum(cy - bh * 0.5, zero), hi_h)
+    x2 = torch.minimum(torch.maximum(cx + bw * 0.5, zero), hi_w)
+    y2 = torch.minimum(torch.maximum(cy + bh * 0.5, zero), hi_h)
+    boxes = torch.stack([x1, y1, x2, y2], dim=-1)
+    ok = ((x2 - x1 + 1.0) >= min_size) & ((y2 - y1 + 1.0) >= min_size)
+    top_s = torch.where(ok, top_s, zero)
+    k2 = min(post_n, k)
+    s2, idx2 = topk_stable(top_s, k2)
+    cand = boxes.gather(1, idx2[..., None].expand(n, k2, 4))
+    kept = nms_single_class(cand, s2, float(a.get("nms_thresh", 0.7)), 0.0)
+    kept, order = topk_stable(kept, k2)  # the kept ones to the front
+    cand = cand.gather(1, order[..., None].expand(n, k2, 4))
+    if k2 < post_n:
+        kept = torch.cat([kept, kept.new_zeros((n, post_n - k2))], dim=1)
+        cand = torch.cat([cand, cand.new_zeros((n, post_n - k2, 4))], dim=1)
+    return {"RpnRois": [cand], "RpnRoiProbs": [kept]}

@@ -3,7 +3,9 @@
 ``transpose`` / ``transpose2``, ``concat``, ``split``, ``stack``,
 ``slice``, ``lookup_table`` / ``lookup_table_v2``, the interpolations,
 ``pixel_shuffle``, the reductions ``reduce_mean`` / ``_sum`` / ``_max`` /
-``_min`` / ``_prod``, ``arg_max``, ``fill_constant`` and ``shape``.
+``_min`` / ``_prod``, ``arg_max``, ``fill_constant``, ``shape``, and
+``expand``, ``gather``, ``norm``, ``pad2d``, ``shuffle_channel``,
+``space_to_depth`` and ``top_k``.
 
 Port of the reshape family head of ``paddle_lite_tpu/ops/manip.py``
 (``:31-110``; int8 flows through unchanged, same scale), of its
@@ -11,7 +13,11 @@ Port of the reshape family head of ``paddle_lite_tpu/ops/manip.py``
 (``:164-190``), ``stack`` (``:193-203``), ``slice`` (``:206-229``),
 ``lookup_table`` (``:423-441``), of ``interp_xla`` (``:277-345``), of
 the reductions and ``arg_max`` (``:346-396``), of ``fill_constant`` and
-``shape`` (``:444-463``) and of ``pixel_shuffle`` (``ops/extra.py:95-110``).
+``shape`` (``:444-463``), of ``pixel_shuffle`` (``ops/extra.py:95-110``)
+and of ``expand`` (``:233-243``), ``shuffle_channel`` (``:247-256``),
+``pad2d`` (``:260-274``), ``top_k`` (``:399-408``), ``gather``
+(``:412-419``), ``norm`` (``:466-477``) and ``space_to_depth``
+(``:480-499``).
 None of them reads a value back to the host, so each runs inside a CUDA
 graph; ``fill_constant``'s and ``shape``'s outputs depend on attrs and
 shapes only, so each is made once per op and kept on the device, as XLA
@@ -180,19 +186,13 @@ def lookup_table_shape(attrs, in_shapes):
     return [out + (w[-1],)]
 
 
-@OPS.kernel("lookup_table", "torch")
-@OPS.kernel("lookup_table_v2", "torch")
-def lookup_table_torch(ctx, op, ins):
-    """Rows of ``W`` (V, D) at ``Ids`` (int32 after the reference's cast;
-    a trailing dim of 1 squeezed), as ``jnp.take(w, ids, axis=0)`` gives
-    them: an id in [-V, 0) counts from the end, an id outside [-V, V) gives
-    a filled row (the fill mode: NaN for a float table, the dtype's minimum
-    for a signed integer one, its maximum for an unsigned one).  Computed
-    on the device without a host sync: the ids wrapped and clamped into
-    range, the rows gathered, the invalid ones replaced."""
-    w, ids = ins["W"][0], ins["Ids"][0]
-    if ids.ndim and ids.shape[-1] == 1:
-        ids = ids.squeeze(-1)
+def take_rows(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(w, ids, axis=0)`` in its fill mode: an id in [-V, 0)
+    counts from the end, an id outside [-V, V) gives a filled row (NaN for
+    a float table, the dtype's minimum for a signed integer one, its
+    maximum for an unsigned one, True for a boolean one).  Computed on the
+    device without a host sync: the ids wrapped and clamped into range,
+    the rows gathered, the invalid ones replaced."""
     ids = ids.to(torch.int32)
     v = w.shape[0]
     valid = (ids >= -v) & (ids < v)
@@ -200,10 +200,23 @@ def lookup_table_torch(ctx, op, ins):
     rows = rows.reshape(tuple(ids.shape) + tuple(w.shape[1:]))
     if w.is_floating_point():
         fill = float("nan")
+    elif w.dtype == torch.bool:
+        fill = True
     else:
         fill = torch.iinfo(w.dtype).min if w.dtype.is_signed else torch.iinfo(w.dtype).max
     invalid = ~valid.reshape(tuple(ids.shape) + (1,) * (w.ndim - 1))
-    return {"Out": [rows.masked_fill(invalid, fill)]}
+    return rows.masked_fill(invalid, fill)
+
+
+@OPS.kernel("lookup_table", "torch")
+@OPS.kernel("lookup_table_v2", "torch")
+def lookup_table_torch(ctx, op, ins):
+    """Rows of ``W`` (V, D) at ``Ids`` (int32 after the reference's cast;
+    a trailing dim of 1 squeezed), as :func:`take_rows` gives them."""
+    w, ids = ins["W"][0], ins["Ids"][0]
+    if ids.ndim and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    return {"Out": [take_rows(w, ids)]}
 
 
 OPS.register("lookup_table_v2", infer_shape=lookup_table_shape)
@@ -489,3 +502,130 @@ def shape_torch(ctx, op, ins):
     return {"Out": [ctx.const(op, "shape", lambda: ctx.tensor(
         np.asarray(shape, np.int32)))]}
 
+
+
+# ---------------------------------------------------------------------------
+# expand, shuffle_channel, pad2d, space_to_depth (``manip.py:233-274``,
+# ``:480-499`` there): data movement
+# ---------------------------------------------------------------------------
+
+@OPS.shape_fn("expand")
+def expand_shape(attrs, in_shapes):
+    times = attrs["expand_times"]
+    return [tuple(d * t for d, t in zip(in_shapes[0], times))]
+
+
+@OPS.kernel("expand", "torch")
+def expand_torch(ctx, op, ins):
+    """``jnp.tile`` by ``expand_times``."""
+    return {"Out": [ins["X"][0].repeat(*[int(t) for t in op.attrs["expand_times"]])]}
+
+
+@OPS.shape_fn("shuffle_channel")
+def shuffle_channel_shape(attrs, in_shapes):
+    return [in_shapes[0]]
+
+
+@OPS.kernel("shuffle_channel", "torch")
+def shuffle_channel_torch(ctx, op, ins):
+    x = ins["X"][0]  # NHWC
+    g = int(op.attrs["group"])
+    n, h, w, c = x.shape
+    return {"Out": [x.reshape(n, h, w, g, c // g).transpose(3, 4).reshape(n, h, w, c)]}
+
+
+@OPS.shape_fn("pad2d")
+def pad2d_shape(attrs, in_shapes):
+    n, h, w, c = in_shapes[0]
+    p = attrs["paddings"]  # [top, bottom, left, right]
+    return [(n, h + p[0] + p[1], w + p[2] + p[3], c)]
+
+
+_PAD_MODES = {"reflect": "reflect", "edge": "replicate"}
+
+
+@OPS.kernel("pad2d", "torch")
+def pad2d_torch(ctx, op, ins):
+    """NHWC padding: ``constant`` (``pad_value``), ``reflect`` (no edge
+    repeat, ``jnp.pad``'s reflect) or ``edge``."""
+    x = ins["X"][0]
+    t, b, l, r = (int(p) for p in op.attrs["paddings"])
+    mode = op.attrs.get("mode", "constant")
+    if mode == "constant":
+        return {"Out": [torch.nn.functional.pad(
+            x, (0, 0, l, r, t, b), value=float(op.attrs.get("pad_value", 0.0)))]}
+    y = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (l, r, t, b), mode=_PAD_MODES[mode])
+    return {"Out": [y.permute(0, 2, 3, 1)]}
+
+
+@OPS.shape_fn("space_to_depth")
+def space_to_depth_shape(attrs, in_shapes):
+    n, h, w, c = in_shapes[0]
+    bh, bw = attrs.get("blocks", (2, 2))
+    return [(n, h // bh, w // bw, c * bh * bw)]
+
+
+@OPS.kernel("space_to_depth", "torch")
+def space_to_depth_torch(ctx, op, ins):
+    """NHWC space-to-depth; output channels in (bh, bw, c) order."""
+    x = ins["X"][0]
+    bh, bw = (int(b) for b in op.attrs.get("blocks", (2, 2)))
+    n, h, w, c = x.shape
+    y = x.reshape(n, h // bh, bh, w // bw, bw, c).permute(0, 1, 3, 2, 4, 5)
+    return {"Out": [y.reshape(n, h // bh, w // bw, bh * bw * c)]}
+
+
+# ---------------------------------------------------------------------------
+# top_k, gather, norm (``manip.py:399-419``, ``:466-477`` there)
+# ---------------------------------------------------------------------------
+
+@OPS.shape_fn("top_k")
+def topk_shape(attrs, in_shapes):
+    x = list(in_shapes[0])
+    x[-1] = int(attrs["k"])
+    return [tuple(x), tuple(x)]
+
+
+def topk_lax(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` along the last axis: descending, ties by lower
+    index; floats in IEEE total order (``detection.topk_stable``)."""
+    from .detection import topk_stable
+
+    if x.is_floating_point():
+        v, i = topk_stable(x.to(torch.float32), k)
+        return v.to(x.dtype), i
+    i = torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+    return x.gather(-1, i), i
+
+
+@OPS.kernel("top_k", "torch")
+def topk_torch(ctx, op, ins):
+    v, i = topk_lax(ins["X"][0], int(op.attrs["k"]))
+    return {"Out": [v], "Indices": [i.to(torch.int64)]}
+
+
+@OPS.shape_fn("gather")
+def gather_shape(attrs, in_shapes):
+    x, idx = in_shapes[0], in_shapes[1]
+    return [tuple(idx[:1]) + tuple(x[1:])]
+
+
+@OPS.kernel("gather", "torch")
+def gather_torch(ctx, op, ins):
+    """Rows of ``X`` at ``Index``, ``jnp.take(x, idx, axis=0)``'s fill mode
+    (:func:`take_rows`), on the device."""
+    return {"Out": [take_rows(ins["X"][0], ins["Index"][0])]}
+
+
+@OPS.shape_fn("norm")
+def norm_shape(attrs, in_shapes):
+    return [in_shapes[0]]
+
+
+@OPS.kernel("norm", "torch")
+def norm_torch(ctx, op, ins):
+    """``x / sqrt(sum(x², axis) + epsilon)``."""
+    x = ins["X"][0]
+    axis = int(op.attrs.get("axis", -1))
+    eps = f32(op.attrs.get("epsilon", 1e-10), x.device)
+    return {"Out": [x / torch.sqrt(torch.sum(x * x, dim=axis, keepdim=True) + eps)]}

@@ -1,10 +1,19 @@
-"""Sequence ops of the CRNN path under the ``torch`` tag: ``gru``,
-``bidirectional_gru`` and ``ctc_greedy_decode``.
+"""Sequence and RNN ops under the ``torch`` tag: ``gru``,
+``bidirectional_gru``, ``gru_unit``, ``lstm``, ``im2sequence``,
+``ctc_greedy_decode``, the dense ``sequence_*`` ops and ``beam_search``.
 
 Port of ``paddle_lite_tpu/ops/sequence.py`` (``gru_xla`` ``:42-77``,
-``ctc_greedy_decode_xla`` ``:205-241``, ``bigru_xla`` ``:243-292``), the
-analog of ``lite/operators/gru_op.cc`` and ``lite/backends/arm/math/
-gru_utils.h``.  The reference runs them on XLA (it deleted its Pallas GRU,
+``lstm_xla`` ``:79-127``, ``im2sequence_xla`` ``:130-149``, the
+``sequence_*`` ops ``:156-197`` and ``:329-375``, ``ctc_greedy_decode_xla``
+``:205-241``, ``bigru_xla`` ``:243-292``, ``gru_unit_xla`` ``:310-340``,
+``beam_search_xla`` ``:385-416``), the analog of
+``lite/operators/{gru,lstm,gru_unit,im2sequence,beam_search}_op.cc`` and
+``lite/backends/arm/math/gru_utils.h``.  Sequences are dense (B, T, D)
+tensors, as there: the LoD raggedness is left to the bucketed batcher.
+``lstm`` is a plain loop over the T steps, its gates through
+``apply_activation``; ``beam_search`` is one decoder step of fixed shape
+(the op a ``while`` decoder repeats), its top-k in ``jax.lax.top_k``'s
+order (``detection.topk_stable``).  The reference runs them on XLA (it deleted its Pallas GRU,
 ``sequence.py:294-303``), so they are plain PyTorch here.
 
 Paddle's GRU convention: ``Input`` already holds x_t·W_ih for every step
@@ -35,9 +44,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..core.registry import OPS
-from .common import apply_activation, upcast
+from .common import apply_activation, f32, upcast
+from .detection import topk_stable
 
 
 def _scan(x: torch.Tensor, w: torch.Tensor, h: torch.Tensor, gate_act: str,
@@ -144,3 +155,189 @@ def ctc_greedy_decode_torch(ctx, op, ins):
     out = ids.new_full((b, t + 1), -1).scatter_(1, pos, ids)[:, :t]
     return {"Out": [out.to(torch.int32)],
             "Length": [keep.sum(dim=1, dtype=torch.int32)]}
+
+
+# ---------------------------------------------------------------------------
+# gru_unit, lstm (``sequence.py:310-340``, ``:79-127`` there)
+# ---------------------------------------------------------------------------
+
+@OPS.shape_fn("gru_unit")
+def gru_unit_shape(attrs, in_shapes):
+    b, three_h = in_shapes[0]
+    h = three_h // 3
+    return [(b, h), (b, h), (b, 2 * h)]
+
+
+@OPS.kernel("gru_unit", "torch")
+def gru_unit_torch(ctx, op, ins):
+    """One GRU step, ``gru``'s gate layout: Hidden, ResetHiddenPrev (r·h)
+    and Gate ([u, r])."""
+    x, h_prev, w = ins["Input"][0], ins["HiddenPrev"][0], ins["Weight"][0]
+    bias = ins.get("Bias", [None])[0]
+    gate_act = op.attrs.get("gate_activation", "sigmoid")
+    cand_act = op.attrs.get("activation", "tanh")
+    h = h_prev.shape[-1]
+    if bias is not None:
+        x = x + bias
+    g = x[:, :2 * h] + h_prev @ w[:, :2 * h]
+    u = apply_activation(g[:, :h], gate_act)
+    r = apply_activation(g[:, h:], gate_act)
+    rh = r * h_prev
+    c = apply_activation(x[:, 2 * h:] + rh @ w[:, 2 * h:], cand_act)
+    return {"Hidden": [u * h_prev + (1.0 - u) * c], "ResetHiddenPrev": [rh],
+            "Gate": [torch.cat([u, r], dim=-1)]}
+
+
+@OPS.shape_fn("lstm")
+def lstm_shape(attrs, in_shapes):
+    b, t, four_h = in_shapes[0]
+    return [(b, t, four_h // 4), (b, t, four_h // 4)]
+
+
+@OPS.kernel("lstm", "torch")
+def lstm_torch(ctx, op, ins):
+    """``Input`` holds x_t·W_ih (4H a step: input, forget, cell, output
+    gates), ``Weight`` the hidden-to-hidden (H, 4H); zero initial state;
+    Hidden and Cell for every step."""
+    x, w = ins["Input"][0], ins["Weight"][0]
+    bias = ins.get("Bias", [None])[0]
+    a = op.attrs
+    b, t, four_h = x.shape
+    h = four_h // 4
+    if bias is not None:
+        x = x + bias.reshape(-1)[:4 * h]
+    if a.get("is_reverse"):
+        x = torch.flip(x, dims=(1,))
+    gate_act = a.get("gate_activation", "sigmoid")
+    cell_act = a.get("cell_activation", "tanh")
+    cand_act = a.get("candidate_activation", "tanh")
+    hs, cs = [], []
+    h_prev = c_prev = x.new_zeros((b, h))
+    for step in range(t):
+        g = x[:, step] + h_prev @ w
+        i = apply_activation(g[:, :h], gate_act)
+        f = apply_activation(g[:, h:2 * h], gate_act)
+        ct = apply_activation(g[:, 2 * h:3 * h], cand_act)
+        o = apply_activation(g[:, 3 * h:], gate_act)
+        c_prev = f * c_prev + i * ct
+        h_prev = o * apply_activation(c_prev, cell_act)
+        hs.append(h_prev)
+        cs.append(c_prev)
+    out_h, out_c = torch.stack(hs, dim=1), torch.stack(cs, dim=1)
+    if a.get("is_reverse"):
+        out_h, out_c = torch.flip(out_h, dims=(1,)), torch.flip(out_c, dims=(1,))
+    return {"Hidden": [out_h], "Cell": [out_c]}
+
+
+# ---------------------------------------------------------------------------
+# im2sequence (``sequence.py:130-149`` there)
+# ---------------------------------------------------------------------------
+
+@OPS.shape_fn("im2sequence")
+def im2sequence_shape(attrs, in_shapes):
+    n, h, w, c = in_shapes[0]
+    kh, kw = attrs.get("kernels", [1, 1])
+    sh, sw = attrs.get("strides", [1, 1])
+    return [(n, ((h - kh) // sh + 1) * ((w - kw) // sw + 1), kh * kw * c)]
+
+
+@OPS.kernel("im2sequence", "torch")
+def im2sequence_torch(ctx, op, ins):
+    """NHWC patches, valid padding, one a step in row-major order, each
+    flattened channel-major (c, ky, kx) as ``conv_general_dilated_patches``
+    lays them out."""
+    kh, kw = (int(k) for k in op.attrs.get("kernels", [1, 1]))
+    sh, sw = (int(s) for s in op.attrs.get("strides", [1, 1]))
+    cols = F.unfold(ins["X"][0].permute(0, 3, 1, 2), (kh, kw), stride=(sh, sw))
+    return {"Out": [cols.transpose(1, 2)]}
+
+
+# ---------------------------------------------------------------------------
+# the dense sequence_* ops (``sequence.py:156-197``, ``:329-375`` there)
+# ---------------------------------------------------------------------------
+
+def _same(attrs, in_shapes):
+    return [in_shapes[0]]
+
+
+OPS.register("sequence_softmax", infer_shape=_same)
+OPS.get("sequence_softmax").impls["torch"] = lambda ctx, op, ins: {
+    "Out": [torch.softmax(ins["X"][0], dim=-1)]}
+OPS.register("sequence_reverse", infer_shape=_same)
+OPS.get("sequence_reverse").impls["torch"] = lambda ctx, op, ins: {
+    "Y": [torch.flip(ins["X"][0], dims=(1,))]}
+
+_POOLS = {"MAX": lambda x: x.amax(dim=1), "AVERAGE": lambda x: x.mean(dim=1),
+          "AVG": lambda x: x.mean(dim=1), "MEAN": lambda x: x.mean(dim=1),
+          "SUM": lambda x: x.sum(dim=1), "LAST": lambda x: x[:, -1],
+          "FIRST": lambda x: x[:, 0]}
+
+
+@OPS.shape_fn("sequence_pool")
+def sequence_pool_shape(attrs, in_shapes):
+    b, _, d = in_shapes[0]
+    return [(b, d)]
+
+
+@OPS.kernel("sequence_pool", "torch")
+def sequence_pool_torch(ctx, op, ins):
+    ptype = op.attrs.get("pooltype", "MAX").upper()
+    if ptype not in _POOLS:
+        raise ValueError(f"unknown pooltype {ptype}")
+    return {"Out": [_POOLS[ptype](ins["X"][0])]}
+
+
+@OPS.shape_fn("sequence_expand")
+def sequence_expand_shape(attrs, in_shapes):
+    x, y = in_shapes
+    return [(x[0], y[1], x[-1])]
+
+
+@OPS.kernel("sequence_expand", "torch")
+def sequence_expand_torch(ctx, op, ins):
+    """Each row of X repeated along Y's time axis (a view)."""
+    x, t = ins["X"][0], ins["Y"][0].shape[1]
+    if x.ndim == 2:
+        x = x[:, None, :]
+    return {"Out": [x.expand(x.shape[0], t, x.shape[-1])]}
+
+
+@OPS.shape_fn("sequence_concat")
+def sequence_concat_shape(attrs, in_shapes):
+    b, _, d = in_shapes[0]
+    return [(b, sum(s[1] for s in in_shapes), d)]
+
+
+@OPS.kernel("sequence_concat", "torch")
+def sequence_concat_torch(ctx, op, ins):
+    return {"Out": [torch.cat(ins["X"], dim=1)]}
+
+
+# ---------------------------------------------------------------------------
+# beam_search (``sequence.py:385-416`` there)
+# ---------------------------------------------------------------------------
+
+@OPS.shape_fn("beam_search")
+def beam_search_shape(attrs, in_shapes):
+    b, beam, _ = in_shapes[2]
+    return [(b, beam), (b, beam), (b, beam)]
+
+
+@OPS.kernel("beam_search", "torch")
+def beam_search_torch(ctx, op, ins):
+    """One step: each beam's log-probabilities (probabilities floored at
+    1e-20) plus its score, a finished beam (its last id ``end_id``) only
+    continued by ``end_id`` at its own score; the best ``beam`` of the
+    beam × V candidates of each batch row, as token, score and parent."""
+    pre_ids, pre_scores = ins["pre_ids"][0], ins["pre_scores"][0]
+    probs = ins["scores"][0]  # (B, beam, V)
+    end_id = int(op.attrs.get("end_id", 0))
+    b, beam, v = probs.shape
+    dev = probs.device
+    logp = torch.log(torch.clamp_min(probs, f32(1e-20, dev)))
+    only_end = ctx.const(op, "only_end", lambda: torch.where(
+        torch.arange(v, device=dev) == end_id, f32(0.0, dev), f32(float("-inf"), dev)))
+    cand = torch.where((pre_ids == end_id)[..., None], only_end, logp) + pre_scores[..., None]
+    top_s, idx = topk_stable(cand.reshape(b, beam * v), beam)
+    return {"selected_ids": [(idx % v).to(torch.int32)], "selected_scores": [top_s],
+            "parent_idx": [torch.div(idx, v, rounding_mode="floor").to(torch.int32)]}
