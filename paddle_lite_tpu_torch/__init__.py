@@ -19,9 +19,15 @@ Layer map:
                       compile_graph (the graph captured as a CUDA graph)
   ops                 torch impls; ops.kernels: the CUDA kernels
   tools.cli           the opt tool: compile / info / ops / passes / profile
+  tools.accuracy_families, tools.eval
+                      task-level accuracy of SSD / DBNet / CRNN / ERNIE
+  tools.profile, tools.roofline_report, tools.gemm_roofline, tools.trace,
+  tools.dump          latency by prefix, rooflines, traces, graph dumps
   formats             fluid model directories (fluid_convert), the nbf
                       artifact shared with the JAX package (artifact,
-                      native/nbf.cc), graphs carried across (interop)
+                      native/nbf.cc), graphs carried across (interop),
+                      torch.export programs (aot), checkpoints (torch_ckpt)
+  utils.device_info   the card's identity, published peaks and memory
 """
 
 from . import ops  # registers all operators & kernels

@@ -223,6 +223,17 @@ def host_syncing_ops(graph: Graph, cut: bool = True) -> List[str]:
     return found
 
 
+def refuse_host_syncing(graph: Graph) -> None:
+    """Raise ``ValueError`` naming every op of :func:`host_syncing_ops`:
+    no CUDA graph (and no exported program) can hold it."""
+    syncing = host_syncing_ops(graph)
+    if syncing:
+        raise ValueError(
+            f"compile_graph: {', '.join(syncing)} synchronise(s) with the "
+            f"host and cannot be captured in a CUDA graph; tag it with a "
+            f"kernel that does not, or run the eager build_callable")
+
+
 def _plan(graph: Graph) -> list:
     """The topological order cut at the control-flow ops: lists of ops (a
     segment, one CUDA graph each) and control-flow ops, in order; the
@@ -360,12 +371,7 @@ class CompiledGraph:
     def __init__(self, graph: Graph, device: torch.device,
                  weights: Dict[str, torch.Tensor],
                  ctx: Optional[ExecutionContext] = None, carried=frozenset()):
-        syncing = host_syncing_ops(graph)
-        if syncing:
-            raise ValueError(
-                f"compile_graph: {', '.join(syncing)} synchronise(s) with the "
-                f"host and cannot be captured in a CUDA graph; tag it with a "
-                f"kernel that does not, or run the eager build_callable")
+        refuse_host_syncing(graph)
         self.graph = graph
         self.device = device
         self.weights = weights

@@ -6,12 +6,18 @@
 // boxes b[i] = (x1, y1, x2, y2) and scores s[i], i < k:
 //   valid[i]   = s[i] > score_t
 //   beats(j,i) = s[j] > s[i] || (s[j] == s[i] && j < i)
-//   sup(j,i)   = beats(j,i) && inter(j,i) > iou_t * ((area[j] + area[i]) - inter(j,i))
+//   sup(j,i)   = beats(j,i) && inter(j,i) > iou_t * uni(j,i)
+//                (with iou_div: beats(j,i) && inter(j,i) / max(uni(j,i), 1e-10) > iou_t)
+//   uni(j,i)   = (area[j] + area[i]) - inter(j,i)
 //   keep[i]    = valid[i] && no kept j with sup(j,i)
 //   out[i]     = s[i] * (keep[i] ? 1 : 0)
 // with ix = max(min(x2_j, x2_i) - max(x1_j, x1_i), 0), iy likewise,
 // inter = ix * iy and area = max(x2 - x1, 0) * max(y2 - y1, 0), each a
 // separate fp32 rounding (built with --fmad=false), as the TPU kernel does.
+// The division form (iou_div, the IEEE division __fdiv_rn) is the test of
+// the reference's _nms_single_class (paddle_lite_tpu/ops/detection.py,
+// `_iou_matrix`), which generate_proposals runs: the two forms round
+// differently near the threshold, so each caller gets its reference's.
 // The TPU kernel reaches `keep` as a Jacobi fixed point (one vec-mat
 // product with a (k, k) fp32 matrix a round).  The recurrence's fixed point
 // is unique and equals greedy NMS taken in `beats` order, which is what
@@ -22,6 +28,10 @@
 // / 2 pairs of valid candidates, against 24 bytes of device memory per
 // candidate, so operations bind, at one fp32 instruction a lane a clock.
 // The greedy order is a chain of dependent decisions, which is latency.
+// The division form's test is 14 operations (one multiply fewer, a max and
+// a division more; the division counted as one, a lower bound).  One block
+// an instance: at G = 1 (the RPN's one image, k = 1,000) one SM works and
+// the other 131 idle, so the time there is the chain's latency on one SM.
 //
 // Design: one block of THREADS per instance, the plan (shared bytes, blocks
 // an SM) in ops/kernels/nms.py; at k = 528 a block takes 21.4 KB, and
@@ -52,7 +62,8 @@
 //  5. Out by slot, coalesced: s[i] * keep, with keep read from the kept
 //     words at rank_of[i].
 // min, max, + and * of fp32 are commutative, so testing the pair from the
-// winner's side gives the TPU kernel's bits exactly.  Boxes are assumed
+// winner's side gives the TPU kernel's bits exactly (and the division
+// form's: its quotient is of the same symmetric inter and uni).  Boxes are assumed
 // finite: fminf / fmaxf drop a NaN where the reference's min / max would
 // keep it.
 //
@@ -232,8 +243,11 @@ __device__ __forceinline__ int below(const unsigned long long* arr, int n,
 // reference's, so iou_t * uni >= 0 (or NaN), and both tests are false;
 // with iy >= 0 every value is the reference's.  (A NaN iou_t takes the
 // clamped form.)  The compare and the OR go under one predicate: the
-// compiler's select-and-add took a slot and a half a pair more.
-template <bool CLAMP_Y>
+// compiler's select-and-add took a slot and a half a pair more.  DIV tests
+// inter / max(uni, 1e-10) > iou_t instead; CLAMP_Y false changes no bit
+// there either: with iy < 0 the quotient is <= 0 (or -0), below any
+// iou_t >= 0, as the reference's 0 / max(uni, 1e-10) is.
+template <bool CLAMP_Y, bool DIV>
 __device__ __forceinline__ uint32_t row_bits(const float4 rb, const float ra,
                                              const float4* __restrict__ cb,
                                              const float4* __restrict__ ca4, float iou_t) {
@@ -250,10 +264,13 @@ __device__ __forceinline__ uint32_t row_bits(const float4 rb, const float ra,
       const float iy = CLAMP_Y ? fmaxf(dy, 0.0f) : dy;
       const float inter = ix * iy;
       const float uni = (ra + cas[u]) - inter;
+      // the test lhs > rhs of the form asked for
+      const float lhs = DIV ? __fdiv_rn(inter, fmaxf(uni, 1e-10f)) : inter;
+      const float rhs = DIV ? iou_t : iou_t * uni;
       if (PREDICATED_OR) {
         asm("{\n\t.reg .pred p;\n\tsetp.gt.f32 p, %1, %2;\n\t@p or.b32 %0, %0, %3;\n\t}"
-            : "+r"(bits) : "f"(inter), "f"(iou_t * uni), "r"(1u << (4 * q4 + u)));
-      } else if (inter > iou_t * uni) {
+            : "+r"(bits) : "f"(lhs), "f"(rhs), "r"(1u << (4 * q4 + u)));
+      } else if (lhs > rhs) {
         bits |= 1u << (4 * q4 + u);
       }
     }
@@ -264,12 +281,12 @@ __device__ __forceinline__ uint32_t row_bits(const float4 rb, const float ra,
 // The 32 bits of row `lane` of diagonal tile u: sup(32 u + lane, 32 u +
 // q), all 32 columns tested and then masked by q > lane, so no lane's
 // loop differs.
-template <bool CLAMP_Y>
+template <bool CLAMP_Y, bool DIV>
 __device__ __forceinline__ uint32_t diag_bits(const float4* __restrict__ box,
                                               const float* __restrict__ area, int u, int lane,
                                               float iou_t) {
   const int r = 32 * u + lane;
-  const uint32_t bits = row_bits<CLAMP_Y>(box[r], area[r], box + 32 * u,
+  const uint32_t bits = row_bits<CLAMP_Y, DIV>(box[r], area[r], box + 32 * u,
                                           reinterpret_cast<const float4*>(area + 32 * u), iou_t);
   return bits & (lane == 31 ? 0u : (FULL << (lane + 1)));
 }
@@ -287,7 +304,7 @@ __device__ __forceinline__ uint32_t settle(uint32_t rem, const uint32_t d) {
   return rem;
 }
 
-template <int J>
+template <int J, bool DIV>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 nms_keep_kernel(const float* __restrict__ boxes, const float* __restrict__ scores,
                 float* __restrict__ out, int k, float iou_t, float score_t) {
@@ -365,8 +382,8 @@ nms_keep_kernel(const float* __restrict__ boxes, const float* __restrict__ score
 
   // 3. the diagonal tiles, a warp a tile
   for (int u = warp; u < words; u += WARPS)
-    diag[32 * u + lane] = iou_t >= 0.0f ? diag_bits<false>(box, area, u, lane, iou_t)
-                                        : diag_bits<true>(box, area, u, lane, iou_t);
+    diag[32 * u + lane] = iou_t >= 0.0f ? diag_bits<false, DIV>(box, area, u, lane, iou_t)
+                                        : diag_bits<true, DIV>(box, area, u, lane, iou_t);
   __syncthreads();
   // 4. word by word: the kept rows so far, 32 to a warp, against the
   // word's columns, ORed into its removed bits; then warp 0 settles the
@@ -380,8 +397,8 @@ nms_keep_kernel(const float* __restrict__ boxes, const float* __restrict__ score
       uint32_t bits = 0u;
       if (i < n) {
         const int r = krow[i];
-        bits = iou_t >= 0.0f ? row_bits<false>(box[r], area[r], cb, ca4, iou_t)
-                             : row_bits<true>(box[r], area[r], cb, ca4, iou_t);
+        bits = iou_t >= 0.0f ? row_bits<false, DIV>(box[r], area[r], cb, ca4, iou_t)
+                             : row_bits<true, DIV>(box[r], area[r], cb, ca4, iou_t);
       }
       bits = __reduce_or_sync(FULL, bits);
       if (lane == 0 && bits) atomicOr(rem + u, bits);
@@ -412,19 +429,23 @@ nms_keep_kernel(const float* __restrict__ boxes, const float* __restrict__ score
 
 using Kernel = void (*)(const float*, const float*, float*, int, float, float);
 
+template <bool DIV>
 Kernel pick(int k) {
   switch (pow2_at_least(k) / THREADS) {
-    case 1: return nms_keep_kernel<1>;
-    case 2: return nms_keep_kernel<2>;
-    case 4: return nms_keep_kernel<4>;
-    case 8: return nms_keep_kernel<8>;
-    case 16: return nms_keep_kernel<MAX_J>;
+    case 1: return nms_keep_kernel<1, DIV>;
+    case 2: return nms_keep_kernel<2, DIV>;
+    case 4: return nms_keep_kernel<4, DIV>;
+    case 8: return nms_keep_kernel<8, DIV>;
+    case 16: return nms_keep_kernel<MAX_J, DIV>;
     default: return nullptr;
   }
 }
 
-const Kernel ALL[] = {nms_keep_kernel<1>, nms_keep_kernel<2>, nms_keep_kernel<4>,
-                          nms_keep_kernel<8>, nms_keep_kernel<MAX_J>};
+const Kernel ALL[] = {nms_keep_kernel<1, false>, nms_keep_kernel<2, false>,
+                      nms_keep_kernel<4, false>, nms_keep_kernel<8, false>,
+                      nms_keep_kernel<MAX_J, false>, nms_keep_kernel<1, true>,
+                      nms_keep_kernel<2, true>,  nms_keep_kernel<4, true>,
+                      nms_keep_kernel<8, true>,  nms_keep_kernel<MAX_J, true>};
 
 cudaError_t device_attr(int* to, cudaDeviceAttr attr) {
   int dev = 0;
@@ -477,17 +498,18 @@ extern "C" int plt_nms_layout(int* threads, int* blocks_per_sm, int* sms,
 
 // C interface, bound with ctypes.  Device pointers: boxes (G, k, 4) fp32,
 // 16-byte aligned, scores (G, k) fp32, out (G, k) fp32, all contiguous.
+// iou_div != 0 takes the division form of the pair test.
 // The launch makes no attribute calls (plt_nms_prepare made them).
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue (1)
 // for a k past the sort's 2048 keys or misaligned boxes; a k whose
 // shared memory (plt_nms_smem_bytes) is past the block's limit fails at
 // the launch.
 extern "C" int plt_nms_keep(const void* boxes, const void* scores, void* out,
-                            int G, int k, float iou_t, float score_t,
+                            int G, int k, float iou_t, float score_t, int iou_div,
                             void* stream) {
   if (G < 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
   if ((long long)G * k == 0) return static_cast<int>(cudaGetLastError());
-  const Kernel kern = pick(k);
+  const Kernel kern = iou_div ? pick<true>(k) : pick<false>(k);
   if (kern == nullptr || reinterpret_cast<uintptr_t>(boxes) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* b = static_cast<const float*>(boxes);

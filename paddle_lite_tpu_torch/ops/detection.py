@@ -26,8 +26,11 @@ Faster R-CNN's RPN ops (``detection.py:523-684`` there):
 objectness, box decode and clip, the ``min_size`` filter, then greedy NMS
 through :func:`nms_single_class` over the top ``post_nms_topN`` of those,
 as the reference's ``_nms_single_class`` takes them) and ``roi_align``.
-``generate_proposals`` reads the NMS fixed point back every round, so it
-is marked ``syncs_host``.  ``roi_align`` processes the RoIs in chunks, so
+The ``"torch"`` ``generate_proposals`` reads the NMS fixed point back every
+round, so it is marked ``syncs_host``; its ``"cuda"`` impl
+(``ops/kernels/ops_cuda.py``) runs the same candidates through the NMS
+kernel in the division form, with no host sync, and ``kernel_pick`` tags
+every ``generate_proposals`` op with it.  ``roi_align`` processes the RoIs in chunks, so
 that 1,000 RoIs × 1,024 channels never gather several GB at once.  One
 departure, a fault there: the reference's ``roi_align`` pools every RoI
 from image 0 whatever N is and ignores ``RoisBatchIndex``; the port raises
@@ -517,19 +520,19 @@ def generate_proposals_shape(attrs, in_shapes):
     return [(in_shapes[0][0], post, 4), (in_shapes[0][0], post)]
 
 
-@OPS.kernel("generate_proposals", "torch", syncs_host=True)
-def generate_proposals_torch(ctx, op, ins):
-    """RPN proposals of each image, batched: (N, post_nms_topN, 4) boxes
-    [x1, y1, x2, y2] and their scores, the kept ones first in score order,
-    empty slots zero.  Marked ``syncs_host``: :func:`nms_single_class`'s
-    fixed point reads back every round."""
+def proposal_candidates(ins, attrs):
+    """The candidates of ``generate_proposals`` before its NMS, batched over
+    the images: the top ``pre_nms_topN`` anchors by objectness, their boxes
+    decoded and clipped to the image, those under ``min_size`` scored 0,
+    then the top ``min(post_nms_topN, pre_nms_topN)`` of those
+    (``detection.py:640-672`` there).  Returns (N, k2, 4) boxes and (N, k2)
+    scores, score-descending in ``jax.lax.top_k``'s order."""
     scores, deltas = ins["Scores"][0], ins["BboxDeltas"][0]
     im_shape = ins["ImShape"][0].to(torch.float32)
     anc = ins["Anchors"][0].reshape(-1, 4)
     variances = ins.get("Variances", [None])[0]
-    a = op.attrs
-    pre_n, post_n = int(a.get("pre_nms_topN", 6000)), int(a.get("post_nms_topN", 1000))
-    min_size = float(a.get("min_size", 0.0))
+    pre_n, post_n = int(attrs.get("pre_nms_topN", 6000)), int(attrs.get("post_nms_topN", 1000))
+    min_size = float(attrs.get("min_size", 0.0))
     n, total = scores.shape[0], anc.shape[0]
     dev = scores.device
     var = variances.reshape(-1, 4) if variances is not None else anc.new_ones((total, 4))
@@ -556,11 +559,29 @@ def generate_proposals_torch(ctx, op, ins):
     top_s = torch.where(ok, top_s, zero)
     k2 = min(post_n, k)
     s2, idx2 = topk_stable(top_s, k2)
-    cand = boxes.gather(1, idx2[..., None].expand(n, k2, 4))
-    kept = nms_single_class(cand, s2, float(a.get("nms_thresh", 0.7)), 0.0)
+    return boxes.gather(1, idx2[..., None].expand(n, k2, 4)), s2
+
+
+def proposals_out(kept: torch.Tensor, cand: torch.Tensor, attrs) -> dict:
+    """``generate_proposals``' outputs from the kept scores of its
+    candidates: the kept ones to the front in score order, padded with
+    zeros to ``post_nms_topN`` rows."""
+    n, k2 = kept.shape
+    post_n = int(attrs.get("post_nms_topN", 1000))
     kept, order = topk_stable(kept, k2)  # the kept ones to the front
     cand = cand.gather(1, order[..., None].expand(n, k2, 4))
     if k2 < post_n:
         kept = torch.cat([kept, kept.new_zeros((n, post_n - k2))], dim=1)
         cand = torch.cat([cand, cand.new_zeros((n, post_n - k2, 4))], dim=1)
     return {"RpnRois": [cand], "RpnRoiProbs": [kept]}
+
+
+@OPS.kernel("generate_proposals", "torch", syncs_host=True)
+def generate_proposals_torch(ctx, op, ins):
+    """RPN proposals of each image, batched: (N, post_nms_topN, 4) boxes
+    [x1, y1, x2, y2] and their scores, the kept ones first in score order,
+    empty slots zero.  Marked ``syncs_host``: :func:`nms_single_class`'s
+    fixed point reads back every round."""
+    cand, s2 = proposal_candidates(ins, op.attrs)
+    kept = nms_single_class(cand, s2, float(op.attrs.get("nms_thresh", 0.7)), 0.0)
+    return proposals_out(kept, cand, op.attrs)

@@ -28,7 +28,7 @@ from ..core.pattern_matcher import match_chain, op_of
 from ..core.registry import OPS
 from .common import effective_conv_scale, requant_epilogue, upcast
 from .kernels import depthwise
-from .kernels.dw_pw_fused import fused_dw_pw_int8
+from .kernels import custom_ops
 from .kernels.int8_matmul import ACTS
 from .nn import conv_nhwc
 
@@ -93,7 +93,7 @@ def fused_dw_pw_cuda(ctx, op, ins):
         pw_nk = ctx.const(op, "w_nk",
                           lambda: pw_w.reshape(x.shape[-1], -1).t().contiguous())
     dw_b, pw_b = (ins.get(s, [None])[0] for s in ("DwBias", "PwBias"))
-    y = fused_dw_pw_int8(  # a bf16-staged bias upcast, values kept
+    y = custom_ops.fused(  # a bf16-staged bias upcast, values kept
         x, dw_w, dw_eff, None if dw_b is None else upcast(dw_b), attrs["dw_out_scale"],
         pw_w, pw_eff, None if pw_b is None else upcast(pw_b),
         dw_act=attrs.get("dw_act"), dw_act_attrs=attrs.get("dw_act_attrs"),

@@ -176,7 +176,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.plt_nms_smem_bytes.argtypes = [ci]
         lib.plt_nms_smem_bytes.restype = ctypes.c_longlong
         fn = lib.plt_nms_keep
-        fn.argtypes = [vp, vp, vp, ci, ci, cf, cf, vp]
+        # boxes, scores, out, G, k, iou_t, score_t, iou_div, stream
+        fn.argtypes = [vp, vp, vp, ci, ci, cf, cf, ci, vp]
     else:
         raise KeyError(name)
     fn.restype = ctypes.c_int

@@ -18,6 +18,16 @@ order); j suppresses i iff j beats i and ``inter > iou_t·union`` with
 rounded on its own; ``valid = s > score_t``; ``keep[i] = valid[i]`` and no
 kept j suppresses i; the result is ``s·keep``.  Thresholds enter as fp32,
 as JAX applies a Python float to an fp32 array.  Boxes must be finite.
+
+``iou_form="div"`` tests ``inter / max(union, 1e-10) > iou_t`` instead
+(an IEEE division), the test of the reference's ``_nms_single_class``
+(``paddle_lite_tpu/ops/detection.py:262-271``), which
+``generate_proposals`` runs through
+:func:`~..detection.nms_single_class`; the two forms round differently near
+the threshold.  Over score-sorted candidates (a ``topk_stable`` output)
+``beats(j, i)`` is ``j < i`` for every valid pair, so the ``"div"`` form
+computes ``nms_single_class``'s kept scores, up to the sign of a zero
+(``s·0`` is −0.0 for a negative score, where that function gives +0.0).
 """
 
 from __future__ import annotations
@@ -36,12 +46,25 @@ from . import _build
 launches = 0
 
 
+IOU_FORMS = ("mul", "div")
+
+
+def _iou_form(iou_form: str) -> bool:
+    """True for the division form; raises for a form not in IOU_FORMS."""
+    if iou_form not in IOU_FORMS:
+        raise ValueError(f"nms_keep_scores: iou_form must be one of {IOU_FORMS}, "
+                         f"got {iou_form!r}")
+    return iou_form == "div"
+
+
 def nms_keep_scores_plain(cand_boxes: torch.Tensor, cand_scores: torch.Tensor,
-                          *, iou_t: float, score_t: float) -> torch.Tensor:
+                          *, iou_t: float, score_t: float,
+                          iou_form: str = "mul") -> torch.Tensor:
     """Plain PyTorch version: the (k, k) suppression matrix of each
     instance and the Jacobi rounds ``keep ← valid ∧ ¬any(sup ∧ keep)`` until
     ``keep`` stops changing (at most k rounds), as ``_nms_kernel`` runs
-    them."""
+    them; ``iou_form="div"`` with ``nms_single_class``'s IoU test."""
+    div = _iou_form(iou_form)
     g, k, _ = cand_boxes.shape
     dev = cand_boxes.device
     b = cand_boxes.to(torch.float32)
@@ -65,7 +88,9 @@ def nms_keep_scores_plain(cand_boxes: torch.Tensor, cand_scores: torch.Tensor,
         union = (area[sl, :, None] + area[sl, None, :]) - inter
         sc, sr = s[sl, :, None], s[sl, None, :]
         beats = (sc > sr) | ((sc == sr) & j_lt_i)
-        keep[sl] = jacobi_keep(beats & (inter > t_iou * union), valid[sl])
+        over = (inter / torch.maximum(union, f32(1e-10, dev)) > t_iou if div
+                else inter > t_iou * union)
+        keep[sl] = jacobi_keep(beats & over, valid[sl])
     return s * keep.to(torch.float32)
 
 
@@ -214,12 +239,14 @@ def _plan_on(device: int, k: int) -> Plan:
 
 
 def nms_keep_scores(cand_boxes: torch.Tensor, cand_scores: torch.Tensor, *,
-                    iou_t: float, score_t: float) -> torch.Tensor:
+                    iou_t: float, score_t: float, iou_form: str = "mul") -> torch.Tensor:
     """(G, k, 4) fp32 candidate boxes in any order and (G, k) fp32 scores
-    → (G, k) fp32 scores with suppressed and invalid entries zeroed."""
+    → (G, k) fp32 scores with suppressed and invalid entries zeroed;
+    `iou_form` the pair test's form (the module's docstring)."""
+    div = _iou_form(iou_form)
     if cand_boxes.device.type == "cpu":
         return nms_keep_scores_plain(cand_boxes, cand_scores, iou_t=iou_t,
-                                     score_t=score_t)
+                                     score_t=score_t, iou_form=iou_form)
     global launches
     dev = cand_boxes.device
     _build.require_current_device(dev, "nms_keep_scores")
@@ -239,7 +266,7 @@ def nms_keep_scores(cand_boxes: torch.Tensor, cand_scores: torch.Tensor, *,
     lib = _build.load("nms")
     rc = lib.plt_nms_keep(
         cand_boxes.data_ptr(), cand_scores.data_ptr(), out.data_ptr(), g, k,
-        float(np.float32(iou_t)), float(np.float32(score_t)),
+        float(np.float32(iou_t)), float(np.float32(score_t)), int(div),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "nms")
     launches += 1

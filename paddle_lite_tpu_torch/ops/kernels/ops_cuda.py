@@ -9,7 +9,14 @@ change: the reference's impls fall back to the XLA impl when dtypes or
 shapes do not fit (``ops_pallas.py:38-41``, ``:58-61``, ``:94-97``,
 ``:128-131``).  Here the kernel-pick pass (``ops/kernels/select.py``) has
 already checked eligibility, so a mismatch raises instead of silently
-running another implementation.
+running another implementation.  The impls reach the kernels through
+``custom_ops.py``, which emits the ``plt::`` custom ops under
+``torch.export``, so an exported program holds each launch as one op.
+
+``generate_proposals`` has a ``"cuda"`` impl too, which the reference has
+not: its candidates (``detection.proposal_candidates``) through the NMS
+kernel in the division form, so the RPN needs no host sync and a CUDA
+graph can hold it.
 
 Per-op constants — the folded s_x·s_w scales and the GEMM weights repacked
 to (N, K) — are made once per op on its first run (``ctx.const``).
@@ -32,11 +39,10 @@ import torch.nn.functional as F
 
 from ...core.registry import OPS
 from ..common import conv_out_size, normalize_2d, normalize_paddings, upcast
-from ..detection import exact_candidates, nms_attrs, nms_merge
+from ..detection import (exact_candidates, nms_attrs, nms_merge, proposal_candidates,
+                         proposals_out)
 from ..nn import eff_scale
-from . import depthwise
-from .int8_matmul import int8_matmul
-from .nms import nms_keep_scores
+from . import custom_ops, depthwise
 
 
 def _require(ok: bool, op, why: str) -> None:
@@ -63,7 +69,7 @@ def _bias(bias):
 
 def _gemm(ctx, op, x2, w2, x_name, w_name, bias):
     _int8(op, x2, w2)
-    return int8_matmul(
+    return custom_ops.gemm(
         x2.contiguous(), w2, eff_scale(ctx, op, x_name, w_name), _bias(bias),
         act=op.attrs.get("fuse_act"), act_attrs=op.attrs.get("act_attrs"),
         out_scale=op.attrs.get("out_scale"), w_nk=_packed(ctx, op, w2))
@@ -146,7 +152,7 @@ def depthwise_cuda(ctx, op, ins):
     _require("ResidualData" not in ins
              and depthwise.supported_general(op.attrs, x.shape, w.shape), op,
              "outside the kernel's k ∈ {3,5} / stride ∈ {1,2} / SAME domain")
-    y = depthwise.dw_conv_int8(
+    y = custom_ops.dw_conv(
         x, w, eff_scale(ctx, op, op.input("Input"), op.input("Filter")), _bias(bias),
         stride=normalize_2d(op.attrs.get("strides", (1, 1)))[0],
         act=op.attrs.get("fuse_act"), act_attrs=op.attrs.get("act_attrs"),
@@ -206,7 +212,7 @@ def select_candidates(boxes: torch.Tensor, scores: torch.Tensor, attrs: dict):
 
 
 def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, attrs: dict,
-                   keep: Callable = nms_keep_scores) -> torch.Tensor:
+                   keep: Callable = custom_ops.nms_keep) -> torch.Tensor:
     """(N, M, 4) boxes, (N, M, C) scores → (N, keep_top_k, 6) rows, the
     ``multiclass_nms_pallas`` contract: :func:`select_candidates`, the
     kept scores of every (image, class) instance, then the cross-class
@@ -228,3 +234,21 @@ def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, attrs: dict,
 def multiclass_nms_cuda(ctx, op, ins):
     return {"Out": [multiclass_nms(ins["BBoxes"][0], ins["Scores"][0],
                                    op.attrs)]}
+
+
+@OPS.kernel("generate_proposals", "cuda")
+def generate_proposals_cuda(ctx, op, ins):
+    """``generate_proposals`` with its NMS on the kernel: the candidates are
+    score-sorted, so the kernel's ``beats(j, i)`` is the reference's
+    ``j < i`` for every valid pair, and its division form is
+    ``_nms_single_class``'s IoU test.  The kernel takes k2 <= 2048
+    candidates (``nms.plan``) and raises past them.  score_t is 0, so a
+    kept score is > 0 and every other entry a zero of either sign (s·0 is
+    −0.0 for a negative s); the zeros are made +0.0, the reference's
+    ``where(keep, s, 0)``, before the compaction orders them."""
+    cand, s2 = proposal_candidates(ins, op.attrs)
+    kept = custom_ops.nms_keep(cand.contiguous(), s2.contiguous(),
+                               iou_t=float(op.attrs.get("nms_thresh", 0.7)), score_t=0.0,
+                               iou_form="div")
+    kept = torch.where(kept > 0, kept, kept.new_zeros(()))
+    return proposals_out(kept, cand, op.attrs)

@@ -23,7 +23,9 @@ in both cases only when the fused activation is one the kernel's epilogue
 computes (``int8_matmul.GEMM_ACTS`` for the GEMM, gelu and tanh among
 them; ``int8_matmul.ACTS`` for the depthwise kernel).  Every
 ``multiclass_nms*`` op, int8 graph or not, takes the NMS kernel
-(``autotune.py:60-65``: NMS runs in the fp32 island either way).  Everything else keeps the default ``"torch"`` impl.
+(``autotune.py:60-65``: NMS runs in the fp32 island either way), and so
+does every ``generate_proposals`` op, whose NMS the kernel runs in the
+division form.  Everything else keeps the default ``"torch"`` impl.
 A table measured on the H100 is later work (``ROADMAP.md``).
 """
 
@@ -69,7 +71,7 @@ def gemm_eligible(graph, op) -> bool:
 
 def choose_kernel(graph, op) -> Optional[str]:
     """'cuda' for an op a kernel takes, else None (default impl)."""
-    if op.op_type.startswith("multiclass_nms"):
+    if op.op_type.startswith("multiclass_nms") or op.op_type == "generate_proposals":
         return "cuda"
     if op.op_type == "depthwise_conv2d":
         x = graph.vars[op.input("Input")]

@@ -154,7 +154,7 @@ def main() -> None:
     for name, lib in libs.items():
         def call(lib=lib):
             _build.check(lib.plt_nms_keep(boxes.data_ptr(), scores.data_ptr(), out.data_ptr(),
-                                          G, K, iou, st,
+                                          G, K, iou, st, 0,
                                           torch.cuda.current_stream().cuda_stream), name)
 
         out.fill_(-1.0)
