@@ -136,25 +136,27 @@ Phases:
    the torch route timed at each shape (the whole op, and its fp32 conv
    and ``round`` alone) are information.
 9. DBNet-640 b4 INT8 with its zoo config (``recommended_quant
-   ("ppocr_det")``: float depthwise convs, fp32 islands; PP-OCR detection,
-   BASELINE config 4): the GEMM at every shape of the path (15 "cuda" ops:
-   10 int8 1x1 convs, 5 int8 3x3 convs through im2col at M = 102,400, K =
-   864, N = 24) bit-exact against its plain version and timed as in phase
-   2; the route timings of phase 4 at its 3x3 convs; 3 compiled requests
+   ("ppocr_det")``: the defaults since the card's A/B, int8 depthwise
+   convs, fp32 islands; PP-OCR detection, BASELINE config 4): the GEMM and
+   depthwise kernels at every shape of the path (15 GEMM ops: 10 int8 1x1
+   convs, 5 int8 3x3 convs through im2col at M = 102,400, K = 864, N = 24;
+   8 depthwise) bit-exact against their plain versions and timed as in
+   phase 2; the route timings of phase 4 at its 3x3 convs; 3 compiled requests
    with twice the graph's "cuda" ops, as many in one profiled replay;
    every kernel op within the tie bound of its torch op; the probability
    map against the port's fp32 predictor, mean abs diff < 0.05 (the bar
    of ``tests/test_model_zoo_int8.py:103``); phase 7a's checks on the
    path.  ``db_postprocess``'s boxes a map, img/s and a profiled request
    are information.
-10. CRNN b64, strip width 320, INT8 with its zoo config (bf16 islands;
-   PP-OCR recognition): the GEMM at every shape of the path (8 "cuda"
+10. CRNN b64, strip width 320, INT8 with its zoo config (fp32 islands,
+   the defaults; PP-OCR recognition): the GEMM at every shape of the path (8 "cuda"
    ops: 3 1x1 convs, 4 GRU input projections, the CTC classifier at 5,120
    x 96 x 6,626) as in phase 9 (its three depthwise convs have channel
    multiplier 2, outside the depthwise kernel's domain, and stay on the
    torch route); 3 compiled requests with the launch counts as above;
-   every kernel op within the tie bound of its torch op (its fp32 output
-   rounded to bf16 as the executor rounds the kernel's); probabilities
+   every kernel op within the tie bound of its torch op (under bf16
+   islands its fp32 output rounded to bf16 as the executor rounds the
+   kernel's); probabilities
    against the port's fp32 predictor at cosine > 0.99 (the bar of
    ``tests/test_model_zoo_int8.py:120``; equal CTC decodes information);
    ``ctc_greedy_decode`` on one tensor equal eager and as a CUDA graph
@@ -162,12 +164,12 @@ Phases:
    ``LengthBucketer`` over compiled b64 predictors at widths 160 and 320
    answering 64 strips, each result equal, bit for bit, to the strip run
    alone at its bucket.  img/s with bf16 and with fp32 islands in turns
-   are information.  (Phase 4b, after phase 4: SSD b32 with its zoo
-   config, bf16 islands, against phase 4's fp32 islands in turns: launches
+   are information.  (Phase 4b, after phase 4: SSD b32 with bf16 islands,
+   the JAX package's zoo entry, against phase 4's fp32 islands in turns: launches
    as phase 4's are checked; img/s, detection agreement and the NMS op's
    input dtype are information.)
-11. ERNIE-tiny b32 / len 128 INT8 with its zoo config (bf16 islands,
-   tanh-gelu; BASELINE config 5: vocabulary 18,000, hidden 1,024, 3
+11. ERNIE-tiny b32 / len 128 INT8 with its zoo config (fp32 islands,
+   the defaults, tanh-gelu; BASELINE config 5: vocabulary 18,000, hidden 1,024, 3
    layers, 16 heads, FFN 4,096): the GEMM at every shape of the path (14
    "cuda" fcs: 3 QKV, 3 output projections, 3 FFN1 with gelu and int8
    out, 3 FFN2, the pooler with tanh and int8 out, the classifier at N =
@@ -285,7 +287,33 @@ Phases:
    ``per_type_summary``, ``roofline_report`` joined with it,
    ``gemm_roofline`` at both models' GEMM shapes, ``device_info`` and
    ``memory_stats``, and a ``trace()`` file.
-16. The last lines: the card (nvidia-smi), the kernels' JSON line, then
+16. Tuning on the card, the zoo table, host preprocessing.  Phases 1-15
+   run with the kernel table (``ops/kernels/tune_cache``) pointed at an
+   empty directory of the script's own, so every pick is the default.  (a)
+   ``cli tune --validate`` on SSD-300 INT8 b32 into a fresh table: each
+   bucket's kernel and torch µs, the whole model's items/s with and
+   without the kernel, the decisions; then a predictor built with that
+   table launches exactly the "cuda" ops the table leaves (NMS once), the
+   ops it moved to "torch" and every kernel op within the tie bound of
+   their other impl on its run's inputs, NMS equal to its plain version;
+   detections and img/s against the default predictor are information.
+   (b) ``sweep_gemm_blocks`` at ERNIE-tiny's four GEMM shapes: every plan
+   that fits the block, each bit-exact against the plain version (or the
+   phase fails), the winner against today's plan; ERNIE b32 / 128 with
+   the swept plans and with today's, outputs bit-equal, seqs/s in turns.
+   (c) Each of the JAX package's zoo entries (bf16 islands for SSD, CRNN
+   and ERNIE; float depthwise convs for DBNet) against the QuantConfig
+   defaults at the phases' sizes, items/s in turns with the model's
+   fidelity bar; the config ``models/zoo_config.RECOMMENDED`` ships must
+   hold its bar, and whether the table agrees with this run is printed.
+   (d) ``examples/torch_serve_classifier.py`` at full size: NV12 720p
+   frames through the port's ``cv`` on the host into MobileNetV1 b64 /
+   224 INT8 behind the batcher: requests/s, the host's ms a frame against
+   the device's ms a request, phase 3's launches, results equal to the
+   same frames run directly within the softmax bound.  (Phase 15b also
+   exports phase 14c's decode loop, its ``while`` as ``while_loop``, and
+   holds it to ``Predictor`` bit for bit in the fresh process.)
+17. The last lines: the card (nvidia-smi), the kernels' JSON line, then
    ``{"ok": true, "device": {...}}``.
 
 With ``--json PATH`` the per-shape numbers are also written to PATH.
@@ -296,12 +324,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2272,8 +2302,8 @@ def _path_checks(path: str, g8, pred8, feeds, want: dict) -> dict:
 
 
 def phase_dbnet(fma_per_s: float):
-    """Phase 9: DBNet-640 b4 INT8 with its zoo config (float depthwise
-    convs, fp32 islands)."""
+    """Phase 9: DBNet-640 b4 INT8 with its zoo config (the defaults: int8
+    depthwise convs on the kernel, fp32 islands)."""
     from paddle_lite_tpu_torch.models import ppocr
     from paddle_lite_tpu_torch.models.zoo_config import recommended_quant
     from paddle_lite_tpu_torch.runtime.predictor import create_predictor
@@ -2302,8 +2332,8 @@ def phase_dbnet(fma_per_s: float):
     # (b) 3 requests; every kernel op against its torch op
     want = path_launches(g8)
     print(f"  kernel ops a request: {want}")
-    if (want["int8_gemm"], want["dw_conv"], want["dw_pw_fused"], want["nms"]) != (15, 0, 0, 0):
-        fail(f"expected 15 GEMM ops on the kernels, got {want}")
+    if (want["int8_gemm"], want["dw_conv"], want["dw_pw_fused"], want["nms"]) != (15, 8, 0, 0):
+        fail(f"expected 15 GEMM and 8 depthwise ops on the kernels, got {want}")
     checks = _path_checks("dbnet", g8, pred8, feeds, want)
     PATHS["dbnet"] = (pred8, feeds, want)
     out_name = g8.outputs[0]
@@ -2334,6 +2364,17 @@ def phase_dbnet(fma_per_s: float):
 # ---- phase 10 --------------------------------------------------------------
 
 CRNN_BATCH, CRNN_WIDTH = 64, 320  # the reference benchmark's CRNN (tools/benchmark.py:37-40)
+
+
+def _islands(g) -> str:
+    """"bf16" or "fp32": the island dtype an optimized graph runs."""
+    return "bf16" if g.meta.get("island_dtype") == "bfloat16" else "fp32"
+
+
+def _other_islands(quant):
+    """`quant` with the other island dtype: the in-turns reading's other side."""
+    return dataclasses.replace(quant, island_dtype="float32" if quant.island_dtype == "bfloat16"
+                               else "bfloat16")
 CRNN_COSINE = 0.99  # the reference's bar (tests/test_model_zoo_int8.py:120)
 
 
@@ -2429,8 +2470,8 @@ def _bucketer_run(rng) -> dict:
 
 
 def phase_crnn(fma_per_s: float):
-    """Phase 10: CRNN-320 b64 INT8 with its zoo config (bf16 islands)."""
-    from paddle_lite_tpu_torch import QuantConfig
+    """Phase 10: CRNN-320 b64 INT8 with its zoo config (fp32 islands, the
+    defaults), beside the other islands."""
     from paddle_lite_tpu_torch.models import ppocr
     from paddle_lite_tpu_torch.models.zoo_config import recommended_quant
     from paddle_lite_tpu_torch.runtime.predictor import create_predictor
@@ -2445,7 +2486,7 @@ def phase_crnn(fma_per_s: float):
     t0 = time.perf_counter()
     g8 = ppocr.build_rec(**kw)
     pred8 = create_predictor(g8, quant=quant, calib_batches=calib, device=DEV)
-    pred8_f32 = create_predictor(ppocr.build_rec(**kw), quant=QuantConfig(),
+    pred8_alt = create_predictor(ppocr.build_rec(**kw), quant=_other_islands(quant),
                                  calib_batches=calib, device=DEV)
     pred32 = create_predictor(ppocr.build_rec(**kw), device=DEV)
     print(f"phase 10: CRNN b{CRNN_BATCH} strip width {CRNN_WIDTH} INT8 ({quant}): build + "
@@ -2482,7 +2523,8 @@ def phase_crnn(fma_per_s: float):
         ref = pred32.run(f)
         coss.append(_cosine(p, ref[probs_name]))
         same.append(float((d == ref[dec_name]).all(dim=1).float().mean()))
-        print(f"  request {i}: int8 (bf16 islands) vs fp32 probabilities cosine {coss[-1]:.6f}; "
+        print(f"  request {i}: int8 ({_islands(g8)} islands) vs fp32 probabilities cosine "
+              f"{coss[-1]:.6f}; "
               f"equal CTC decodes {same[-1]:.4f} of strips")
         if not coss[-1] > CRNN_COSINE:
             fail(f"request {i}: probabilities cosine {coss[-1]} <= {CRNN_COSINE}")
@@ -2490,18 +2532,19 @@ def phase_crnn(fma_per_s: float):
 
     # (c) information: bf16 against fp32 islands in turns, throughput, a
     # profiled request; then phase 7a's check on this path; the bucketer
+    by = {_islands(g8): pred8, _islands(pred8_alt.graph): pred8_alt}
     turns = {"bf16": [], "fp32": []}
     for tag in ("bf16", "fp32", "fp32", "bf16"):
-        turns[tag].append(_ips(pred8 if tag == "bf16" else pred8_f32, feeds[0],
-                               batch=CRNN_BATCH))
-    cos_islands = _cosine(pred8.run(feeds[0])[probs_name], pred8_f32.run(feeds[0])[probs_name])
+        turns[tag].append(_ips(by[tag], feeds[0], batch=CRNN_BATCH))
+    cos_islands = _cosine(by["bf16"].run(feeds[0])[probs_name],
+                          by["fp32"].run(feeds[0])[probs_name])
     print(f"  img/s in turns, int8 with bf16 islands / fp32 islands: "
           f"{turns['bf16'][0]:.1f}, {turns['fp32'][0]:.1f}, {turns['fp32'][1]:.1f}, "
           f"{turns['bf16'][1]:.1f}; bf16 vs fp32 islands probabilities cosine {cos_islands:.6f}")
     serving = _serving_numbers(pred8, pred32, feeds[0], CRNN_BATCH, top=16)
     _check_profiled_launches("crnn", serving["profile"]["int8"], want)
     compiled = compiled_vs_eager("crnn", pred8, feeds, want)
-    del pred8_f32
+    del pred8_alt, by
     bucketer = _bucketer_run(rng)
     return rows, checks["launches"], dict(
         serving, cosine=coss, equal_decodes=same, ctc=ctc, islands_img_s_in_turns=turns,
@@ -2512,12 +2555,13 @@ def phase_crnn(fma_per_s: float):
 
 
 def phase_ssd_islands(ssd_pred8):
-    """SSD b32 with its zoo config (bf16 islands) against phase 4's int8
+    """SSD b32 with bf16 islands (the JAX package's zoo entry; the port's,
+    measured on the card, is phase 4's defaults) against phase 4's int8
     predictor (fp32 islands), in turns: img/s, detection agreement and the
     NMS op's input dtype (information); its launches as phase 4's."""
+    from paddle_lite_tpu_torch import QuantConfig
     from paddle_lite_tpu_torch.core.executor import build_callable
     from paddle_lite_tpu_torch.models import ssd
-    from paddle_lite_tpu_torch.models.zoo_config import recommended_quant
     from paddle_lite_tpu_torch.runtime.predictor import create_predictor
 
     rng = np.random.default_rng(1)
@@ -2526,7 +2570,8 @@ def phase_ssd_islands(ssd_pred8):
     feed = {"image": rng.normal(size=shape).astype(np.float32)}
     kw = dict(batch=SSD_BATCH, image_size=SSD_SIZE, num_classes=SSD_CLASSES, seed=0)
     g = ssd.build(**kw)
-    pred = create_predictor(g, quant=recommended_quant("ssd"), calib_batches=calib, device=DEV)
+    pred = create_predictor(g, quant=QuantConfig(island_dtype="bfloat16"), calib_batches=calib,
+                            device=DEV)
     want = path_launches(g)
     _reset_counts()
     outs = [pred.run(feed) for _ in range(REQUESTS)]
@@ -2543,7 +2588,8 @@ def phase_ssd_islands(ssd_pred8):
     turns = {"bf16": [], "fp32": []}
     for tag in ("bf16", "fp32", "fp32", "bf16"):
         turns[tag].append(_ips(pred if tag == "bf16" else ssd_pred8, feed, batch=SSD_BATCH))
-    print(f"phase 4b: SSD b{SSD_BATCH} INT8 with its zoo config (bf16 islands): launches as "
+    print(f"phase 4b: SSD b{SSD_BATCH} INT8 with bf16 islands (the JAX package's zoo entry): "
+          f"launches as "
           f"phase 4's {want}; NMS input dtypes {sorted({str(v) for v in seen.values()})}; "
           f"detections against fp32 islands (same label, IoU >= 0.5): {agree[0]:.4f} of "
           f"bf16's found, {agree[1]:.4f} of fp32's; img/s in turns bf16 / fp32 islands: "
@@ -2628,13 +2674,12 @@ def saturating_gemm(rng, m: int) -> dict:
 
 
 def phase_ernie(fma_per_s: float):
-    """Phase 11: ERNIE-tiny b32 / len 128 INT8 with its zoo config (bf16
-    islands, tanh-gelu): the GEMM at every shape of the path and the
+    """Phase 11: ERNIE-tiny b32 / len 128 INT8 with its zoo config (fp32
+    islands, the defaults; tanh-gelu): the GEMM at every shape of the path and the
     saturating case; 3 compiled requests with 14 GEMM launches each at
     capture and no int8 fc on the torch route; the last encoder hidden
     state and the probabilities against the port's fp32 predictor; phase
     7a's checks on the path."""
-    from paddle_lite_tpu_torch import QuantConfig
     from paddle_lite_tpu_torch.core.executor import build_callable
     from paddle_lite_tpu_torch.models import ernie_tiny
     from paddle_lite_tpu_torch.models.zoo_config import recommended_quant
@@ -2654,7 +2699,7 @@ def phase_ernie(fma_per_s: float):
     t0 = time.perf_counter()
     g8 = ernie_tiny.build(**kw)
     pred8 = create_predictor(g8, quant=quant, calib_batches=calib, device=DEV)
-    pred8_f32 = create_predictor(ernie_tiny.build(**kw), quant=QuantConfig(),
+    pred8_alt = create_predictor(ernie_tiny.build(**kw), quant=_other_islands(quant),
                                  calib_batches=calib, device=DEV)
     pred32 = create_predictor(ernie_tiny.build(**kw), device=DEV)
     print(f"phase 11: ERNIE-tiny b{ERNIE_BATCH} / len {ERNIE_SEQ} INT8 ({quant}): build + "
@@ -2709,14 +2754,14 @@ def phase_ernie(fma_per_s: float):
 
     # (c) information: bf16 against fp32 islands in turns, throughput, a
     # profiled request by kind of kernel; then phase 7a's checks on the path
+    by = {_islands(g8): pred8, _islands(pred8_alt.graph): pred8_alt}
     turns = {"bf16": [], "fp32": []}
     for tag in ("bf16", "fp32", "fp32", "bf16"):
-        turns[tag].append(_ips(pred8 if tag == "bf16" else pred8_f32, feeds[0],
-                               batch=ERNIE_BATCH))
+        turns[tag].append(_ips(by[tag], feeds[0], batch=ERNIE_BATCH))
     print(f"  seqs/s in turns, int8 with bf16 islands / fp32 islands: "
           f"{turns['bf16'][0]:.1f}, {turns['fp32'][0]:.1f}, {turns['fp32'][1]:.1f}, "
           f"{turns['bf16'][1]:.1f}")
-    del pred8_f32
+    del pred8_alt, by
     serving = _serving_numbers(pred8, pred32, feeds[0], ERNIE_BATCH, top=40)
     _check_profiled_launches("ernie", serving["profile"]["int8"], want)
     kinds = {tag: _ernie_kinds(p) for tag, p in serving["profile"].items()}
@@ -3864,10 +3909,11 @@ print(json.dumps(res))
 
 
 def _export_models():
-    """15b's three models, optimized as phases 3, 4 and 11 build them:
-    name -> (graph, feed, batch)."""
+    """15b's models, optimized as phases 3, 4 and 11 build them, and phase
+    14c's decode loop (its ``while`` exported as ``while_loop``): name ->
+    (graph, feed, batch)."""
     from paddle_lite_tpu_torch import QuantConfig
-    from paddle_lite_tpu_torch.models import ernie_tiny, mobilenet_v1, ssd
+    from paddle_lite_tpu_torch.models import beam_decode, ernie_tiny, mobilenet_v1, ssd
     from paddle_lite_tpu_torch.models.zoo_config import recommended_quant
     from paddle_lite_tpu_torch.tools.opt import optimize
 
@@ -3892,6 +3938,8 @@ def _export_models():
     g = ernie_tiny.build(batch=ERNIE_BATCH, seq_len=ERNIE_SEQ, seed=0)
     optimize(g, quant=recommended_quant("ernie_tiny"), calib_batches=[tokens()], device=DEV)
     models["ernie_tiny"] = (g, tokens(), ERNIE_BATCH)
+    models["beam_decode"] = (beam_decode.build(**DECODE), beam_decode.feed(
+        **{k: DECODE[k] for k in ("batch", "beam", "hidden")}), DECODE["batch"])
     return models
 
 
@@ -3999,7 +4047,8 @@ def _export(models) -> tuple:
                   f"{o['launches']}, its custom ops {o['custom_ops']}; items/s, input on the "
                   f"card, host clock over 10 requests: loaded program (op by op) "
                   f"{o['loaded_items_s']:.1f}, compiled predictor {o['predictor_items_s']:.1f}")
-            if not o["equal"] or not any(o["launches"].values()):
+            # the decode loop is fp32 with no kernel op: it launches none
+            if not o["equal"] or any(o["launches"].values()) != (name != "beam_decode"):
                 fail(f"15b: {name}: {o}")
             del pred
         g, feed, _ = models["mobilenet_v1"]
@@ -4235,6 +4284,443 @@ def phase_port_tools(fp32_per_s: float) -> tuple:
 
 
 
+# ---- phase 16 ---------------------------------------------------------------
+
+PHASE16_TARGET_S = 120
+TUNE_WINDOW_S = 0.1  # 16a's in-model readings (the benchmark's 0.4 s, cut for time)
+# 16b: ERNIE-tiny b32 / len 128's four GEMM shapes (M, K, N, int8 out)
+ERNIE_GEMMS = ((4096, 1024, 3072, False), (4096, 1024, 1024, False),
+               (4096, 1024, 4096, True), (4096, 4096, 1024, False))
+# 16c: the JAX package's zoo entries (measured on a TPU), each A/B'd against
+# the QuantConfig defaults on the card; an entry ships only if it is
+# ZOO_MIN_WIN times faster and its fidelity bar holds
+ZOO_CANDIDATES = {"ssd": {"island_dtype": "bfloat16"},
+                  "ppocr_det": {"quant_depthwise": False},
+                  "ppocr_rec": {"island_dtype": "bfloat16"},
+                  "ernie_tiny": {"island_dtype": "bfloat16"}}
+ZOO_MIN_WIN = 1.01
+ZOO_WINDOW_S = 0.3  # each in-turns reading's host-clock window
+SSD_AGREEMENT = 0.85  # int8 vs fp32 detections both ways (phase 4 reads 0.886)
+# 16d: NV12 720p camera frames through cv into MobileNetV1 b64 behind the batcher
+FRAME = (720, 1280)
+NV12_REQUESTS, NV12_CLIENTS = 512, 8
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+
+
+@contextlib.contextmanager
+def _table_at(path: str):
+    """The kernel table read from, and written to, `path` inside."""
+    from paddle_lite_tpu_torch.ops.kernels import tune_cache
+
+    before = os.environ[tune_cache.ENV]
+    os.environ[tune_cache.ENV] = path
+    try:
+        yield
+    finally:
+        os.environ[tune_cache.ENV] = before
+
+
+def _window_ips(pred, feed: dict, batch: int, window_s: float) -> float:
+    """Items/s of `pred` on `feed` (on the card) by the host clock over
+    enough requests to span `window_s`, ending in a synchronise."""
+    pred.run(feed)
+    torch.cuda.synchronize()
+    n = 4
+    while True:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            pred.run(feed)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        if t >= window_s:
+            return n * batch / t
+        n = max(2 * n, int(n * 1.2 * window_s / max(t, 1e-6)) + 1)
+
+
+def _in_turns_window(a, b, feed: dict, batch: int, window_s: float) -> tuple:
+    """Items/s of predictors `a` and `b` in turns (a, b, b, a)."""
+    t = {"a": [], "b": []}
+    for tag in ("a", "b", "b", "a"):
+        t[tag].append(_window_ips(a if tag == "a" else b, feed, batch, window_s))
+    return t["a"], t["b"]
+
+
+def _tune_ssd() -> tuple:
+    """16a: ``cli tune --validate`` on SSD-300 b32 into a fresh table; a
+    predictor built with that table against the default predictor."""
+    from paddle_lite_tpu_torch import QuantConfig
+    from paddle_lite_tpu_torch.core.executor import ExecutionContext
+    from paddle_lite_tpu_torch.core.registry import OPS
+    from paddle_lite_tpu_torch.models import ssd
+    from paddle_lite_tpu_torch.ops.kernels import nms, ops_cuda, tune_cache
+    from paddle_lite_tpu_torch.passes.kernel_pick import int8_activation
+    from paddle_lite_tpu_torch.runtime.predictor import create_predictor
+    from paddle_lite_tpu_torch.testing import (TIE_FRACTION, TIE_LSB, capture_all,
+                                               op_local_diffs, within_tie_bound)
+    from paddle_lite_tpu_torch.tools import cli
+
+    table_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    argv = ["tune", "--model", "ssd", "--batch", str(SSD_BATCH), "--image-size",
+            str(SSD_SIZE), "--validate", "--window", str(TUNE_WINDOW_S)]
+    print(f"  16a: cli {' '.join(argv)} into a fresh table ({table_dir})")
+    t0 = time.perf_counter()
+    with _table_at(table_dir):
+        cli.main(argv)
+    tune_s = time.perf_counter() - t0
+    with open(os.path.join(table_dir, tune_cache.TABLE)) as f:
+        table = json.load(f)
+    for key, e in sorted(table.items()):
+        im = e.get("in_model")
+        print(f"    {key:22s} kernel {e['cuda_us']:8.1f} us, torch {e['torch_us']:8.1f} us"
+              + (f"; in-model items/s with the kernel {im['with_cuda']:.1f}, on torch "
+                 f"{im['with_torch']:.1f}" if im else "; not validated (torch alone)")
+              + f" -> {e['winner']}")
+    demoted = sorted(k for k, e in table.items() if e["winner"] == "torch")
+
+    rng = np.random.default_rng(16)
+    shape = (SSD_BATCH, SSD_SIZE, SSD_SIZE, 3)
+    calib = [{"image": rng.normal(size=shape).astype(np.float32)}]
+    feed = {"image": rng.normal(size=shape).astype(np.float32)}
+    kw = dict(batch=SSD_BATCH, image_size=SSD_SIZE, num_classes=SSD_CLASSES, seed=0)
+    g_d = ssd.build(**kw)
+    pred_d = create_predictor(g_d, quant=QuantConfig(), calib_batches=calib, device=DEV)
+    with _table_at(table_dir):
+        g_t = ssd.build(**kw)
+        pred_t = create_predictor(g_t, quant=QuantConfig(), calib_batches=calib, device=DEV)
+        want = path_launches(g_t)
+        _reset_counts()
+        outs = [pred_t.run(feed) for _ in range(REQUESTS)]
+        torch.cuda.synchronize()
+        launches = _counts()
+    wrong = [op.outputs[next(iter(op.outputs))][0] for op in g_t.ops
+             if tune_cache._op_table_key(g_t, op) is not None and int8_activation(g_t, op)
+             and (op.attrs.get("kernel") == "cuda")
+             != (table[tune_cache._op_table_key(g_t, op)]["winner"] == "cuda")]
+    cuda_ops = sum(op.attrs.get("kernel") == "cuda" for op in g_t.ops
+                   if op.op_type in ("conv2d", "depthwise_conv2d"))
+    print(f"  16a: tuned SSD predictor: kernel ops a request {want} ({cuda_ops} convs on the "
+          f"kernels, {len(demoted)} buckets demoted: {demoted}); ops tagged against the "
+          f"table: {wrong or 'none'}")
+    _check_first_run("ssd_tuned", launches, want)
+    if wrong or want["nms"] != 1 or want["int8_gemm"] + want["dw_conv"] != cuda_ops:
+        fail(f"16a: the tuned predictor does not launch what its table leaves: {wrong}, {want}")
+
+    # the tie bound against the default predictor: every op the table moved
+    # to "torch" against its kernel on the tuned run's inputs, every kernel op
+    # against its torch op; NMS against its plain version, exactly
+    env = capture_all(g_t, pred_t._weights, feed, DEV)
+    env.update(pred_t._weights)
+    ctx = ExecutionContext(graph=g_t, device=DEV)
+    moved = []
+    for op_t, op_d in zip(g_t.topological_order(), g_d.topological_order()):
+        if op_t.attrs.get("kernel") == op_d.attrs.get("kernel"):
+            continue
+        ins = {s: [env[n] for n in ns] for s, ns in op_t.inputs.items() if ns}
+        ref = OPS.get(op_t.op_type).impls[op_d.attrs["kernel"]](ctx, op_t, ins)
+        for slot, arrs in ref.items():
+            for name, r in zip(op_t.outputs[slot], arrs):
+                d = (env[name].double() - r.double()).abs()
+                moved.append({"op": op_t.op_type, "var": name, "numel": d.numel(),
+                              "n_diff": int((d > 0).sum()), "max_diff": float(d.max())})
+    local = op_local_diffs(g_t, pred_t._weights, feed, DEV)
+    nms_op = next(op for op in g_t.ops if op.op_type == "multiclass_nms")
+    boxes, scores = env[nms_op.input("BBoxes")], env[nms_op.input("Scores")]
+    got = ops_cuda.multiclass_nms(boxes, scores, nms_op.attrs)
+    ref = ops_cuda.multiclass_nms(boxes, scores, nms_op.attrs, keep=nms.nms_keep_scores_plain)
+    out_name = g_t.outputs[0]
+    nms_equal = torch.equal(got, ref) and torch.equal(got, outs[0][out_name])
+    y_d = pred_d.run(feed)[out_name]
+    agree = (_det_agreement(outs[0][out_name], y_d), _det_agreement(y_d, outs[0][out_name]))
+    ips_t, ips_d = _in_turns_window(pred_t, pred_d, _on_dev(feed), SSD_BATCH, ZOO_WINDOW_S)
+    worst = max((d["n_diff"] / d["numel"] for d in moved + local), default=0.0)
+    print(f"  16a: the ops the table moved ({len(moved)} outputs) against the default's kernel "
+          f"and every kernel op against its torch op ({len(local)} outputs), on the tuned "
+          f"run's inputs: worst fraction {worst:.3g} (bound {TIE_FRACTION}, {TIE_LSB} LSB); "
+          f"NMS kernel vs plain on its inputs: {'equal' if nms_equal else 'DIFFERENT'}; "
+          f"detections tuned vs default (same label, IoU >= 0.5): {agree[0]:.4f} / "
+          f"{agree[1]:.4f}; img/s in turns tuned / default: "
+          f"{', '.join(f'{v:.1f}' for v in ips_t)} / {', '.join(f'{v:.1f}' for v in ips_d)}; "
+          f"cli tune {tune_s:.1f} s")
+    if not within_tie_bound(moved + local) or not nms_equal:
+        fail(f"16a: the tuned predictor leaves the tie bound of the default: "
+             f"{[d for d in moved + local if d['n_diff']]}, nms equal {nms_equal}")
+    del pred_t, pred_d, env, outs
+    torch.cuda.empty_cache()
+    return {"table": table, "demoted": demoted, "kernel_ops": want, "launches": launches,
+            "moved_outputs": len(moved), "worst_fraction": worst,
+            "detection_agreement": agree, "img_s_in_turns": {"tuned": ips_t, "default": ips_d},
+            "tune_s": tune_s}, launches
+
+
+def _sweep_ernie() -> tuple:
+    """16b: the GEMM's plans swept at ERNIE's four shapes; ERNIE b32 / 128
+    with the swept plans against today's, in turns."""
+    from paddle_lite_tpu_torch.models import ernie_tiny
+    from paddle_lite_tpu_torch.models.zoo_config import recommended_quant
+    from paddle_lite_tpu_torch.ops.kernels import tune_cache
+    from paddle_lite_tpu_torch.runtime.predictor import create_predictor
+
+    table_dir = tempfile.mkdtemp(prefix="chip_smoke_blocks_")
+    sweeps = {}
+    with _table_at(table_dir):
+        for m, k, n, out_i8 in ERNIE_GEMMS:
+            r = tune_cache.sweep_gemm_blocks(m, k, n, out_i8=out_i8, device=DEV)
+            sweeps[f"{m}x{k}x{n}"] = r
+            ops = 2 * m * k * n
+            print(f"  16b: {m}x{k}x{n} {'int8' if out_i8 else 'fp32'} out, "
+                  f"{len(r['candidates'])} plans (bn, bk, warpgroups: us, * not bit-exact): "
+                  + " ".join(f"{tuple(c['plan'])}:{c['us']:.1f}" if c["exact"]
+                             else f"{tuple(c['plan'])}:*" for c in r["candidates"]))
+            print(f"  16b: {m}x{k}x{n}: winner {tuple(r['plan'])} {r['us']:.1f} us "
+                  f"({ops / r['us'] / 1e6:.1f} TOP/s) against today's {tuple(r['default_plan'])} "
+                  f"{r['default_us']:.1f} us ({ops / r['default_us'] / 1e6:.1f} TOP/s): "
+                  f"x{r['default_us'] / r['us']:.3f}")
+            bad = [c["plan"] for c in r["candidates"] if not c["exact"]]
+            if bad:
+                fail(f"16b: {m}x{k}x{n}: plans {bad} differ from the plain version")
+
+    rng = np.random.default_rng(161)
+    shape = (ERNIE_BATCH, ERNIE_SEQ)
+
+    def tokens():
+        return {"token_ids": rng.integers(0, 18000, shape).astype(np.int32),
+                "segment_ids": rng.integers(0, 4, shape).astype(np.int32)}
+
+    calib, feed = [tokens()], tokens()
+    kw = dict(batch=ERNIE_BATCH, seq_len=ERNIE_SEQ, seed=0)
+    quant = recommended_quant("ernie_tiny")
+    preds, launches = {}, {}
+    for tag, where in (("swept", table_dir), ("today", os.environ[tune_cache.ENV])):
+        with _table_at(where):  # the plans are read at the first request's capture
+            g = ernie_tiny.build(**kw)
+            preds[tag] = create_predictor(g, quant=quant, calib_batches=calib, device=DEV)
+            _reset_counts()
+            preds[tag].run(feed)
+            torch.cuda.synchronize()
+            launches[f"ernie_{tag}_plans"] = _counts()
+            _check_first_run(f"ernie_{tag}_plans", launches[f"ernie_{tag}_plans"],
+                             path_launches(g))
+    on = _on_dev(feed)
+    equal = _outs_equal(preds["swept"].run(on), preds["today"].run(on))
+    ips_s, ips_d = _in_turns_window(preds["swept"], preds["today"], on, ERNIE_BATCH,
+                                    ZOO_WINDOW_S)
+    gain = statistics.median(ips_s) / statistics.median(ips_d) - 1
+    print(f"  16b: ERNIE b{ERNIE_BATCH} / {ERNIE_SEQ} ({quant}) seqs/s in turns, swept plans / "
+          f"today's: {', '.join(f'{v:.1f}' for v in ips_s)} / "
+          f"{', '.join(f'{v:.1f}' for v in ips_d)} ({100 * gain:+.2f} %, medians); outputs "
+          f"bit-equal: {equal}")
+    if not equal:
+        fail("16b: ERNIE's outputs differ between the swept plans and today's")
+    del preds
+    torch.cuda.empty_cache()
+    return {"sweeps": sweeps, "seqs_s_in_turns": {"swept": ips_s, "today": ips_d},
+            "gain": gain}, launches
+
+
+def _zoo_model(name: str, rng):
+    """(build, feed maker, batch, fidelity(y8, y32) -> (value, ok), the
+    bar's text) of a zoo model at the size its phase runs."""
+    from paddle_lite_tpu_torch.models import ernie_tiny, ppocr, ssd
+
+    if name == "ssd":
+        shape = (SSD_BATCH, SSD_SIZE, SSD_SIZE, 3)
+
+        def agreement(y, y32):
+            v = min(_det_agreement(y, y32), _det_agreement(y32, y))
+            return v, v >= SSD_AGREEMENT
+
+        return (lambda: ssd.build(batch=SSD_BATCH, image_size=SSD_SIZE,
+                                  num_classes=SSD_CLASSES, seed=0),
+                lambda: {"image": rng.normal(size=shape).astype(np.float32)}, SSD_BATCH,
+                agreement, f"detections vs fp32 both ways >= {SSD_AGREEMENT}")
+    if name == "ppocr_det":
+        shape = (DBNET_BATCH, DBNET_SIZE, DBNET_SIZE, 3)
+
+        def map_diff(y, y32):
+            v = float((y - y32).abs().mean())
+            return v, v < DBNET_MAP_MEAN_ABS
+
+        return (lambda: ppocr.build_det(batch=DBNET_BATCH, image_size=DBNET_SIZE, seed=0),
+                lambda: {"image": rng.normal(size=shape).astype(np.float32)}, DBNET_BATCH,
+                map_diff, f"map mean abs diff vs fp32 < {DBNET_MAP_MEAN_ABS}")
+    if name == "ppocr_rec":
+        shape = (CRNN_BATCH, 32, CRNN_WIDTH, 3)
+
+        def cosine(y, y32):
+            v = _cosine(y, y32)
+            return v, v > CRNN_COSINE
+
+        return (lambda: ppocr.build_rec(batch=CRNN_BATCH, width=CRNN_WIDTH, seed=0),
+                lambda: {"image": rng.normal(size=shape).astype(np.float32)}, CRNN_BATCH,
+                cosine, f"probabilities cosine vs fp32 > {CRNN_COSINE}")
+    shape = (ERNIE_BATCH, ERNIE_SEQ)
+
+    def probs(y, y32):
+        v = float((y - y32).abs().max())
+        return v, v < ERNIE_PROB_ATOL
+
+    return (lambda: ernie_tiny.build(batch=ERNIE_BATCH, seq_len=ERNIE_SEQ, seed=0),
+            lambda: {"token_ids": rng.integers(0, 18000, shape).astype(np.int32),
+                     "segment_ids": rng.integers(0, 4, shape).astype(np.int32)},
+            ERNIE_BATCH, probs, f"probabilities vs fp32 max abs diff < {ERNIE_PROB_ATOL}")
+
+
+def _zoo_ab() -> dict:
+    """16c: each of the JAX package's zoo entries against the QuantConfig
+    defaults on the card, compiled, input on the card, in turns, with its
+    model's fidelity bar; the verdict beside models/zoo_config.RECOMMENDED."""
+    from paddle_lite_tpu_torch import QuantConfig
+    from paddle_lite_tpu_torch.models.zoo_config import RECOMMENDED
+    from paddle_lite_tpu_torch.runtime.predictor import create_predictor
+
+    rng = np.random.default_rng(162)
+    out = {}
+    for name, entry in ZOO_CANDIDATES.items():
+        build, make_feed, batch, fidelity, bar = _zoo_model(name, rng)
+        calib, feed = [make_feed()], make_feed()
+        preds = {"entry": create_predictor(build(), quant=QuantConfig(**entry),
+                                           calib_batches=calib, device=DEV),
+                 "defaults": create_predictor(build(), quant=QuantConfig(),
+                                              calib_batches=calib, device=DEV)}
+        pred32 = create_predictor(build(), device=DEV)
+        out_name = pred32.graph.outputs[0]
+        y32 = pred32.run(feed)[out_name]
+        fid = {k: fidelity(p.run(feed)[out_name], y32) for k, p in preds.items()}
+        ips_e, ips_0 = _in_turns_window(preds["entry"], preds["defaults"], _on_dev(feed),
+                                        batch, ZOO_WINDOW_S)
+        ratio = statistics.median(ips_e) / statistics.median(ips_0)
+        keep = ratio >= ZOO_MIN_WIN and fid["entry"][1]
+        shipped = RECOMMENDED[name]
+        agrees = shipped == (entry if keep else {})
+        out[name] = {"entry": entry, "items_s_in_turns": {"entry": ips_e, "defaults": ips_0},
+                     "entry_over_defaults": ratio, "fidelity": fid, "bar": bar,
+                     "keep": keep, "shipped": shipped, "table_agrees": agrees}
+        print(f"  16c: {name} b{batch} {entry} vs the QuantConfig defaults, items/s in turns: "
+              f"{', '.join(f'{v:.1f}' for v in ips_e)} / {', '.join(f'{v:.1f}' for v in ips_0)} "
+              f"(x{ratio:.4f}); {bar}: entry {fid['entry'][0]:.6g} "
+              f"({'ok' if fid['entry'][1] else 'FAILED'}), defaults {fid['defaults'][0]:.6g} "
+              f"({'ok' if fid['defaults'][1] else 'FAILED'}) -> "
+              f"{'keep the entry' if keep else 'the defaults'}; "
+              f"models/zoo_config.RECOMMENDED[{name!r}] = {shipped}: "
+              f"{'agrees' if agrees else 'DISAGREES'}")
+        shipped_ok = fid["entry" if shipped == entry else "defaults"][1]
+        if shipped not in (entry, {}) or not shipped_ok:
+            fail(f"16c: {name}: the shipped config {shipped} fails its bar ({bar})")
+        del preds, pred32
+        torch.cuda.empty_cache()
+    return out
+
+
+def _serve_nv12() -> tuple:
+    """16d: the serve_classifier twin at full size: NV12 720p frames through
+    the port's cv on the host into MobileNetV1 b64 / 224 INT8 behind the
+    batcher on the card."""
+    import importlib.util
+    import threading
+
+    from paddle_lite_tpu_torch.runtime.batcher import BatcherConfig, ContinuousBatcher
+    from paddle_lite_tpu_torch.testing import SOFTMAX_ATOL
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_classifier", os.path.join(EXAMPLES, "torch_serve_classifier.py"))
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    h, w = FRAME
+    pred = twin.make_predictor(BATCH, SIZE, DEV)
+    out_name = pred.output_names[0]
+    frames = [twin.nv12_frame(h, w, seed=c) for c in range(NV12_CLIENTS)]
+    per = NV12_REQUESTS // NV12_CLIENTS
+    cv_s = [[] for _ in range(NV12_CLIENTS)]
+    results = [[] for _ in range(NV12_CLIENTS)]
+    tensors = [None] * NV12_CLIENTS
+    errors = []
+
+    def client(c):
+        try:
+            y, uv = frames[c]
+            futs = []
+            for _ in range(per):
+                t0 = time.perf_counter()
+                x = twin.preprocess(y, uv, h, w, SIZE)
+                cv_s[c].append(time.perf_counter() - t0)
+                futs.append(batcher.submit({"image": x}))
+            tensors[c] = x
+            results[c] = [f.result(timeout=600)[out_name] for f in futs]
+        except Exception as e:  # reported on the main thread
+            errors.append(f"client {c}: {e!r}")
+
+    _reset_counts()
+    batcher = ContinuousBatcher(lambda b: pred, BatcherConfig(buckets=(BATCH,), max_wait_ms=2.0))
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(NV12_CLIENTS)]
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        batcher.close()
+    launches = _counts()
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"16d: serving failed: {errors[:5]}")
+    want = {k: v * PER_FIRST_RUN for k, v in PATHS["mobilenet_v1"][2].items()}
+    direct = pred.run({"image": np.stack(tensors + [np.zeros_like(tensors[0])]
+                                         * (BATCH - NV12_CLIENTS))})[out_name]
+    err = max(float((r - direct[c]).abs().max()) for c in range(NV12_CLIENTS)
+              for r in results[c])
+    device_ms = _replay_ms(pred)
+    cv_ms = 1e3 * float(np.median([t for ts in cv_s for t in ts]))
+    st = batcher.stats
+    out = {"requests": NV12_REQUESTS, "clients": NV12_CLIENTS, "frame": list(FRAME),
+           "requests_per_s": NV12_REQUESTS / wall, "wall_s": wall, "cv_ms_a_frame": cv_ms,
+           "device_ms_a_request": device_ms, "device_ms_an_image": device_ms / BATCH,
+           "host_share": cv_ms / (cv_ms + device_ms / BATCH), "batches": st["batches"],
+           "padded_slots": st["padded_slots"], "max_abs_diff_vs_direct": err,
+           "launches": launches}
+    print(f"  16d: {NV12_REQUESTS} NV12 {h}x{w} frames from {NV12_CLIENTS} client threads "
+          f"(examples/torch_serve_classifier.py: cv.nv_to_rgb, resize to {SIZE}, to_tensor on "
+          f"the host) into MobileNetV1 b{BATCH} INT8 behind the batcher: "
+          f"{out['requests_per_s']:.1f} requests/s ({wall:.3f} s, {st['batches']} batches, "
+          f"{st['padded_slots']} padded slots); host cv {cv_ms:.3f} ms a frame (median, a "
+          f"thread each) against {device_ms:.4f} ms of device time a b{BATCH} request "
+          f"({device_ms / BATCH:.5f} ms an image): the host's share of a frame "
+          f"{100 * out['host_share']:.2f} %; results vs the same frames run directly max abs "
+          f"diff {err:.3g} (bound {SOFTMAX_ATOL}); launches {launches} (phase 3's, twice)")
+    if launches != want or err > SOFTMAX_ATOL or st["requests"] != NV12_REQUESTS:
+        fail(f"16d: launches {launches} (want {want}), max diff {err}, "
+             f"{st['requests']} of {NV12_REQUESTS} answered")
+    del pred
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_tuning() -> tuple:
+    """Phase 16: tuning on the card (16a ``cli tune --validate`` on SSD,
+    16b the ERNIE plan sweep), 16c the zoo table's A/B, 16d NV12 frames
+    through ``cv`` into the batcher."""
+    t0 = time.perf_counter()
+    print("phase 16: kernel tuning on the card, the zoo table's A/B, host preprocessing")
+    out, launches, secs = {}, {}, {}
+    out["tune_ssd"], launches["ssd_tuned"] = _tune_ssd()
+    secs["16a"] = time.perf_counter() - t0
+    out["sweep_ernie"], more = _sweep_ernie()
+    launches.update(more)
+    secs["16b"] = time.perf_counter() - t0 - sum(secs.values())
+    out["zoo"] = _zoo_ab()
+    secs["16c"] = time.perf_counter() - t0 - sum(secs.values())
+    out["serve_nv12"], launches["serve_nv12"] = _serve_nv12()
+    secs["16d"] = time.perf_counter() - t0 - sum(secs.values())
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = secs
+    print(f"phase 16: {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()) + ")")
+    if out["seconds"] > PHASE16_TARGET_S:
+        print(f"phase 16: over its {PHASE16_TARGET_S} s target")
+    return out, launches
+
+
 # ---- the kernels' line -----------------------------------------------------
 
 KERNELS = [  # name, source, TPU kernel it replaces, rows it covers
@@ -4354,6 +4840,12 @@ def main() -> None:
            or m.startswith("paddle_lite_tpu.") for m in sys.modules):
         fail("jax or the JAX package was imported")
 
+    # phases 1-15 read an empty kernel table of the script's own, so that a
+    # table left on the machine cannot steer their picks; phase 16 fills
+    # tables in directories of its own
+    from paddle_lite_tpu_torch.ops.kernels import tune_cache
+
+    os.environ[tune_cache.ENV] = tempfile.mkdtemp(prefix="chip_smoke_empty_table_")
     t0 = time.perf_counter()
     card, fma_per_s = phase_device()
     rows = phase_kernels(fma_per_s)
@@ -4376,6 +4868,10 @@ def main() -> None:
     if any(_counts().values()):
         fail(f"phase 14 launched a kernel: {_counts()}")
     tool_rows, port_tools, tool_launches = phase_port_tools(fma_per_s)
+    if os.listdir(os.environ[tune_cache.ENV]):
+        fail(f"phases 1-15 wrote to their empty kernel table: "
+             f"{os.listdir(os.environ[tune_cache.ENV])}")
+    tuning, tuning_launches = phase_tuning()
     all_rows = (rows + ssd_rows + fused_rows + v3_rows + r50_rows + db_rows + rec_rows
                 + ern_rows + tool_rows)
     kernels = _kernel_line(all_rows, {"mobilenet_v1": launches, "ssd": ssd_launches,
@@ -4385,7 +4881,7 @@ def main() -> None:
                                       "resnet50": r50_launches, "dbnet": db_launches,
                                       "crnn": rec_launches, "ernie": ern_launches,
                                       **quant_launches, **fluid_launches,
-                                      **tool_launches},
+                                      **tool_launches, **tuning_launches},
                            {"mobilenet_v1": e2e["profile"]["int8"],
                             "ssd": ssd["profile"]["int8"],
                             "mobilenet_v1_fused": fused["profile"]["int8"],
@@ -4438,6 +4934,7 @@ def main() -> None:
                        "mobilenet_v3": v3, "resnet50": r50, "dbnet": db, "crnn": rec,
                        "ernie": ern, "quant": quant, "fluid": fluid,
                        "op_library": op_library, "port_tools": port_tools,
+                       "tuning": tuning,
                        "compiled": compiled,
                        "serving": serving,
                        "benchmark": bench, "kernels": kernels}, f, indent=1)

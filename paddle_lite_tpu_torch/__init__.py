@@ -17,8 +17,12 @@ Layer map:
                       (testing.twins, formats.importer, tools.profile)
   core                IR, builder, registry, passes, eager executor and
                       compile_graph (the graph captured as a CUDA graph)
-  ops                 torch impls; ops.kernels: the CUDA kernels
-  tools.cli           the opt tool: compile / info / ops / passes / profile
+  ops                 torch impls; ops.kernels: the CUDA kernels, and the
+                      kernel table measured on the card (tune_cache,
+                      autotune; tools.cli tune)
+  cv                  host-side image preprocessing (native/cv.cc)
+  tools.cli           the opt tool: compile / info / ops / passes / profile /
+                      tune
   tools.accuracy_families, tools.eval
                       task-level accuracy of SSD / DBNet / CRNN / ERNIE
   tools.profile, tools.roofline_report, tools.gemm_roofline, tools.trace,

@@ -56,9 +56,14 @@ class ExecutionContext:
 
     def const(self, op: OpNode, key: str, make: Callable[[], Any]) -> Any:
         """`make()` once per (op, key); later calls reuse the result (the
-        ``PrepareForRun`` analog: scales folded and weights repacked once)."""
+        ``PrepareForRun`` analog: scales folded and weights repacked once).
+        Inside a block that Dynamo traces for an exported ``while_loop`` /
+        ``cond``, which allows no side effect, `make()` is traced into the
+        block instead of stored."""
         k = (op.id, key)
         if k not in self.consts:
+            if torch.compiler.is_dynamo_compiling():
+                return make()
             self.consts[k] = make()
         return self.consts[k]
 
@@ -160,18 +165,27 @@ def _public_outputs(graph: Graph, env: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _runner(graph: Graph, ctx: ExecutionContext,
-            capture: Optional[Callable[[str, torch.Tensor], None]] = None):
+            capture: Optional[Callable[[str, torch.Tensor], None]] = None,
+            exact: bool = True):
     """The eager loop of `graph` over `ctx` (its device and per-op
-    constants)."""
+    constants), with TF32 off (:func:`fp32_exact`) unless `exact` is
+    False: a block traced inside an exported program, whose caller sets
+    it (Dynamo traces no context manager)."""
     ops = _op_runner(graph, graph.topological_order(), ctx, capture)
 
     def run(weights: Dict[str, Any], inputs: Dict[str, Any]) -> Dict[str, Any]:
-        with fp32_exact():
-            env = _load_env(graph, weights, inputs, ctx.device, capture)
-            ops(env)
-            return _public_outputs(graph, env)
+        env = _load_env(graph, weights, inputs, ctx.device, capture)
+        ops(env)
+        return _public_outputs(graph, env)
 
-    return run
+    if not exact:
+        return run
+
+    def run_exact(weights: Dict[str, Any], inputs: Dict[str, Any]) -> Dict[str, Any]:
+        with fp32_exact():
+            return run(weights, inputs)
+
+    return run_exact
 
 
 def stage_weights(graph: Graph, device: torch.device) -> Dict[str, torch.Tensor]:

@@ -17,14 +17,17 @@ no graph and runs no pass and no calibration.
 - The program is traced on the device asked for and runs there: its
   buffers and its constants live on that device.
 - A graph holding an impl that synchronises with the host is refused with
-  ``compile_graph``'s message.  A graph holding ``while`` or
-  ``conditional_block`` is refused, naming the op: the port runs their
-  conditions on the host (``core/executor.CompiledGraph``).  PyTorch's
-  ``while_loop`` / ``cond`` trace their bodies with Dynamo, which must
-  capture a block whole, and the port's op impls break its graph (the
-  beam-decode block stops at "torch.* op returned non-Tensor"), so no
-  exported form of them exists yet: an open gap against the reference,
-  whose ``jax.export`` carries ``lax.while_loop``.
+  ``compile_graph``'s message, in a control-flow block too.
+- Control flow is exported, as the reference's ``jax.export`` carries
+  ``lax.while_loop`` (``formats/aot.py:27-42`` there): ``while`` becomes
+  ``torch._higher_order_ops.while_loop`` over the state vars and a trip
+  count of its own, which ``max_iters`` bounds (the condition is state var
+  ``cond_index`` and the trip count below ``max_iters``), and
+  ``conditional_block`` becomes ``torch.cond`` (``ops/control_flow.py``).
+  Dynamo traces each block whole; inside it an op's per-op constants are
+  traced into the block (``ExecutionContext.const``), since a traced block
+  may not fill the context's cache.  The loaded program runs the loop as
+  the HOP's own loop, reading the condition once a trip.
 - ``fp32_exact`` (TF32 off) is a setting of the process, not of the
   program: :func:`load_compiled`'s runner sets it around every call, as the
   predictor does.
@@ -45,21 +48,10 @@ import torch
 
 from .. import ops  # noqa: F401  (registers the plt:: custom ops)
 from ..core.device import DeviceLike, fp32_exact, resolve_device
-from ..core.executor import (CONTROL_FLOW, build_callable, nested_graphs,
-                             refuse_host_syncing, stage_weights)
+from ..core.executor import build_callable, refuse_host_syncing, stage_weights
 from ..core.ir import Graph
 
 META = "plt_meta.json"
-
-
-def _control_flow(graph: Graph) -> list:
-    found = []
-    for op in graph.topological_order():
-        if op.op_type in CONTROL_FLOW:
-            found.append(f"{op.op_type} (output {next(iter(op.outputs.values()))[0]})")
-        for g in nested_graphs(op):
-            found += _control_flow(g)
-    return found
 
 
 class _Program(torch.nn.Module):
@@ -82,12 +74,6 @@ def export_program(graph: Graph, *, device: DeviceLike = None):
     """The ``torch.export.ExportedProgram`` of the optimized `graph` on
     `device` (the card unless the CPU is asked for) and its meta (input
     names, shapes and dtypes, the device)."""
-    flow = _control_flow(graph)
-    if flow:
-        raise NotImplementedError(
-            f"export_compiled: {', '.join(flow)}: control flow is not exported "
-            f"(its condition is read on the host); serve the graph through "
-            f"Predictor or save it as an nbf artifact")
     refuse_host_syncing(graph)
     dev = resolve_device(device)
     example = {n: torch.zeros(graph.vars[n].shape, dtype=graph.vars[n].precision.torch_dtype,

@@ -23,7 +23,10 @@ A nested graph's runner and its staged weights are made once per op
 (``ctx.const``), not once per trip.  The eager impls of ``while`` and
 ``conditional_block`` read their condition on the host (``syncs_host``):
 ``core.executor.compile_graph`` runs them between captured segments, each
-block compiled into CUDA graphs of its own.
+block compiled into CUDA graphs of its own.  Under ``torch.export``
+(``formats/aot.py``) they trace instead as
+``torch._higher_order_ops.while_loop`` and ``torch.cond``, the reference's
+``lax.while_loop`` and ``lax.cond``, the same values as the eager forms.
 """
 
 from __future__ import annotations
@@ -36,15 +39,15 @@ from ..core.executor import ExecutionContext, _runner, stage_weights
 from ..core.registry import OPS
 
 
-def _nested(ctx, op, key: str):
+def _nested(ctx, op, key: str, exact: bool = True):
     """(runner, staged weights) of the graph in ``op.attrs[key]``, once per
-    op."""
+    op (``executor._runner``'s `exact`)."""
     def make():
         g = op.attrs[key]
-        return (_runner(g, ExecutionContext(graph=g, device=ctx.device)),
+        return (_runner(g, ExecutionContext(graph=g, device=ctx.device), exact=exact),
                 stage_weights(g, ctx.device))
 
-    return ctx.const(op, f"nested_{key}", make)
+    return ctx.const(op, f"nested_{key}" + ("" if exact else "_traced"), make)
 
 
 def _run_nested(ctx, op, key: str, env: Dict[str, Any]) -> Dict[str, Any]:
@@ -82,6 +85,8 @@ def while_torch(ctx, op, ins):
         raise ValueError("while block must output one var per state input")
     cond_index = int(op.attrs.get("cond_index", 0))
     max_iters = int(op.attrs.get("max_iters", 1000))
+    if torch.compiler.is_exporting():
+        return _while_exported(ctx, op, ins, cond_index, max_iters)
     state = list(ins["X"])
     trips = 0
     while trips < max_iters and _truth(state[cond_index]):
@@ -100,10 +105,50 @@ def conditional_block_shape(attrs, in_shapes):
 def conditional_block_torch(ctx, op, ins):
     block = op.attrs["block"]
     xs = ins["Input"]
+    if torch.compiler.is_exporting():
+        return _conditional_block_exported(ctx, op, ins)
     if not _truth(ins["Cond"][0]):
         return {"Out": list(xs)}
     out = _run_nested(ctx, op, "block", dict(zip(block.inputs, xs)))
     return {"Out": [out[n] for n in block.outputs]}
+
+
+def _while_exported(ctx, op, ins, cond_index: int, max_iters: int):
+    """``while`` as ``torch._higher_order_ops.while_loop``: the trip count
+    is loop state of its own, so ``max_iters`` bounds it on the card."""
+    from torch._higher_order_ops import while_loop
+
+    block = op.attrs["block"]
+    run, weights = _nested(ctx, op, "block", exact=False)
+
+    def cond(trips, *state):
+        return torch.logical_and(trips < max_iters,
+                                 state[cond_index].reshape(-1)[0].to(torch.bool))
+
+    def body(trips, *state):
+        out = run(weights, dict(zip(block.inputs, state)))
+        return (trips + 1,) + tuple(out[n].to(s.dtype).clone()
+                                    for n, s in zip(block.outputs, state))
+
+    trips = torch.zeros((), dtype=torch.int64, device=ctx.device)
+    return {"Out": list(while_loop(cond, body, (trips,) + tuple(ins["X"]))[1:])}
+
+
+def _conditional_block_exported(ctx, op, ins):
+    """``conditional_block`` as ``torch.cond``."""
+    block = op.attrs["block"]
+    run, weights = _nested(ctx, op, "block", exact=False)
+    xs = tuple(ins["Input"])
+
+    def taken(*xs):
+        out = run(weights, dict(zip(block.inputs, xs)))
+        return tuple(out[n].clone() for n in block.outputs)
+
+    def passed(*xs):
+        return tuple(x.clone() for x in xs)
+
+    flag = ins["Cond"][0].reshape(-1)[0].to(torch.bool)
+    return {"Out": list(torch.cond(flag, taken, passed, xs))}
 
 
 def _row_mask(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..common import act_params, apply_activation, f32, gelu_approximate
-from . import _build
+from . import _build, tune_cache
 
 # launches of the CUDA kernel, counted by the wrapper (CPU calls not counted)
 launches = 0
@@ -150,10 +150,11 @@ def smem_bytes(bm: int, bn: int, bk: int, out_i8: bool) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(m: int, k: int, n: int, out_i8: bool) -> Plan:
-    """The tiling of one (M, K) · (K, N) int8 GEMM: pure Python, so the CPU
-    tests check it; the kernel checks what it is given and refuses a plan
-    it cannot take.  Raises ValueError for a problem it cannot take.
+def default_plan(m: int, k: int, n: int, out_i8: bool) -> Plan:
+    """The heuristic tiling of one (M, K) · (K, N) int8 GEMM: pure Python,
+    so the CPU tests check it; the kernel checks what it is given and
+    refuses a plan it cannot take.  Raises ValueError for a problem it
+    cannot take.
 
     BN is the narrowest tile width that covers N up to 256 (so A is read
     from device memory once), 256 past that; two warpgroups (BM = 128) a
@@ -164,7 +165,6 @@ def plan(m: int, k: int, n: int, out_i8: bool) -> Plan:
     :func:`slab_depths` whose ring fits the block's shared memory."""
     if m < 1 or n < 1 or k < 1:
         raise ValueError(f"int8_matmul: empty problem {(m, k, n)}")
-    width = copy_width(k)
     bn = next((b for b in BN_CHOICES if b >= n), BN_CHOICES[-1])
 
     def tiles(wgs, bn):
@@ -175,14 +175,42 @@ def plan(m: int, k: int, n: int, out_i8: bool) -> Plan:
         wgs, bn = 2, 128
     while tiles(wgs, bn) < SMS and bn > BN_CHOICES[0] and _cdiv(n, bn) < _cdiv(n, bn // 2):
         bn //= 2
-    if tiles(wgs, bn) >= 2 ** 31:
+    bk = next(bk for bk in slab_depths(k)
+              if smem_bytes(64 * wgs, bn, bk, out_i8) <= SMEM_LIMIT)
+    return plan_of(m, k, n, out_i8, bn, bk, wgs)
+
+
+def plan_of(m: int, k: int, n: int, out_i8: bool, bn: int, bk: int, wgs: int) -> Plan:
+    """The plan of one GEMM at tile width `bn`, slab depth `bk` and `wgs`
+    warpgroups (its copy widths, shared bytes and tiles follow); raises
+    ValueError for one the kernel cannot run."""
+    if bn not in BN_CHOICES or bk not in (32, 64, 128) or wgs not in (1, 2):
+        raise ValueError(f"int8_matmul: no instantiation takes bn={bn}, bk={bk}, "
+                         f"{wgs} warpgroups")
+    width = copy_width(k)
+    smem = smem_bytes(64 * wgs, bn, bk, out_i8)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"int8_matmul: bn={bn}, bk={bk}, {wgs} warpgroups take {smem} "
+                         f"shared bytes, past the block's {SMEM_LIMIT}")
+    tiles = _cdiv(m, 64 * wgs) * _cdiv(n, bn)
+    if tiles >= 2 ** 31:
         raise ValueError(f"int8_matmul: {(m, k, n)} has 2^31 tiles or more")
     es = 1 if out_i8 else 4
     out_width = next(w for w in (16, 8, 4, 2, 1) if (n * es) % w == 0 and (bn * es) % w == 0)
-    bk = next(bk for bk in slab_depths(k)
-              if smem_bytes(64 * wgs, bn, bk, out_i8) <= SMEM_LIMIT)
-    return Plan(bn, bk, wgs, width, out_width, smem_bytes(64 * wgs, bn, bk, out_i8),
-                tiles(wgs, bn))
+    return Plan(bn, bk, wgs, width, out_width, smem, tiles)
+
+
+def plan(m: int, k: int, n: int, out_i8: bool) -> Plan:
+    """The tiling of one GEMM: the plan measured fastest for its bucket and
+    output type on the card (``tune_cache.lookup_blocks``, filled by
+    ``tune_cache.sweep_gemm_blocks``), else :func:`default_plan`.  A stored
+    plan the kernel cannot run raises (:func:`plan_of`)."""
+    stored = tune_cache.lookup_blocks(m, k, n, out_i8)
+    if stored is None:
+        return default_plan(m, k, n, out_i8)
+    return plan_of(m, k, n, out_i8, *stored)
+
+
 
 
 @functools.lru_cache(maxsize=None)
@@ -234,11 +262,13 @@ def int8_matmul(
     act_attrs: Optional[dict] = None,
     out_scale: Optional[float] = None,
     w_nk: Optional[torch.Tensor] = None,
+    tiling: Optional[Plan] = None,
 ) -> torch.Tensor:
     """out = epilogue((x_q @ w_q).i32) — fp32 out, or int8 when
     ``out_scale`` is given.  ``x_q`` (M, K) int8, ``w_q`` (K, N) int8,
     ``eff_scale`` = s_x·s_w per output column ((N,) or scalar), ``bias``
-    fp32 (N,) or None."""
+    fp32 (N,) or None.  ``tiling`` is a :func:`plan_of` plan to launch
+    with (a plan sweep's), else :func:`plan`'s."""
     if x_q.device.type == "cpu":
         return int8_matmul_plain(x_q, w_q, eff_scale, bias, act=act,
                                  act_attrs=act_attrs, out_scale=out_scale)
@@ -262,7 +292,7 @@ def int8_matmul(
     out = torch.empty((m, n), device=dev,
                       dtype=torch.float32 if out_scale is None else torch.int8)
     out_i8 = out_scale is not None
-    p = plan(m, k, n, out_i8)
+    p = tiling or plan(m, k, n, out_i8)
     check_aligned(p, k, x_q=x_q, w_nk=w_nk)
     lib = _build.load("int8_gemm")
     rc = lib.plt_int8_gemm(

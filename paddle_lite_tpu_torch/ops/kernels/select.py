@@ -2,10 +2,11 @@
 
 Counterpart of ``paddle_lite_tpu/ops/kernels/autotune.choose_kernel``
 (``autotune.py:51-92``).  The reference picks by tables measured on a TPU
-(``tune_cache.lookup_gemm`` / ``lookup_dw``, backed by ``.autotune/``) and by
-TPU size thresholds (``_gemm_dims_ok``, ``autotune.py:25-28``).  None of
-that describes this card, so the port reads neither: every int8 op that a
-kernel takes is tagged ``"cuda"``:
+(``.autotune/``) and by TPU size thresholds (``_gemm_dims_ok``,
+``autotune.py:25-28``).  The port reads neither: it reads its own table,
+measured on the card (below), and an int8 op that a kernel takes is tagged
+``"cuda"`` unless that table measured its bucket slower than the op's
+``"torch"`` impl.  The kernels take:
 
 - ``conv2d`` with group 1, dilation 1 and no residual, of any kernel size,
   stride and explicit paddings, through its im2col rows
@@ -26,7 +27,17 @@ them; ``int8_matmul.ACTS`` for the depthwise kernel).  Every
 (``autotune.py:60-65``: NMS runs in the fp32 island either way), and so
 does every ``generate_proposals`` op, whose NMS the kernel runs in the
 division form.  Everything else keeps the default ``"torch"`` impl.
-A table measured on the H100 is later work (``ROADMAP.md``).
+
+The GEMM and depthwise picks read the kernel table measured on the card
+(``tune_cache``, keyed by ``tune_cache._op_table_key``): a bucket measured
+``"torch"`` keeps the ``"torch"`` impl, one measured ``"cuda"`` takes the
+kernel.  **An unmeasured bucket takes the kernel**, where the reference
+defaults to XLA (``autotune.py:51-60`` there): its XLA lowering beat its
+first Pallas kernels on the TPU, whereas the port's kernels were redesigned
+for this card (PRs 5-8) and ``chip_smoke.py`` holds these picks in-model on
+every path.  So with an empty table every pick is as it was before the
+table existed.  The NMS kernel's ops are not table-driven (nor are they
+there, ``autotune.py:60-65``).
 """
 
 from __future__ import annotations
@@ -36,8 +47,7 @@ from typing import Optional
 import numpy as np
 
 from ..common import normalize_2d
-from . import depthwise
-from .int8_matmul import ACTS, GEMM_ACTS
+from .int8_matmul import GEMM_ACTS
 
 
 def _kernel_epilogue(op, acts) -> bool:
@@ -70,15 +80,13 @@ def gemm_eligible(graph, op) -> bool:
 
 
 def choose_kernel(graph, op) -> Optional[str]:
-    """'cuda' for an op a kernel takes, else None (default impl)."""
+    """'cuda' for an op a kernel takes, unless the kernel table measured
+    its bucket as 'torch'; else None (default impl)."""
+    from . import tune_cache
+
     if op.op_type.startswith("multiclass_nms") or op.op_type == "generate_proposals":
         return "cuda"
-    if op.op_type == "depthwise_conv2d":
-        x = graph.vars[op.input("Input")]
-        w = graph.vars[op.input("Filter")]
-        if (_kernel_epilogue(op, ACTS)
-                and depthwise.supported_general(op.attrs, x.shape, w.shape)
-                and not op.maybe_input("ResidualData")):
-            return "cuda"
+    key = tune_cache._op_table_key(graph, op)
+    if key is None:
         return None
-    return "cuda" if gemm_eligible(graph, op) else None
+    return None if tune_cache.lookup(key) == "torch" else "cuda"

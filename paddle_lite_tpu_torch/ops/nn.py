@@ -47,6 +47,8 @@ product is exact in fp32) and the executor rounds the output to bf16.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -267,7 +269,7 @@ def fc_torch(ctx, op, ins):
     bias = ins.get("Bias", [None])[0]
     in_num_col_dims = int(op.attrs.get("in_num_col_dims", x.ndim - 1))
     lead = tuple(x.shape[:in_num_col_dims])
-    x2 = x.reshape((-1, int(np.prod(x.shape[in_num_col_dims:]))))
+    x2 = x.reshape((-1, math.prod(x.shape[in_num_col_dims:])))
     x2, w = maybe_dequant_mixed(ctx, op, x2, op.input("Input"), w, op.input("W"))
     int8_path = x2.dtype == torch.int8 and w.dtype == torch.int8
     acc = _matmul_acc(x2, w, int8_path)
@@ -292,8 +294,8 @@ def mul_torch(ctx, op, ins):
     xd = int(op.attrs.get("x_num_col_dims", 1))
     yd = int(op.attrs.get("y_num_col_dims", 1))
     lead, tail = tuple(x.shape[:xd]), tuple(w.shape[yd:])
-    x2 = x.reshape((int(np.prod(lead)) if lead else 1, -1))
-    w2 = w.reshape((-1, int(np.prod(tail)) if tail else 1))
+    x2 = x.reshape((math.prod(lead), -1))
+    w2 = w.reshape((-1, math.prod(tail)))
     int8_path = x2.dtype == torch.int8 and w2.dtype == torch.int8
     acc = _matmul_acc(x2, w2, int8_path)
     y = _conv_epilogue(ctx, op, acc, op.input("X"), op.input("Y"),

@@ -10,13 +10,18 @@ Port of ``paddle_lite_tpu/tools/cli.py`` (``:22-200``):
     python -m paddle_lite_tpu_torch.tools.cli ops       # --print_all_ops analog
     python -m paddle_lite_tpu_torch.tools.cli passes
     python -m paddle_lite_tpu_torch.tools.cli profile --model mobilenet_v1
+    python -m paddle_lite_tpu_torch.tools.cli tune --model ssd --batch 32 \\
+        --image-size 300 --validate
 
 ``--model`` is a zoo name (a module of ``models/``) or a fluid model
 directory (``__model__`` + params).  ``compile`` and ``profile`` calibrate
 and run on ``--device`` (``cuda`` unless asked for ``cpu``); the artifact
 ``compile`` writes loads in either package (``formats/artifact.py``) and
-runs through ``runtime.predictor.load_predictor``.  ``tune`` waits for the
-port's kernel tables (``ROADMAP.md``).
+runs through ``runtime.predictor.load_predictor``.  ``tune`` fills the
+kernel table (``ops/kernels/tune_cache.py``: ``_tuning/kernels.json``, or
+the directory ``PLT_TORCH_AUTOTUNE_DIR`` names) for a model's buckets on
+the card, and with ``--validate`` A/Bs each of the kernel's buckets inside
+the whole compiled model; it measures nothing on the CPU (it raises).
 """
 
 from __future__ import annotations
@@ -103,6 +108,57 @@ def cmd_passes(args) -> None:
         print(name)
 
 
+def _repick(g) -> None:
+    """Tag each table-driven op as the table now says (``select.
+    choose_kernel``), dropping the ``"cuda"`` tag of a bucket measured
+    ``"torch"``."""
+    from ..ops.kernels import select, tune_cache
+    from ..passes.kernel_pick import int8_activation
+
+    for op in g.ops:
+        if tune_cache._op_table_key(g, op) is None or not int8_activation(g, op):
+            continue
+        if select.choose_kernel(g, op) == "cuda":
+            op.attrs["kernel"] = "cuda"
+        else:
+            op.attrs.pop("kernel", None)
+
+
+def cmd_tune(args) -> None:
+    """``cmd_tune`` of the reference (``cli.py:97-124`` there): measure
+    every table-driven bucket of the model (optionally sweeping the GEMM's
+    plans first), then, with ``--validate``, A/B each bucket left on the
+    kernel inside the whole compiled model and demote those that do not
+    win there.  Prints the decisions as JSON."""
+    import functools
+
+    from .. import QuantConfig
+    from ..core.device import resolve_device
+    from ..ops.kernels import tune_cache
+    from .benchmark import device_throughput
+    from .opt import optimize
+
+    dev = resolve_device(args.device)
+    g = _build_model(args.model, batch=args.batch, image_size=args.image_size)
+    rng = np.random.default_rng(0)
+    feed = {}
+    for name in g.inputs:
+        shape = tuple(g.vars[name].shape)
+        dt = g.vars[name].precision.torch_dtype
+        feed[name] = (rng.integers(0, 100, shape).astype(str(dt).split(".")[1])
+                      if not dt.is_floating_point else rng.normal(size=shape).astype(np.float32))
+    optimize(g, quant=QuantConfig(), calib_batches=[feed], device=dev)
+    results = tune_cache.tune_graph(g, verbose=True, sweep_blocks=args.sweep_blocks,
+                                    device=dev)
+    if args.validate:
+        # standalone winners are candidates only: re-pick with the fresh
+        # table, then A/B each bucket left on the kernel in the whole model
+        _repick(g)
+        measure = functools.partial(device_throughput, device=dev, min_window=args.window)
+        results.update(tune_cache.validate_in_model(g, feed, verbose=True, measure=measure))
+    print(json.dumps(results))
+
+
 def cmd_profile(args) -> None:
     """Per-layer int8-vs-fp32 precision report."""
     from .. import QuantConfig
@@ -156,6 +212,22 @@ def main(argv=None) -> None:
     pr.add_argument("--top", type=int, default=20)
     pr.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pr.set_defaults(fn=cmd_profile)
+
+    t = sub.add_parser("tune", help="measure the kernel table for a model on the card")
+    t.add_argument("--model", required=True)
+    t.add_argument("--batch", type=int, default=8)
+    t.add_argument("--image-size", type=int, default=224)
+    t.add_argument("--validate", action="store_true",
+                   help="A/B each bucket left on the kernel inside the whole compiled "
+                        "model and demote those that do not win there (before a table "
+                        "ships)")
+    t.add_argument("--sweep-blocks", action="store_true",
+                   help="measure the GEMM's candidate plans for each bucket before "
+                        "racing the kernel against the torch impl")
+    t.add_argument("--window", type=float, default=0.4,
+                   help="seconds each in-model reading spans (--validate)")
+    t.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    t.set_defaults(fn=cmd_tune)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -11,7 +11,10 @@ package on the CPU.
   (rounded to 4-6 digits by the reports) equal within 1e-6, and within
   2e-3 in a variant with bf16 islands, where the two packages round to
   bf16 at other points (ERNIE's top-probability drift read 0.0060 against
-  0.0054 there).  Each reference report runs here on the same inputs; the
+  0.0054 there).  DBNet's ``int8_recommended`` variant is the zoo entry of
+  the package that runs it, so the reference runs it here with the port's
+  entry (measured on the card: the defaults).  Each reference report runs
+  here on the same inputs; the
   reference's SSD report compiles 21 programs (about 45 s on the CPU,
   nearly all of it XLA's compiles, so a smaller image would not shorten
   it).
@@ -135,6 +138,11 @@ def test_report_matches_the_reference(family, monkeypatch):
         small = dict(hidden=64, n_layers=2, n_heads=4, ffn_dim=128)
         monkeypatch.setattr(r_ernie, "build", functools.partial(r_ernie.build, **small))
         monkeypatch.setattr(p_ernie, "build", functools.partial(p_ernie.build, **small))
+    if family == "dbnet":  # "int8_recommended" is each package's zoo entry: the port's
+        import paddle_lite_tpu.models.zoo_config as r_zoo
+        import paddle_lite_tpu_torch.models.zoo_config as p_zoo
+
+        monkeypatch.setitem(r_zoo.RECOMMENDED, "ppocr_det", p_zoo.RECOMMENDED["ppocr_det"])
     got = p_af.FAMILIES[family](device="cpu", **SIZES[family])
     want = r_af.FAMILIES[family](**SIZES[family])
     _same(got, want, FLOAT_TOL)

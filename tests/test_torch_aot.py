@@ -8,8 +8,9 @@ the JAX package on the CPU.
   trip within that test's rtol 1e-5 / atol 1e-6 (the fc's fp32 epilogue).
   A small SSD exports with its kernels as ``plt::`` custom ops (the loaded
   program equal to ``Predictor`` bit for bit); a graph with a host-syncing
-  impl is refused with ``compile_graph``'s message, and control flow is
-  refused naming the op.
+  impl is refused with ``compile_graph``'s message, in a control-flow
+  block too, naming the op (control flow itself exports:
+  ``tests/test_torch_aot_control_flow.py``).
 - ``formats/torch_ckpt``: a round trip gives the same graph meta, weights and
   outputs, bit for bit.
 - ``tools/dump``: ``dump_dot`` and ``dump_graph`` are the reference's
@@ -28,7 +29,7 @@ from paddle_lite_tpu.formats import aot as r_aot
 from paddle_lite_tpu.formats import artifact as r_artifact
 from paddle_lite_tpu.tools import dump as r_dump
 from paddle_lite_tpu_torch.formats import aot, artifact, interop, torch_ckpt
-from paddle_lite_tpu_torch.models import beam_decode, mobilenet_v1, ssd
+from paddle_lite_tpu_torch.models import mobilenet_v1, ssd
 from paddle_lite_tpu_torch.runtime.predictor import Predictor, create_predictor
 from paddle_lite_tpu_torch.testing import retag
 from paddle_lite_tpu_torch.tools import dump
@@ -110,9 +111,26 @@ def test_a_syncing_graph_is_refused():
 
 
 def test_control_flow_is_refused_naming_the_op():
-    g = beam_decode.build(batch=2, beam=2, hidden=8, vocab=20, steps=3)
-    with pytest.raises(NotImplementedError, match="while"):
-        aot.export_compiled(g, device="cpu")
+    """Control flow exports (``tests/test_torch_aot_control_flow.py``); a
+    block holding an op that syncs with the host does not, and the refusal
+    names that op: here the ``"torch"`` NMS inside a while body."""
+    inner = P.GraphBuilder("nms_body")
+    inner.input("c_in", (1,), precision=P.Precision.BOOL)
+    bx = inner.input("b_in", (1, 8, 4))
+    sc = inner.input("s_in", (1, 8, 2))
+    inner.op("multiclass_nms", {"BBoxes": [bx], "Scores": [sc]}, attrs={"keep_top_k": 8},
+             shape_args=[bx, sc])
+    inner.mark_output("c_in", bx, sc)
+    b = P.GraphBuilder("outer")
+    c = b.input("c", (1,), precision=P.Precision.BOOL)
+    bx = b.input("b", (1, 8, 4))
+    sc = b.input("s", (1, 8, 2))
+    outs = b.op("while", {"X": [c, bx, sc]}, attrs={"block": inner.build()},
+                shape_args=[c, bx, sc], out_slots=("Out",),
+                out_precisions=[P.Precision.BOOL, P.Precision.FP32, P.Precision.FP32])
+    b.mark_output(outs[1])
+    with pytest.raises(ValueError, match=r"compile_graph: multiclass_nms \(kernel 'torch'"):
+        aot.export_compiled(b.build(), device="cpu")
 
 
 def test_torch_ckpt_round_trip(tmp_path):

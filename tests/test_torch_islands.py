@@ -4,8 +4,8 @@ between ops, stages fp32 weights as bf16, and returns fp32 outputs
 (``paddle_lite_tpu/core/executor.py:86-136``).
 
 MobileNetV1 (width 0.25, 32 px, batch 2, 10 classes) and SSD (the SSD
-test's 160 px, batch 2, 5 classes; SSD's zoo config asks for bf16
-islands).  Inputs are made with numpy from a seed.
+test's 160 px, batch 2, 5 classes; the reference's SSD zoo entry asks
+for bf16 islands, the port's, measured on the card, does not).  Inputs are made with numpy from a seed.
 
 Tolerances, and why:
 - activation scales: rtol 1e-5, as without islands (calibration runs the
@@ -100,7 +100,14 @@ def _torch_of(v):
 
 
 def test_ssd_zoo_config_asks_for_bf16_islands():
-    assert recommended_quant("ssd").island_dtype == BF16
+    """The reference's SSD entry asks for bf16 islands; the port's, measured
+    on the card (bf16 islands 7 % slower), ships the defaults: fp32
+    islands.  The islands themselves are held below with
+    ``QuantConfig(island_dtype="bfloat16")``."""
+    from paddle_lite_tpu.models.zoo_config import recommended_quant as r_quant
+
+    assert r_quant("ssd").island_dtype == BF16
+    assert recommended_quant("ssd").island_dtype == "float32"
 
 
 def test_optimize_matches_reference(pair):

@@ -1,8 +1,10 @@
 """PP-OCR det + rec (BASELINE config #4) through both packages.
 
-DBNet at 64 px, batch 1, with its zoo config (``quant_depthwise=False``,
-fp32 islands); CRNN at strip width 64, batch 2, 50 characters, with its zoo
-config (bf16 islands) — the sizes of ``tests/test_model_zoo_int8.py:96,109``.
+DBNet at 64 px, batch 1, with the JAX package's zoo config
+(``quant_depthwise=False``, fp32 islands); CRNN at strip width 64, batch 2,
+50 characters, with the JAX package's zoo config (bf16 islands) — the
+sizes of ``tests/test_model_zoo_int8.py:96,109``; the port's own zoo table,
+measured on the card, ships the defaults for both.
 Inputs are made with numpy from a seed and handed to both packages.  Each
 op the slice adds is also held alone against the reference's op.
 
@@ -54,6 +56,7 @@ import paddle_lite_tpu_torch as P
 from paddle_lite_tpu.core.executor import ExecutionContext as RContext
 from paddle_lite_tpu.formats import artifact
 from paddle_lite_tpu.models import ppocr as r_ppocr
+from paddle_lite_tpu.models.zoo_config import RECOMMENDED as R_RECOMMENDED
 from paddle_lite_tpu.models.zoo_config import recommended_quant as r_quant
 from paddle_lite_tpu.ops import extra as r_extra
 from paddle_lite_tpu.ops import manip as r_manip
@@ -66,7 +69,6 @@ from paddle_lite_tpu_torch.core.executor import ExecutionContext
 from paddle_lite_tpu_torch.core.registry import OPS
 from paddle_lite_tpu_torch.formats.interop import graph_from_reference
 from paddle_lite_tpu_torch.models import ppocr as p_ppocr
-from paddle_lite_tpu_torch.models.zoo_config import recommended_quant as p_quant
 from paddle_lite_tpu_torch.ops.kernels import depthwise, int8_matmul
 from paddle_lite_tpu_torch.tools import db_postprocess as p_db
 from paddle_lite_tpu_torch.tools.opt import optimize
@@ -91,6 +93,13 @@ MODELS = {
                 # 3 pointwise convs, 4 GRU input projections, the CTC classifier
                 cuda={"conv2d": 3, "mul": 4, "fc": 1}),
 }
+
+
+def p_quant(model: str):
+    """The reference's zoo entry as the port's ``QuantConfig``: the configs
+    these tests hold the port to (the port's own table, measured on the
+    card, ships the defaults: ``models/zoo_config.py``)."""
+    return P.QuantConfig(**R_RECOMMENDED[model])
 
 
 def _feed(name, seed):
