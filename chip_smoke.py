@@ -313,7 +313,29 @@ Phases:
    same frames run directly within the softmax bound.  (Phase 15b also
    exports phase 14c's decode loop, its ``while`` as ``while_loop``, and
    holds it to ``Predictor`` bit for bit in the fresh process.)
-17. The last lines: the card (nvidia-smi), the kernels' JSON line, then
+17. The parallel layer (``paddle_lite_tpu_torch/parallel/``).  The card
+   machine has one card and NCCL takes one rank a card, so the
+   multi-rank runs here are two gloo ranks sharing ``cuda:0``: they check
+   correctness; their rates are not scaling.  (a) The GEMM's int32 output
+   kind (``int8_matmul_i32``, the row-parallel partials) against its
+   plain version, 0 differing elements, at ERNIE's FFN2 row shard
+   (4,096×2,048×1,024), MobileNetV1's 1x1 shards at tp 2, a ragged case
+   and a saturating K = 4,608 case; each timed as phase 2's kernels are,
+   beside the fp32-out plan at the same shape, ``torch._int_mm`` (the
+   same function, a yardstick the port never calls) and its bound.  (b)
+   ERNIE's FFN pair (4,096×1,024 → 4,096, tanh-gelu, int8 out;
+   → 1,024) column- then row-parallel over 2 gloo ranks: bit-equal to the
+   single-device pair of ``int8_matmul`` calls; each rank launches the
+   GEMM once and its int32 kind once.  (c) ``ShardedPredictor`` on
+   MobileNetV1 INT8 b64 / 224 at 1x1 (NCCL, one rank) and at 1x2 and 2x1
+   (2 gloo ranks): top-1 equal to the single-device ``Predictor``, the
+   softmax within 1e-3, every int8 intermediate within the tie bound of
+   the single-device eager loop's; at tp 2 ``assign_tp_kernels`` retags
+   14 ops and a request launches 14 GEMM and 13 depthwise kernels on each
+   rank; img/s beside ``Predictor``'s eager and compiled rates.  (d)
+   ``parallel.dryrun.dryrun_multichip(2)`` on the card and the scaling
+   bench's rows, which stop at n = 1 on one card.
+18. The last lines: the card (nvidia-smi), the kernels' JSON line, then
    ``{"ok": true, "device": {...}}``.
 
 With ``--json PATH`` the per-shape numbers are also written to PATH.
@@ -881,6 +903,7 @@ def _reset_counts():
     from paddle_lite_tpu_torch.ops.kernels import depthwise, dw_pw_fused, int8_matmul, nms
 
     int8_matmul.launches = depthwise.launches = dw_pw_fused.launches = nms.launches = 0
+    int8_matmul.launches_i32 = 0
     depthwise.launches_by_stride = {1: 0, 2: 0}
 
 
@@ -3884,6 +3907,7 @@ for name in names:
     load_s = time.perf_counter() - t0
     feed = dict(np.load(f"{tmp}/{name}.npz"))
     int8_matmul.launches = depthwise.launches = dw_pw_fused.launches = nms.launches = 0
+    int8_matmul.launches_i32 = 0
     depthwise.launches_by_stride = {1: 0, 2: 0}
     out = run(feed)
     sync()
@@ -4721,6 +4745,203 @@ def phase_tuning() -> tuple:
     return out, launches
 
 
+# ---- phase 17: the parallel layer ---------------------------------------------
+
+PHASE17_TARGET_S = 120
+# (case, M, K, N) of the int32 kind: ERNIE's FFN2 row shard at tp 2 (the
+# shape phase 17b launches), MobileNetV1's largest 1x1 shards at tp 2, a
+# ragged case (odd M, N; K with 2-byte copies) and a saturating K = 4,608
+I32_SHAPES = (("ernie_ffn2_row_shard", 4096, 2048, 1024), ("mnv1_pw_tp2", 12544, 512, 256),
+              ("mnv1_pw_tp2", 3136, 1024, 512), ("ragged", 777, 130, 50),
+              ("saturating", 256, 4608, 64))
+ERNIE_PAIR = (4096, 1024, 4096)  # M (b32 x len 128), hidden, FFN
+SHARDED_REQUESTS = 5
+NOT_SCALING = "two ranks share one card; not scaling"
+
+
+def _i32_rows(rng) -> list:
+    """17a: the int32 kind against its plain version at each shape."""
+    from paddle_lite_tpu_torch.ops.kernels import int8_matmul as km
+
+    rows = []
+    for case, m, k, n in I32_SHAPES:
+        if case == "saturating":
+            x = torch.full((m, k), -128, dtype=torch.int8, device=DEV)
+            x[::2] = 127
+            w = torch.full((k, n), -128, dtype=torch.int8, device=DEV)
+        else:
+            x, w = _cuda_rand_int8(rng, (m, k)), _cuda_rand_int8(rng, (k, n))
+        w_nk = w.t().contiguous()
+        ones = torch.ones(n, device=DEV)
+        got = km.int8_matmul_i32(x, w, w_nk=w_nk)
+        ref = km.int8_matmul_i32_plain(x, w)
+        bad, err = _cmp(got, ref)
+        nbytes = m * k + k * n + 4 * m * n
+        row = {"kernel": "int8_gemm_i32", "case": case, "shape": [m, k, n],
+               "plan": km.plan(m, k, n, km.OUT_I32)._asdict(), "out_mismatch": bad,
+               "max_abs_err": err, "max_abs_acc": int(ref.abs().max()),
+               "ms": time_ms(lambda: km.int8_matmul_i32(x, w, w_nk=w_nk)),
+               "fp32_out_ms": time_ms(lambda: km.int8_matmul(x, w, ones, w_nk=w_nk)),
+               "plain_ms": time_ms(lambda: km.int8_matmul_i32_plain(x, w)),
+               "library_ms": (time_ms(lambda: torch._int_mm(x, w))
+                              if m > 16 and k % 8 == 0 and n % 8 == 0 else None),
+               "per_request": 1 if case == "ernie_ffn2_row_shard" else 0}
+        row.update(bound(nbytes, 2 * m * k * n / INT8_TC_OPS_PER_S), bytes=nbytes,
+                   ops=2 * m * k * n)
+        print(f"  17a: int32 {case} {m}x{k}x{n}: {bad} differing (max |acc| "
+              f"{row['max_abs_acc']}); {row['ms']:.4f} ms (fp32-out plan "
+              f"{row['fp32_out_ms']:.4f}, x{row['ms'] / row['fp32_out_ms']:.3f}); torch._int_mm "
+              + (f"{row['library_ms']:.4f}" if row["library_ms"] is not None else "n/a")
+              + f"; plain {row['plain_ms']:.4f}; bound {row['bound_ms']:.4f} "
+              f"({row['bound_by']}: max({nbytes / 1e6:.2f} MB / 3.35 TB/s, 2MKN / 1,979 "
+              f"TOP/s)); plan {tuple(row['plan'].values())[:3]}")
+        if bad:
+            fail(f"17a: the int32 kind differs from its plain version at {case} "
+                 f"{(m, k, n)} in {bad} elements")
+        rows.append(row)
+    return rows
+
+
+def _ips_eager(graph, feed, batch: int, reps: int = SHARDED_REQUESTS) -> float:
+    """img/s of the single-device eager loop (numpy input), host clock."""
+    from paddle_lite_tpu_torch.core.executor import build_callable, stage_weights
+
+    fn, w = build_callable(graph, device=DEV), stage_weights(graph, DEV)
+    fn(w, feed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(w, feed)
+    torch.cuda.synchronize()
+    return batch * reps / (time.perf_counter() - t0)
+
+
+def _sharded_checks(rows, ref_out: np.ndarray, batch: int) -> dict:
+    """17c's checks of one mesh's ranks against the single-device outputs."""
+    from paddle_lite_tpu_torch.testing import SOFTMAX_ATOL, within_tie_bound
+
+    first = rows[0]
+    dp, tp = first["mesh"]
+    tag = f"{dp}x{tp}"
+    for r in rows:
+        if not np.array_equal(r["out"], first["out"]):
+            fail(f"17c {tag}: the ranks' outputs differ")
+    out = first["out"]
+    top1 = bool((out.argmax(1) == ref_out.argmax(1)).all())
+    err = float(np.abs(out - ref_out).max())
+    diffs = list(first["int8_diffs"].values())
+    worst = max(first["int8_diffs"].items(), key=lambda kv: kv[1]["n_diff"])
+    per_rank = [r["launches"] for r in rows]
+    ips = batch * first["requests"] / first["seconds"]
+    print(f"  17c: {tag} ({first['backend']}, {len(rows)} rank(s)): top-1 equal {top1}, "
+          f"softmax max |diff| {err:.3g} (<= {SOFTMAX_ATOL}); int8 intermediates "
+          f"{len(diffs)}, within the tie bound {within_tie_bound(diffs)} (most differing: "
+          f"{worst[0]} {worst[1]}); retagged {first['n_tp_ops']}, split {first['n_split_ops']}; "
+          f"a request's launches per rank {per_rank}; {ips:.1f} img/s"
+          + (f" ({NOT_SCALING})" if len(rows) > 1 else ""))
+    if not (top1 and err <= SOFTMAX_ATOL and within_tie_bound(diffs)):
+        fail(f"17c {tag}: does not match the single-device predictor")
+    want_tp = 14 if tp == 2 else 0
+    for r in rows:
+        if (r["launches"]["int8_gemm"], r["launches"]["dw_conv"]) != (14, 13) \
+                or r["n_tp_ops"] != want_tp:
+            fail(f"17c {tag}: a rank launched {r['launches']} with {r['n_tp_ops']} ops "
+                 f"retagged; expected 14 GEMM, 13 depthwise and {want_tp} retagged")
+    return {"top1_equal": top1, "softmax_max_diff": err, "img_s": ips,
+            "launches_per_rank": per_rank, "n_tp_ops": first["n_tp_ops"],
+            "n_split_ops": first["n_split_ops"], "int8_worst": {worst[0]: worst[1]},
+            "ranks": len(rows), "backend": first["backend"]}
+
+
+def phase_parallel() -> tuple:
+    """Phase 17: the GEMM's int32 kind (17a), the FFN pair over 2 gloo
+    ranks (17b), ShardedPredictor on MobileNetV1 b64 / 224 (17c), the dry
+    run and the scaling bench (17d)."""
+    from paddle_lite_tpu_torch import QuantConfig
+    from paddle_lite_tpu_torch.models import mobilenet_v1
+    from paddle_lite_tpu_torch.parallel import distributed, dryrun, scaling_bench
+    from paddle_lite_tpu_torch.parallel.sharding import GLOO_RULE
+    from paddle_lite_tpu_torch.runtime.predictor import create_predictor
+    from paddle_lite_tpu_torch.testing import parallel as tparallel
+
+    t0 = time.perf_counter()
+    secs, out, launches = {}, {}, {}
+    print(f"phase 17: the parallel layer (gloo rule: {GLOO_RULE}; {NOT_SCALING} in 17b-d)")
+    rng = np.random.default_rng(17)
+    rows = _i32_rows(rng)
+    secs["17a"] = time.perf_counter() - t0
+
+    # 17c's graph and its single-device outputs, made before the ranks start
+    shape = (BATCH, SIZE, SIZE, 3)
+    g = mobilenet_v1.build(batch=BATCH, image_size=SIZE, seed=0)
+    calib = [{"image": rng.normal(size=shape).astype(np.float32)} for _ in range(2)]
+    feed = {"image": rng.normal(size=shape).astype(np.float32)}
+    pred = create_predictor(g, quant=QuantConfig(), calib_batches=calib, device=DEV)
+    graph = copy.deepcopy(pred.graph)
+    ref_out = pred.run(feed)[g.outputs[0]].cpu().numpy()
+    compiled_ips = _ips(pred, feed, reps=SHARDED_REQUESTS)
+    eager_ips = _ips_eager(copy.deepcopy(pred.graph), feed, BATCH)
+    print(f"  17c: the single-device Predictor: {compiled_ips:.1f} img/s compiled, "
+          f"{eager_ips:.1f} eager (numpy input, {SHARDED_REQUESTS} requests)")
+    del pred
+    torch.cuda.empty_cache()
+
+    dev = "cpu" if DEV.type == "cpu" else "cuda:0"  # every rank on the one card
+    gloo = distributed.spawn(tparallel.card_ranks, 2,
+                             (graph, feed, ((1, 2), (2, 1)), "gloo", SHARDED_REQUESTS, dev,
+                              ERNIE_PAIR), backend="gloo", timeout_s=300)
+    one = "gloo" if DEV.type == "cpu" else "nccl"
+    nccl = distributed.spawn(tparallel.card_ranks, 1,
+                             (graph, feed, ((1, 1),), one, SHARDED_REQUESTS, dev),
+                             backend=one, timeout_s=300)
+
+    pairs = [r["pair"] for r in gloo]
+    for i, p in enumerate(pairs):
+        print(f"  17b: rank {i}: ERNIE FFN pair {ERNIE_PAIR} over 2 gloo ranks on one card: "
+              f"{p['differing']} elements differ from the single-device pair (max "
+              f"{p['max_abs_err']:.3g}); launches {p['launches']}; {p['ms']:.2f} ms on the "
+              f"host clock ({NOT_SCALING})")
+        if p["differing"] or not p["finite"] or p["shape"] != [ERNIE_PAIR[0], ERNIE_PAIR[1]]:
+            fail(f"17b: rank {i}'s pair is not the single-device pair")
+        if p["launches"]["int8_gemm"] != 1 or p["launches"]["int8_gemm_i32"] != 1:
+            fail(f"17b: rank {i} launched {p['launches']}; expected the GEMM once and its "
+                 f"int32 kind once")
+    out["pair"] = pairs
+    launches["parallel_pair"] = {k: sum(p["launches"][k] for p in pairs)
+                                 for k in ("int8_gemm", "int8_gemm_i32")}
+    by_mesh = {}
+    for i, (dp, tp) in enumerate(((1, 2), (2, 1))):
+        by_mesh[f"{dp}x{tp}"] = [r["sharded"][i] for r in gloo]
+    by_mesh["1x1"] = [nccl[0]["sharded"][0]]
+    out["sharded"] = {}
+    for tag in ("1x1", "1x2", "2x1"):
+        out["sharded"][tag] = _sharded_checks(by_mesh[tag], ref_out, BATCH)
+        launches[f"sharded_{tag}"] = {
+            "int8_gemm": sum(r["launches"]["int8_gemm"] for r in by_mesh[tag]),
+            "dw_conv": sum(r["launches"]["dw_conv"] for r in by_mesh[tag])}
+    ratio = out["sharded"]["1x1"]["img_s"] / eager_ips
+    print(f"  17c: 1x1 against Predictor's eager loop: x{ratio:.3f}")
+    out["predictor_img_s"] = {"compiled": compiled_ips, "eager": eager_ips}
+    secs["17b-c"] = time.perf_counter() - t0 - sum(secs.values())
+
+    dry = dryrun.dryrun_multichip(2, dev, timeout_s=300)
+    print(f"  17d: dryrun_multichip(2) on the card: {dry}")
+    rows_sb = scaling_bench.run_scaling(mobilenet_v1.build)
+    print(f"  17d: scaling bench rows: {rows_sb} ({torch.cuda.device_count()} card(s): "
+          f"n = 1 only)")
+    if [r["devices"] for r in rows_sb] != [1]:
+        fail(f"17d: the scaling bench on {torch.cuda.device_count()} card(s) gave {rows_sb}")
+    out["dryrun"], out["scaling"] = dry, rows_sb
+    secs["17d"] = time.perf_counter() - t0 - sum(secs.values())
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = secs
+    print(f"phase 17: {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()) + ")")
+    if out["seconds"] > PHASE17_TARGET_S:
+        print(f"phase 17: over its {PHASE17_TARGET_S} s target")
+    return rows, out, launches
+
+
 # ---- the kernels' line -----------------------------------------------------
 
 KERNELS = [  # name, source, TPU kernel it replaces, rows it covers
@@ -4739,6 +4960,12 @@ KERNELS = [  # name, source, TPU kernel it replaces, rows it covers
     ("dw_pw_fused", "paddle_lite_tpu_torch/csrc/dw_pw_fused.cu",
      "paddle_lite_tpu/ops/kernels/dw_pw_fused.py:114",
      lambda r: r["kernel"] == "dw_pw_fused"),
+    # kernel 1's int32 output kind: the row-parallel partials, where the
+    # reference ran the TPU kernel at unit scales and summed fp32
+    # (paddle_lite_tpu/parallel/tp_pallas.py:111)
+    ("int8_gemm_i32", "paddle_lite_tpu_torch/csrc/int8_gemm.cu",
+     "paddle_lite_tpu/ops/kernels/int8_matmul.py:122",
+     lambda r: r["kernel"] == "int8_gemm_i32"),
 ]
 
 
@@ -4872,8 +5099,9 @@ def main() -> None:
         fail(f"phases 1-15 wrote to their empty kernel table: "
              f"{os.listdir(os.environ[tune_cache.ENV])}")
     tuning, tuning_launches = phase_tuning()
+    par_rows, parallel, par_launches = phase_parallel()
     all_rows = (rows + ssd_rows + fused_rows + v3_rows + r50_rows + db_rows + rec_rows
-                + ern_rows + tool_rows)
+                + ern_rows + tool_rows + par_rows)
     kernels = _kernel_line(all_rows, {"mobilenet_v1": launches, "ssd": ssd_launches,
                                       "mobilenet_v1_fused": fused_launches,
                                       "mobilenet_v3": v3_launches,
@@ -4881,7 +5109,8 @@ def main() -> None:
                                       "resnet50": r50_launches, "dbnet": db_launches,
                                       "crnn": rec_launches, "ernie": ern_launches,
                                       **quant_launches, **fluid_launches,
-                                      **tool_launches, **tuning_launches},
+                                      **tool_launches, **tuning_launches,
+                                      **par_launches},
                            {"mobilenet_v1": e2e["profile"]["int8"],
                             "ssd": ssd["profile"]["int8"],
                             "mobilenet_v1_fused": fused["profile"]["int8"],
@@ -4934,7 +5163,7 @@ def main() -> None:
                        "mobilenet_v3": v3, "resnet50": r50, "dbnet": db, "crnn": rec,
                        "ernie": ern, "quant": quant, "fluid": fluid,
                        "op_library": op_library, "port_tools": port_tools,
-                       "tuning": tuning,
+                       "tuning": tuning, "parallel": parallel,
                        "compiled": compiled,
                        "serving": serving,
                        "benchmark": bench, "kernels": kernels}, f, indent=1)

@@ -42,7 +42,11 @@ from .registry import OPS
 class ExecutionContext:
     """Per-callable context handed to every op impl: the graph (for quant
     metadata), the device, and per-op constants staged to the device once
-    (effective scales, repacked weights)."""
+    (effective scales, repacked weights).  A multi-process run's context
+    (``parallel.sharding.ShardedContext``) holds its mesh and answers
+    :meth:`var_quant` / :meth:`var_shape` with the rank's slice of a
+    sharded var and :meth:`impl_for` with the impl an op runs on its
+    shard."""
 
     graph: Graph
     device: torch.device
@@ -53,6 +57,10 @@ class ExecutionContext:
 
     def var_shape(self, name: str):
         return self.graph.vars[name].shape
+
+    def impl_for(self, op: OpNode):
+        """The impl `op` runs: its registered impl for its kernel tag."""
+        return OPS.get(op.op_type).impl_for(op.attrs.get("kernel"))
 
     def const(self, op: OpNode, key: str, make: Callable[[], Any]) -> Any:
         """`make()` once per (op, key); later calls reuse the result (the
@@ -99,6 +107,7 @@ def build_callable(
     *,
     device: torch.device,
     capture: Optional[Callable[[str, torch.Tensor], None]] = None,
+    context: Optional[ExecutionContext] = None,
 ) -> Callable[[Dict[str, Any], Dict[str, Any]], Dict[str, torch.Tensor]]:
     """Return ``fn(weights, inputs) -> outputs`` on name-keyed dicts.
 
@@ -106,9 +115,12 @@ def build_callable(
     numpy arrays or tensors, moved to ``device`` and cast to the input
     var's precision.  ``capture`` (if given) is
     called with every intermediate (name, value) — the hook used by the
-    calibration runner and the cross-package tests.
+    calibration runner and the cross-package tests.  ``context`` is the
+    :class:`ExecutionContext` to run in (a sharded run's), else a fresh
+    one on ``device``.
     """
-    return _runner(graph, ExecutionContext(graph=graph, device=device), capture)
+    ctx = context if context is not None else ExecutionContext(graph=graph, device=device)
+    return _runner(graph, ctx, capture)
 
 
 def _op_runner(graph: Graph, ops: List[OpNode], ctx: ExecutionContext,
@@ -116,7 +128,7 @@ def _op_runner(graph: Graph, ops: List[OpNode], ctx: ExecutionContext,
     """``run(env)``: `ops` in order over the name-keyed `env`, each output
     written into it (rounded to the island dtype).  Impls are resolved
     here, so an unknown tag raises now."""
-    impls = [OPS.get(op.op_type).impl_for(op.attrs.get("kernel")) for op in ops]
+    impls = [ctx.impl_for(op) for op in ops]
     island = island_dtype(graph)
 
     def run(env: Dict[str, Any]) -> None:

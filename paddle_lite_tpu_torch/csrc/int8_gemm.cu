@@ -49,6 +49,14 @@
 //   writes are conflict-free) and written out row by row in
 //   `out_width`-byte pieces (16 where the row allows, else the widest that
 //   divides N's bytes), masked at the edge.
+// - A third output kind, int32 (OUT_I32), stages the raw accumulator
+//   tile with no scale, bias, activation or requant: the partial product
+//   of a row-parallel shard (parallel/tp_cuda.py), which is summed over
+//   the shards in int32 before the epilogue runs.  Its tile takes the fp32
+//   tile's bytes.  It replaces no TPU kernel: the reference's row-parallel
+//   path ran the fp32-out kernel at unit scales and summed fp32 partials,
+//   inexact once a partial passes 2^24 (paddle_lite_tpu/parallel/
+//   tp_pallas.py:111-116).
 // - The tiling is chosen by the caller's plan (int8_matmul.plan); the host
 //   side here checks it and refuses what the kernel cannot take.
 #include <cuda_runtime.h>
@@ -62,6 +70,8 @@
 namespace {
 
 constexpr int STAGES = 4;
+// the output kinds: fp32 and int8 after the epilogue, the raw int32 accumulator
+constexpr int OUT_F32 = 0, OUT_I8 = 1, OUT_I32 = 2;
 constexpr int SMEM_LIMIT = 232448;  // shared bytes a block may use (sm_90)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -130,15 +140,16 @@ __device__ __forceinline__ void fence_acc(int (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-template <bool OUT_I8, int BN>
+template <int OUT, int BN>
 __host__ __device__ constexpr int staged_ld() {  // bytes of a staged output row
-  return OUT_I8 ? BN + 16 : 4 * BN + 32;
+  return OUT == OUT_I8 ? BN + 16 : 4 * BN + 32;
 }
 
 // Shared bytes of a block: the ring of STAGES slabs, the staged output
-// tile, then BN scales and BN biases.
-__host__ __device__ inline int smem_bytes(int bm, int bn, int bk, int out_i8) {
-  return STAGES * (bm + bn) * bk + bm * (out_i8 ? bn + 16 : 4 * bn + 32) + 8 * bn;
+// tile (an int32 tile as an fp32 one), then BN scales and BN biases.
+__host__ __device__ inline int smem_bytes(int bm, int bn, int bk, int out_kind) {
+  return STAGES * (bm + bn) * bk + bm * (out_kind == OUT_I8 ? bn + 16 : 4 * bn + 32) +
+         8 * bn;
 }
 
 // plt::small_int_to_float is exact for every accumulator of a K <= 256
@@ -169,13 +180,13 @@ __device__ __forceinline__ void to_float_bits(int (&acc)[R], bool small) {
 // where a dividend left its range, and the caller redoes the thread's
 // outputs without it); the int8 out is plt::requant's, from
 // plt::requant_lo's low byte.
-template <int ACT, bool FAST, int BN, bool OUT_I8, int R>
+template <int ACT, bool FAST, int BN, bool I8, int R>
 __device__ __forceinline__ bool stage_tile(int8_t* staged, const int (&acc)[R],
                                            const float* s_scale,
                                            const float* s_bias, bool has_bias,
                                            const plt::ActParams& act, float rb,
                                            float inv_out_scale) {
-  constexpr int LD = staged_ld<OUT_I8, BN>();
+  constexpr int LD = staged_ld<I8 ? OUT_I8 : OUT_F32, BN>();
   const int lane = threadIdx.x & 31;
   const int row0 = (threadIdx.x >> 7) * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
   bool bad = false;
@@ -193,7 +204,7 @@ __device__ __forceinline__ bool stage_tile(int8_t* staged, const int (&acc)[R],
       y0 = plt::act_value<ACT, FAST>(y0, act, rb, bad);
       y1 = plt::act_value<ACT, FAST>(y1, act, rb, bad);
       int8_t* s = staged + (row0 + 8 * h) * LD;
-      if (OUT_I8) {
+      if (I8) {
         *reinterpret_cast<uint16_t*>(s + col) = static_cast<uint16_t>(__byte_perm(
             plt::requant_lo(y0, inv_out_scale), plt::requant_lo(y1, inv_out_scale), 0x0040));
       } else {
@@ -204,22 +215,38 @@ __device__ __forceinline__ bool stage_tile(int8_t* staged, const int (&acc)[R],
   return bad;
 }
 
-template <int ACT, int BN, bool OUT_I8, int R>
+// The raw accumulators of one tile into the staged tile (OUT_I32), in the
+// fragment layout stage_tile reads.
+template <int BN, int R>
+__device__ __forceinline__ void stage_acc(int8_t* staged, const int (&acc)[R]) {
+  constexpr int LD = staged_ld<OUT_I32, BN>();
+  const int lane = threadIdx.x & 31;
+  const int row0 = (threadIdx.x >> 7) * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<int2*>(staged + (row0 + 8 * h) * LD + 4 * col) =
+          make_int2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+template <int ACT, int BN, bool I8, int R>
 __device__ __forceinline__ void stage_tile_checked(int8_t* staged, const int (&acc)[R],
                                                    const float* s_scale,
                                                    const float* s_bias, bool has_bias,
                                                    const plt::ActParams& act,
                                                    float rb, bool fast_div, float inv) {
   if constexpr (ACT == plt::ACT_HARD_SWISH) {
-    if (fast_div && !stage_tile<ACT, true, BN, OUT_I8>(staged, acc, s_scale, s_bias,
-                                                       has_bias, act, rb, inv))
+    if (fast_div && !stage_tile<ACT, true, BN, I8>(staged, acc, s_scale, s_bias,
+                                                   has_bias, act, rb, inv))
       return;
   }
-  stage_tile<ACT, false, BN, OUT_I8>(staged, acc, s_scale, s_bias, has_bias, act, rb,
-                                     inv);
+  stage_tile<ACT, false, BN, I8>(staged, acc, s_scale, s_bias, has_bias, act, rb, inv);
 }
 
-template <int BN, bool OUT_I8, int R>
+template <int BN, bool I8, int R>
 __device__ __forceinline__ void stage_tile_act(int8_t* staged, const int (&acc)[R],
                                                const float* s_scale,
                                                const float* s_bias, bool has_bias,
@@ -228,8 +255,8 @@ __device__ __forceinline__ void stage_tile_act(int8_t* staged, const int (&acc)[
   switch (act.code) {
 #define PLT_STAGE(A)                                                             \
   case A:                                                                        \
-    return stage_tile_checked<A, BN, OUT_I8>(staged, acc, s_scale, s_bias,        \
-                                                    has_bias, act, rb, fast_div, inv);
+    return stage_tile_checked<A, BN, I8>(staged, acc, s_scale, s_bias,           \
+                                         has_bias, act, rb, fast_div, inv);
     PLT_STAGE(plt::ACT_RELU)
     PLT_STAGE(plt::ACT_RELU6)
     PLT_STAGE(plt::ACT_LEAKY_RELU)
@@ -239,10 +266,10 @@ __device__ __forceinline__ void stage_tile_act(int8_t* staged, const int (&acc)[
     case plt::ACT_GELU_TANH:
     case plt::ACT_GELU_ERF:
     case plt::ACT_TANH:
-      return stage_tile_checked<plt::ACT_TRANSCENDENTAL, BN, OUT_I8>(
+      return stage_tile_checked<plt::ACT_TRANSCENDENTAL, BN, I8>(
           staged, acc, s_scale, s_bias, has_bias, act, rb, fast_div, inv);
     default:
-      return stage_tile_checked<plt::ACT_NONE, BN, OUT_I8>(
+      return stage_tile_checked<plt::ACT_NONE, BN, I8>(
           staged, acc, s_scale, s_bias, has_bias, act, rb, fast_div, inv);
   }
 }
@@ -269,7 +296,7 @@ __device__ __forceinline__ void store_tile(int8_t* o, const int8_t* staged,
 // tiles fastest).  The ring runs over the block's (tile, slab) sequence,
 // so the copies of the next tile's first slabs are in flight while this
 // tile's epilogue runs.
-template <int BN, int WGS, bool OUT_I8>
+template <int BN, int WGS, int OUT>
 __global__ void __launch_bounds__(128 * WGS)
 int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
                  const float* __restrict__ scale,
@@ -277,7 +304,7 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
                  int M, int N, int K, int bk, int width, int out_width,
                  plt::ActParams act, float inv_out_scale) {
   constexpr int BM = 64 * WGS, THREADS = 128 * WGS, R = BN / 2;
-  constexpr int LD = staged_ld<OUT_I8, BN>(), ES = OUT_I8 ? 1 : 4;
+  constexpr int LD = staged_ld<OUT, BN>(), ES = OUT == OUT_I8 ? 1 : 4;
   extern __shared__ __align__(1024) int8_t smem[];
   const int a_bytes = BM * bk, slab_bytes = (BM + BN) * bk;
   const int bk_log2 = bk == 128 ? 7 : bk == 64 ? 6 : 5;
@@ -354,7 +381,7 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
     // the previous tile's stores and scale reads)
     const int t = blockIdx.x + (i / per_tile) * gridDim.x;
     const int m0 = (t / tiles_n) * BM, n0 = (t % tiles_n) * BN;
-    if (n0 != scale_n0) {  // the column tile's scales and biases
+    if (OUT != OUT_I32 && n0 != scale_n0) {  // the column tile's scales and biases
       for (int c = tid; c < BN; c += THREADS) {
         const bool in = n0 + c < N;
         s_scale[c] = in ? scale[n0 + c] : 0.0f;
@@ -363,9 +390,13 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
       scale_n0 = n0;
       __syncthreads();
     }
-    to_float_bits(acc, K <= SMALL_K);
-    stage_tile_act<BN, OUT_I8>(staged, acc, s_scale, s_bias, bias != nullptr, act, rb,
-                               fast_div, inv_out_scale);
+    if constexpr (OUT == OUT_I32) {
+      stage_acc<BN>(staged, acc);
+    } else {
+      to_float_bits(acc, K <= SMALL_K);
+      stage_tile_act<BN, OUT == OUT_I8>(staged, acc, s_scale, s_bias, bias != nullptr, act,
+                                        rb, fast_div, inv_out_scale);
+    }
     __syncthreads();
     const int rows = M - m0 < BM ? M - m0 : BM;
     const int valid = (N - n0 < BN ? N - n0 : BN) * ES;  // a multiple of out_width
@@ -381,30 +412,30 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <int BN, int WGS, bool OUT_I8>
+template <int BN, int WGS, int OUT>
 cudaError_t launch(const int8_t* A, const int8_t* Bt, const float* scale,
                    const float* bias, void* out, int M, int N, int K, int bk,
                    int width, int out_width, int smem, int blocks,
                    plt::ActParams act, float inv, cudaStream_t stream) {
-  int8_gemm_kernel<BN, WGS, OUT_I8><<<blocks, 128 * WGS, smem, stream>>>(
+  int8_gemm_kernel<BN, WGS, OUT><<<blocks, 128 * WGS, smem, stream>>>(
       A, Bt, scale, bias, out, M, N, K, bk, width, out_width, act, inv);
   return cudaSuccess;
 }
 
-template <int BN, int WGS, bool OUT_I8>
+template <int BN, int WGS, int OUT>
 cudaError_t occupancy(int smem, int* blocks_per_sm) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, int8_gemm_kernel<BN, WGS, OUT_I8>, 128 * WGS, smem);
+      blocks_per_sm, int8_gemm_kernel<BN, WGS, OUT>, 128 * WGS, smem);
 }
 
-template <int BN, int WGS, bool OUT_I8>
+template <int BN, int WGS, int OUT>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(int8_gemm_kernel<BN, WGS, OUT_I8>,
+  return cudaFuncSetAttribute(int8_gemm_kernel<BN, WGS, OUT>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               SMEM_LIMIT);
 }
 
-// Every instantiation: fn<BN, WGS, OUT_I8>(args...) for the plan's values.
+// Every instantiation: fn<BN, WGS, OUT>(args...) for the plan's values.
 #define PLT_GEMM_BN(FN, WGS, O, ...)                             \
   switch (bn) {                                                  \
     case 8: return FN<8, WGS, O>(__VA_ARGS__);                   \
@@ -415,14 +446,19 @@ cudaError_t allow_smem() {
     case 256: return FN<256, WGS, O>(__VA_ARGS__);               \
     default: return cudaErrorInvalidValue;                       \
   }
-#define PLT_GEMM_DISPATCH(FN, ...)                                  \
-  if (wgs == 1 && out_i8) { PLT_GEMM_BN(FN, 1, true, __VA_ARGS__) } \
-  if (wgs == 1) { PLT_GEMM_BN(FN, 1, false, __VA_ARGS__) }          \
-  if (wgs == 2 && out_i8) { PLT_GEMM_BN(FN, 2, true, __VA_ARGS__) } \
-  if (wgs == 2) { PLT_GEMM_BN(FN, 2, false, __VA_ARGS__) }          \
+#define PLT_GEMM_KIND(FN, WGS, ...)                              \
+  switch (out_kind) {                                            \
+    case OUT_F32: PLT_GEMM_BN(FN, WGS, OUT_F32, __VA_ARGS__)      \
+    case OUT_I8: PLT_GEMM_BN(FN, WGS, OUT_I8, __VA_ARGS__)        \
+    case OUT_I32: PLT_GEMM_BN(FN, WGS, OUT_I32, __VA_ARGS__)      \
+    default: return cudaErrorInvalidValue;                       \
+  }
+#define PLT_GEMM_DISPATCH(FN, ...)                      \
+  if (wgs == 1) { PLT_GEMM_KIND(FN, 1, __VA_ARGS__) }   \
+  if (wgs == 2) { PLT_GEMM_KIND(FN, 2, __VA_ARGS__) }   \
   return cudaErrorInvalidValue;
 
-cudaError_t dispatch(int bn, int wgs, int out_i8, const int8_t* A,
+cudaError_t dispatch(int bn, int wgs, int out_kind, const int8_t* A,
                      const int8_t* Bt, const float* scale, const float* bias,
                      void* out, int M, int N, int K, int bk, int width,
                      int out_width, int smem, int blocks, plt::ActParams act,
@@ -431,23 +467,24 @@ cudaError_t dispatch(int bn, int wgs, int out_i8, const int8_t* A,
                     out_width, smem, blocks, act, inv, s)
 }
 
-cudaError_t prepare_one(int bn, int wgs, int out_i8) {
+cudaError_t prepare_one(int bn, int wgs, int out_kind) {
   PLT_GEMM_DISPATCH(allow_smem)
 }
 
-cudaError_t occupancy_one(int bn, int wgs, int out_i8, int smem, int* n) {
+cudaError_t occupancy_one(int bn, int wgs, int out_kind, int smem, int* n) {
   PLT_GEMM_DISPATCH(occupancy, smem, n)
 }
 
 bool plan_ok(const void* A, const void* Bt, const void* out, int M, int N,
-             int K, int out_i8, int bn, int bk, int wgs, int width,
+             int K, int out_kind, int bn, int bk, int wgs, int width,
              int out_width, int smem, int blocks) {
-  const int es = out_i8 ? 1 : 4;
+  const int es = out_kind == OUT_I8 ? 1 : 4;
   auto aligned = [](const void* p, int w) {
     return reinterpret_cast<uintptr_t>(p) % w == 0;
   };
   const long long tiles = (long long)((N + bn - 1) / bn) * ((M + 64 * wgs - 1) / (64 * wgs));
   return M > 0 && N > 0 && K > 0 && (wgs == 1 || wgs == 2) &&
+         (out_kind == OUT_F32 || out_kind == OUT_I8 || out_kind == OUT_I32) &&
          (bk == 32 || bk == 64 || bk == 128) &&
          (width == 16 || width == 8 || width == 4 || width == 2) &&
          K % width == 0 && bk % width == 0 && aligned(A, width) &&
@@ -457,28 +494,29 @@ bool plan_ok(const void* A, const void* Bt, const void* out, int M, int N,
          (N * es) % out_width == 0 && (bn * es) % out_width == 0 &&
          aligned(out, out_width) && tiles < (1LL << 31) &&
          blocks >= 1 && blocks <= tiles &&
-         smem == smem_bytes(64 * wgs, bn, bk, out_i8) && smem <= SMEM_LIMIT;
+         smem == smem_bytes(64 * wgs, bn, bk, out_kind) && smem <= SMEM_LIMIT;
 }
 
 }  // namespace
 
 // C interface, bound with ctypes.  Pointers are device pointers; `bias` may
-// be null.  `act` is a plt::Act code and p0..p2 its parameters
-// (epilogue.cuh).  bn, bk, wgs, width, out_width, smem and blocks are the
+// be null, and `scale` too where out_kind is OUT_I32 (no epilogue).
+// out_kind is OUT_F32, OUT_I8 or OUT_I32.  `act` is a plt::Act code and
+// p0..p2 its parameters (epilogue.cuh).  bn, bk, wgs, width, out_width, smem and blocks are the
 // caller's plan (int8_matmul.plan, blocks from plt_int8_gemm_occupancy); a
 // plan the kernel cannot take returns cudaErrorInvalidValue without
 // launching.  Returns cudaGetLastError() after the launch.
 extern "C" int plt_int8_gemm(const void* A, const void* Bt, const void* scale,
                              const void* bias, void* out, int M, int N, int K,
-                             int act, float p0, float p1, float p2, int out_i8,
+                             int act, float p0, float p1, float p2, int out_kind,
                              float inv_out_scale, int bn, int bk, int wgs,
                              int width, int out_width, int smem, int blocks,
                              void* stream) {
-  if (!plan_ok(A, Bt, out, M, N, K, out_i8, bn, bk, wgs, width, out_width,
+  if (!plan_ok(A, Bt, out, M, N, K, out_kind, bn, bk, wgs, width, out_width,
                smem, blocks))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t rc = dispatch(
-      bn, wgs, out_i8, static_cast<const int8_t*>(A),
+      bn, wgs, out_kind, static_cast<const int8_t*>(A),
       static_cast<const int8_t*>(Bt), static_cast<const float*>(scale),
       static_cast<const float*>(bias), out, M, N, K, bk, width, out_width,
       smem, blocks, plt::ActParams{act, p0, p1, p2}, inv_out_scale,
@@ -489,9 +527,9 @@ extern "C" int plt_int8_gemm(const void* A, const void* Bt, const void* scale,
 
 // Blocks of one instantiation that an SM of the current device holds at
 // `smem` shared bytes a block.
-extern "C" int plt_int8_gemm_occupancy(int bn, int wgs, int out_i8, int smem,
+extern "C" int plt_int8_gemm_occupancy(int bn, int wgs, int out_kind, int smem,
                                        int* blocks_per_sm) {
-  return static_cast<int>(occupancy_one(bn, wgs, out_i8, smem, blocks_per_sm));
+  return static_cast<int>(occupancy_one(bn, wgs, out_kind, smem, blocks_per_sm));
 }
 
 // The shared-memory limit of every instantiation, for the current device:
@@ -499,9 +537,9 @@ extern "C" int plt_int8_gemm_occupancy(int bn, int wgs, int out_i8, int smem,
 extern "C" int plt_int8_gemm_prepare() {
   const int bns[] = {8, 16, 32, 64, 128, 256};
   for (int wgs = 1; wgs <= 2; ++wgs)
-    for (int out_i8 = 0; out_i8 <= 1; ++out_i8)
+    for (int out_kind = OUT_F32; out_kind <= OUT_I32; ++out_kind)
       for (int bn : bns) {
-        const cudaError_t rc = prepare_one(bn, wgs, out_i8);
+        const cudaError_t rc = prepare_one(bn, wgs, out_kind);
         if (rc != cudaSuccess) return static_cast<int>(rc);
       }
   return 0;

@@ -141,7 +141,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.plt_int8_gemm_occupancy.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
         lib.plt_int8_gemm_occupancy.restype = ci
         fn = lib.plt_int8_gemm
-        # ... act, out_i8, inv_out_scale, then the plan: bn, bk, warpgroups,
+        # ... act, the output kind, inv_out_scale, then the plan: bn, bk, warpgroups,
         # width, out_width, shared bytes, blocks
         fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, *act, ci, cf,
                        ci, ci, ci, ci, ci, ci, ci, vp]

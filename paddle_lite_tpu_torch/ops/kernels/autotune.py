@@ -72,13 +72,14 @@ def _dw_problem(graph, op) -> Optional[Tuple[int, int, int, int]]:
     return x[1], x[3], w[0], s
 
 
-def plan_candidates(m: int, k: int, n: int, out_i8: bool) -> List[Tuple[int, int, int]]:
+def plan_candidates(m: int, k: int, n: int, out: int) -> List[Tuple[int, int, int]]:
     """(bn, bk, warpgroups) of every GEMM plan the kernel runs at this
     problem: a tile width of ``BN_CHOICES`` no wider than the narrowest
     that covers N (a wider one only multiplies zero columns), a slab depth
     of ``slab_depths(k)`` and one or two warpgroups, where the block's
-    shared memory fits ``SMEM_LIMIT``."""
+    shared memory at output kind `out` (``int8_matmul.OUT_*``; a bool
+    reads as int8 / fp32) fits ``SMEM_LIMIT``."""
     widest = next((b for b in BN_CHOICES if b >= n), BN_CHOICES[-1])
     return [(bn, bk, wgs) for bn in BN_CHOICES if bn <= widest
             for bk in slab_depths(k) for wgs in (1, 2)
-            if smem_bytes(64 * wgs, bn, bk, out_i8) <= SMEM_LIMIT]
+            if smem_bytes(64 * wgs, bn, bk, out) <= SMEM_LIMIT]

@@ -19,6 +19,13 @@ Requant: the Pallas epilogue multiplies by ``1.0 / out_scale`` computed in
 Python double precision and applied as an fp32 constant
 (``int8_matmul.py:38``), so the wrapper passes
 ``float(np.float32(1.0 / out_scale))``, never ``1 / out_scale`` in fp32.
+
+Output kinds (:data:`OUT_F32`, :data:`OUT_I8`, :data:`OUT_I32`): fp32 or
+int8 after the epilogue, or (:func:`int8_matmul_i32`) the raw int32
+accumulator with no epilogue, the partial product a row-parallel shard
+sums over the shards before its epilogue (``parallel/tp_cuda.py``).  The
+plans take the kind where they took a bool ``out_i8``; ``True`` /
+``False`` still read as int8 / fp32.
 """
 
 from __future__ import annotations
@@ -32,8 +39,10 @@ import torch
 from ..common import act_params, apply_activation, f32, gelu_approximate
 from . import _build, tune_cache
 
-# launches of the CUDA kernel, counted by the wrapper (CPU calls not counted)
+# launches of the CUDA kernel, counted by the wrappers (CPU calls not
+# counted): fp32 / int8 out by int8_matmul, int32 out by int8_matmul_i32
 launches = 0
+launches_i32 = 0
 
 # the activations of every kernel's epilogue (``csrc/epilogue.cuh``,
 # ``plt::Act``): those whose fp32 arithmetic the kernels reproduce exactly.
@@ -88,6 +97,26 @@ def epilogue(acc: torch.Tensor, eff_scale, bias, act, act_attrs,
     return torch.clamp(q, -127, 127).to(torch.int8)
 
 
+# The largest K whose int32 accumulator cannot overflow for any int8
+# operands: K·128² < 2^31 (K·127² < 2^31, K <= 133,144, for the quantizer's
+# ±127 range).  The float64 product is exact far past it (2^53).
+I32_MAX_K = (2 ** 31 - 1) // (128 * 128)
+
+
+def _check_i32_k(k: int) -> None:
+    if k > I32_MAX_K:
+        raise ValueError(f"int8_matmul_i32: K={k} can overflow the int32 accumulator "
+                         f"(|acc| <= K·128² < 2^31 needs K <= {I32_MAX_K})")
+
+
+def int8_matmul_i32_plain(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Plain version of the int32 mode: the float64 product cast to int32,
+    exact while K·128² < 2^31 (K <= :data:`I32_MAX_K`; K·127² < 2^31,
+    K <= 133,144, for operands in the quantizer's ±127); raises past it."""
+    _check_i32_k(x_q.shape[1])
+    return (x_q.to(torch.float64) @ w_q.to(torch.float64)).to(torch.int32)
+
+
 def int8_matmul_plain(x_q, w_q, eff_scale, bias=None, *, act=None,
                       act_attrs=None, out_scale=None) -> torch.Tensor:
     """Plain PyTorch version: a float64 matmul gives the exact int32
@@ -99,6 +128,7 @@ def int8_matmul_plain(x_q, w_q, eff_scale, bias=None, *, act=None,
 # ---- the kernel's tiling (csrc/int8_gemm.cu takes these numbers as given) ----
 
 BN_CHOICES = (8, 16, 32, 64, 128, 256)  # tile widths int8_gemm.cu instantiates
+OUT_F32, OUT_I8, OUT_I32 = 0, 1, 2  # the kernel's output kinds (OUT_* there)
 STAGES = 4            # slabs in the kernel's shared-memory ring (STAGES there)
 SMEM_LIMIT = 232448   # shared bytes a block may use on sm_90
 SMS = 132             # the H100's SMs: small problems spread over them
@@ -141,17 +171,20 @@ def slab_depths(k: int):
     return sorted((32, 64, 128), key=lambda bk: (_cdiv(k, bk) * bk, -bk))
 
 
-def smem_bytes(bm: int, bn: int, bk: int, out_i8: bool) -> int:
+def smem_bytes(bm: int, bn: int, bk: int, out: int) -> int:
     """Shared bytes of a block, as int8_gemm.cu lays them out: the ring of
     STAGES A and Bt slabs, the staged output tile (rows padded by 16 bytes,
-    32 for fp32), then BN scales and BN biases."""
-    return (STAGES * (bm + bn) * bk + bm * (bn + 16 if out_i8 else 4 * bn + 32)
+    32 for fp32 and int32: an int32 tile takes an fp32 tile's bytes), then
+    BN scales and BN biases.  `out` is an output kind (a bool reads as
+    int8 / fp32)."""
+    return (STAGES * (bm + bn) * bk + bm * (bn + 16 if out == OUT_I8 else 4 * bn + 32)
             + 8 * bn)
 
 
 @functools.lru_cache(maxsize=None)
-def default_plan(m: int, k: int, n: int, out_i8: bool) -> Plan:
-    """The heuristic tiling of one (M, K) · (K, N) int8 GEMM: pure Python,
+def default_plan(m: int, k: int, n: int, out: int) -> Plan:
+    """The heuristic tiling of one (M, K) · (K, N) int8 GEMM with output
+    kind `out` (:data:`OUT_F32`, :data:`OUT_I8`, :data:`OUT_I32`): pure Python,
     so the CPU tests check it; the kernel checks what it is given and
     refuses a plan it cannot take.  Raises ValueError for a problem it
     cannot take.
@@ -176,11 +209,11 @@ def default_plan(m: int, k: int, n: int, out_i8: bool) -> Plan:
     while tiles(wgs, bn) < SMS and bn > BN_CHOICES[0] and _cdiv(n, bn) < _cdiv(n, bn // 2):
         bn //= 2
     bk = next(bk for bk in slab_depths(k)
-              if smem_bytes(64 * wgs, bn, bk, out_i8) <= SMEM_LIMIT)
-    return plan_of(m, k, n, out_i8, bn, bk, wgs)
+              if smem_bytes(64 * wgs, bn, bk, out) <= SMEM_LIMIT)
+    return plan_of(m, k, n, out, bn, bk, wgs)
 
 
-def plan_of(m: int, k: int, n: int, out_i8: bool, bn: int, bk: int, wgs: int) -> Plan:
+def plan_of(m: int, k: int, n: int, out: int, bn: int, bk: int, wgs: int) -> Plan:
     """The plan of one GEMM at tile width `bn`, slab depth `bk` and `wgs`
     warpgroups (its copy widths, shared bytes and tiles follow); raises
     ValueError for one the kernel cannot run."""
@@ -188,33 +221,31 @@ def plan_of(m: int, k: int, n: int, out_i8: bool, bn: int, bk: int, wgs: int) ->
         raise ValueError(f"int8_matmul: no instantiation takes bn={bn}, bk={bk}, "
                          f"{wgs} warpgroups")
     width = copy_width(k)
-    smem = smem_bytes(64 * wgs, bn, bk, out_i8)
+    smem = smem_bytes(64 * wgs, bn, bk, out)
     if smem > SMEM_LIMIT:
         raise ValueError(f"int8_matmul: bn={bn}, bk={bk}, {wgs} warpgroups take {smem} "
                          f"shared bytes, past the block's {SMEM_LIMIT}")
     tiles = _cdiv(m, 64 * wgs) * _cdiv(n, bn)
     if tiles >= 2 ** 31:
         raise ValueError(f"int8_matmul: {(m, k, n)} has 2^31 tiles or more")
-    es = 1 if out_i8 else 4
+    es = 1 if out == OUT_I8 else 4
     out_width = next(w for w in (16, 8, 4, 2, 1) if (n * es) % w == 0 and (bn * es) % w == 0)
     return Plan(bn, bk, wgs, width, out_width, smem, tiles)
 
 
-def plan(m: int, k: int, n: int, out_i8: bool) -> Plan:
+def plan(m: int, k: int, n: int, out: int) -> Plan:
     """The tiling of one GEMM: the plan measured fastest for its bucket and
-    output type on the card (``tune_cache.lookup_blocks``, filled by
+    output kind on the card (``tune_cache.lookup_blocks``, filled by
     ``tune_cache.sweep_gemm_blocks``), else :func:`default_plan`.  A stored
     plan the kernel cannot run raises (:func:`plan_of`)."""
-    stored = tune_cache.lookup_blocks(m, k, n, out_i8)
+    stored = tune_cache.lookup_blocks(m, k, n, out)
     if stored is None:
-        return default_plan(m, k, n, out_i8)
-    return plan_of(m, k, n, out_i8, *stored)
-
-
+        return default_plan(m, k, n, out)
+    return plan_of(m, k, n, out, *stored)
 
 
 @functools.lru_cache(maxsize=None)
-def _resident(device: int, bn: int, wgs: int, out_i8: bool, smem: int) -> int:
+def _resident(device: int, bn: int, wgs: int, out: int, smem: int) -> int:
     """Blocks of one instantiation the card `device` holds at once, as the
     built library reports its occupancy."""
     import ctypes
@@ -222,15 +253,15 @@ def _resident(device: int, bn: int, wgs: int, out_i8: bool, smem: int) -> int:
     with torch.cuda.device(device):
         per_sm = ctypes.c_int()
         _build.check(_build.load("int8_gemm").plt_int8_gemm_occupancy(
-            bn, wgs, int(out_i8), smem, ctypes.byref(per_sm)), "int8_gemm occupancy")
+            bn, wgs, int(out), smem, ctypes.byref(per_sm)), "int8_gemm occupancy")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, per_sm.value) * sms
 
 
-def blocks(p: Plan, out_i8: bool, device: int) -> int:
+def blocks(p: Plan, out: int, device: int) -> int:
     """The launch's blocks: as many as the card holds at once, at most one
     a tile; each walks its tiles (csrc/int8_gemm.cu)."""
-    return min(p.tiles, _resident(device, p.bn, p.warpgroups, out_i8, p.smem_bytes))
+    return min(p.tiles, _resident(device, p.bn, p.warpgroups, int(out), p.smem_bytes))
 
 
 def check_aligned(p: Plan, k: int, **operands: torch.Tensor) -> None:
@@ -250,6 +281,48 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
             f"int8_matmul: {name} must be a contiguous {dtype} tensor of "
             f"shape {tuple(shape)} on {device}; got {t.dtype} "
             f"{tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})")
+
+
+def _operands(x_q: torch.Tensor, w_q: torch.Tensor, w_nk: Optional[torch.Tensor],
+              what: str):
+    """(m, k, n, w_nk) of a launch, each operand checked on the current
+    card; w_nk is w_q transposed where the caller passed none."""
+    dev = x_q.device
+    _build.require_current_device(dev, what)
+    if x_q.ndim != 2 or w_q.ndim != 2 or x_q.shape[1] != w_q.shape[0]:
+        raise ValueError(f"{what}: shapes {tuple(x_q.shape)} @ "
+                         f"{tuple(w_q.shape)} do not compose")
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    if w_nk is None:
+        _check(w_q, "w_q", torch.int8, (k, n), dev)
+        w_nk = w_q.t().contiguous()
+    _check(x_q, "x_q", torch.int8, (m, k), dev)
+    _check(w_nk, "w_nk", torch.int8, (n, k), dev)
+    return m, k, n, w_nk
+
+
+def _launch(x_q, w_nk, scale, bias, out, act_c, out_kind: int, inv: float,
+            tiling: Optional[Plan]) -> torch.Tensor:
+    global launches, launches_i32
+    m, k = x_q.shape
+    n = w_nk.shape[0]
+    dev = x_q.device
+    p = tiling or plan(m, k, n, out_kind)
+    check_aligned(p, k, x_q=x_q, w_nk=w_nk)
+    lib = _build.load("int8_gemm")
+    rc = lib.plt_int8_gemm(
+        x_q.data_ptr(), w_nk.data_ptr(), None if scale is None else scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        m, n, k, *act_c, out_kind, inv,
+        p.bn, p.bk, p.warpgroups, p.width, p.out_width, p.smem_bytes,
+        blocks(p, out_kind, dev.index), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "int8_gemm")
+    if out_kind == OUT_I32:
+        launches_i32 += 1
+    else:
+        launches += 1
+    return out
 
 
 def int8_matmul(
@@ -272,36 +345,33 @@ def int8_matmul(
     if x_q.device.type == "cpu":
         return int8_matmul_plain(x_q, w_q, eff_scale, bias, act=act,
                                  act_attrs=act_attrs, out_scale=out_scale)
-    global launches
+    m, k, n, w_nk = _operands(x_q, w_q, w_nk, "int8_matmul")
     dev = x_q.device
-    _build.require_current_device(dev, "int8_matmul")
-    if x_q.ndim != 2 or w_q.ndim != 2 or x_q.shape[1] != w_q.shape[0]:
-        raise ValueError(f"int8_matmul: shapes {tuple(x_q.shape)} @ "
-                         f"{tuple(w_q.shape)} do not compose")
-    m, k = x_q.shape
-    n = w_q.shape[1]
-    if w_nk is None:
-        _check(w_q, "w_q", torch.int8, (k, n), dev)
-        w_nk = w_q.t().contiguous()
-    _check(x_q, "x_q", torch.int8, (m, k), dev)
-    _check(w_nk, "w_nk", torch.int8, (n, k), dev)
     scale = f32(eff_scale, dev).expand(n).contiguous()
     if bias is not None:
         _check(bias, "bias", torch.float32, (n,), dev)
     act_c = act_args(act, act_attrs, GEMM_ACTS)
     out = torch.empty((m, n), device=dev,
                       dtype=torch.float32 if out_scale is None else torch.int8)
-    out_i8 = out_scale is not None
-    p = tiling or plan(m, k, n, out_i8)
-    check_aligned(p, k, x_q=x_q, w_nk=w_nk)
-    lib = _build.load("int8_gemm")
-    rc = lib.plt_int8_gemm(
-        x_q.data_ptr(), w_nk.data_ptr(), scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
-        m, n, k, *act_c, int(out_i8),
-        0.0 if out_scale is None else inv_out_scale(out_scale),
-        p.bn, p.bk, p.warpgroups, p.width, p.out_width, p.smem_bytes,
-        blocks(p, out_i8, dev.index), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "int8_gemm")
-    launches += 1
-    return out
+    kind = OUT_F32 if out_scale is None else OUT_I8
+    inv = 0.0 if out_scale is None else inv_out_scale(out_scale)
+    return _launch(x_q, w_nk, scale, bias, out, act_c, kind, inv, tiling)
+
+
+def int8_matmul_i32(
+    x_q: torch.Tensor,
+    w_q: torch.Tensor,
+    *,
+    w_nk: Optional[torch.Tensor] = None,
+    tiling: Optional[Plan] = None,
+) -> torch.Tensor:
+    """The raw accumulator ``(x_q @ w_q)`` as an (M, N) int32 tensor: the
+    kernel's int32 output kind, no scale, bias, activation or requant.
+    Exact while K·128² < 2^31 (K <= :data:`I32_MAX_K`); raises past it.
+    On a CPU tensor :func:`int8_matmul_i32_plain`."""
+    if x_q.device.type == "cpu":
+        return int8_matmul_i32_plain(x_q, w_q)
+    m, k, n, w_nk = _operands(x_q, w_q, w_nk, "int8_matmul_i32")
+    _check_i32_k(k)
+    out = torch.empty((m, n), device=x_q.device, dtype=torch.int32)
+    return _launch(x_q, w_nk, None, None, out, act_args(None), OUT_I32, 0.0, tiling)

@@ -26,6 +26,10 @@ key``).  ``select.choose_kernel`` reads it.
        "blocks:4096x1024x3072": {"plan": [128, 128, 2], "out_i8": false,
                                  "us": 94.2, "default_plan": [256, 32, 2], ...}}
 
+  A ``"blocks:"`` entry names its output kind by ``"out_i8"``.  No int32
+  GEMM (``int8_matmul.OUT_I32``) is swept, so its lookup finds no entry
+  and ``int8_matmul.plan`` keeps the heuristic, which is the fp32 plan.
+
   :func:`validate_in_model` adds the whole model's items/s with and
   without the kernel (``"in_model"``).  The table is read once a path
   (:func:`_load`); :func:`_store` merges entries and writes the file
@@ -112,12 +116,13 @@ def lookup_dw(h: int, c: int, k: int = 3, s: int = 1) -> Optional[str]:
     return lookup(_dw_key(h, c, k, s))
 
 
-def lookup_blocks(m: int, k: int, n: int, out_i8: bool) -> Optional[Tuple[int, int, int]]:
+def lookup_blocks(m: int, k: int, n: int, out: int) -> Optional[Tuple[int, int, int]]:
     """The swept (bn, bk, warpgroups) of this bucket, if it was swept for
-    this output type (:func:`sweep_gemm_blocks`); None keeps
-    ``int8_matmul.plan``'s heuristic."""
+    this output kind (``int8_matmul.OUT_*``; a bool reads as int8 / fp32;
+    :func:`sweep_gemm_blocks`); None keeps ``int8_matmul.plan``'s
+    heuristic."""
     e = _load().get("blocks:" + _key(m, k, n))
-    if not e or bool(e["out_i8"]) != bool(out_i8):
+    if not e or int(bool(e["out_i8"])) != int(out):
         return None
     bn, bk, wgs = e["plan"]
     return int(bn), int(bk), int(wgs)

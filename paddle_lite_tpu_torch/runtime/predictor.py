@@ -37,6 +37,25 @@ from ..core.executor import compile_graph
 from ..core.ir import Graph
 
 
+def validate_inputs(graph: Graph, inputs: Dict[str, Any]) -> None:
+    """Raise ValueError unless `inputs` holds exactly the graph's inputs,
+    each of its var's shape."""
+    for name in graph.inputs:
+        if name not in inputs:
+            raise ValueError(
+                f"missing input {name!r}; expected inputs: {list(graph.inputs)}"
+            )
+        got = tuple(np.shape(inputs[name]))
+        want = graph.vars[name].shape
+        if got != want:
+            raise ValueError(
+                f"input {name!r} has shape {got}, expected {want}"
+            )
+    extra = set(inputs) - set(graph.inputs)
+    if extra:
+        raise ValueError(f"unexpected inputs: {sorted(extra)}")
+
+
 @dataclasses.dataclass
 class PredictorConfig:
     """CxxConfig/MobileConfig analog."""
@@ -67,25 +86,9 @@ class Predictor:
         return self.graph.vars[name].shape
 
     # ---- execution -------------------------------------------------------
-    def _validate(self, inputs: Dict[str, Any]) -> None:
-        for name in self.graph.inputs:
-            if name not in inputs:
-                raise ValueError(
-                    f"missing input {name!r}; expected inputs: {self.input_names}"
-                )
-            got = tuple(np.shape(inputs[name]))
-            want = self.graph.vars[name].shape
-            if got != want:
-                raise ValueError(
-                    f"input {name!r} has shape {got}, expected {want}"
-                )
-        extra = set(inputs) - set(self.graph.inputs)
-        if extra:
-            raise ValueError(f"unexpected inputs: {sorted(extra)}")
-
     def run(self, inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         if self.config.validate_inputs:
-            self._validate(inputs)
+            validate_inputs(self.graph, inputs)
         return self._fn(self._weights, inputs)
 
     def __call__(self, inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
