@@ -13,6 +13,9 @@ a ``torch.cuda.CUDAGraph`` over static input and output buffers, and every
 later call replays it (:class:`CompiledGraph`); a graph with ``while`` /
 ``conditional_block`` ops is captured as one CUDA graph a segment between
 them, the control flow run on the host, each block compiled the same way.
+The execution context may name more such cuts: ops after which a step
+runs on the host between two replays (:meth:`ExecutionContext.host_step`:
+a sharded run's collectives).
 
 bf16 islands (``graph.meta["island_dtype"] == "bfloat16"``, the
 reference's rule at ``executor.py:86-136``): every float32 graph input and
@@ -45,8 +48,8 @@ class ExecutionContext:
     (effective scales, repacked weights).  A multi-process run's context
     (``parallel.sharding.ShardedContext``) holds its mesh and answers
     :meth:`var_quant` / :meth:`var_shape` with the rank's slice of a
-    sharded var and :meth:`impl_for` with the impl an op runs on its
-    shard."""
+    sharded var, :meth:`impl_for` with the impl an op runs on its shard
+    and :meth:`host_step` with the collective that follows it."""
 
     graph: Graph
     device: torch.device
@@ -61,6 +64,13 @@ class ExecutionContext:
     def impl_for(self, op: OpNode):
         """The impl `op` runs: its registered impl for its kernel tag."""
         return OPS.get(op.op_type).impl_for(op.attrs.get("kernel"))
+
+    def host_step(self, op: OpNode) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+        """The step run on each output of `op` before any other op reads
+        it, outside a captured segment (the compiled path cuts the graph
+        after `op`), or None: here always None, so a single-device graph
+        is cut only at its control flow."""
+        return None
 
     def const(self, op: OpNode, key: str, make: Callable[[], Any]) -> Any:
         """`make()` once per (op, key); later calls reuse the result (the
@@ -124,19 +134,24 @@ def build_callable(
 
 
 def _op_runner(graph: Graph, ops: List[OpNode], ctx: ExecutionContext,
-               capture: Optional[Callable[[str, torch.Tensor], None]] = None):
+               capture: Optional[Callable[[str, torch.Tensor], None]] = None,
+               host_steps: bool = True):
     """``run(env)``: `ops` in order over the name-keyed `env`, each output
-    written into it (rounded to the island dtype).  Impls are resolved
-    here, so an unknown tag raises now."""
+    written into it (rounded to the island dtype, then through the
+    context's host step where it names one and `host_steps` is set: the
+    eager loop; a compiled segment runs the steps between replays).
+    Impls are resolved here, so an unknown tag raises now."""
     impls = [ctx.impl_for(op) for op in ops]
+    steps = [ctx.host_step(op) if host_steps else None for op in ops]
     island = island_dtype(graph)
 
     def run(env: Dict[str, Any]) -> None:
-        for op, impl in zip(run.ops, impls):
+        for op, impl, step in zip(run.ops, impls, steps):
             outs = impl(ctx, op, _resolve_inputs(op, env))
             for slot, arrs in outs.items():
                 for n, a in zip(op.outputs.get(slot, []), arrs):
-                    env[n] = _to_island(a, island)
+                    a = _to_island(a, island)
+                    env[n] = a if step is None else step(a)
                     if capture is not None:
                         capture(n, env[n])
 
@@ -220,6 +235,22 @@ def stage_weights(graph: Graph, device: torch.device) -> Dict[str, torch.Tensor]
 _CAPTURE_LOCK = threading.RLock()
 
 
+def capture_cuda_graph(fn: Callable[[], Any], *, warm_up: bool = False
+                       ) -> Tuple[torch.cuda.CUDAGraph, Any]:
+    """``fn()`` captured as one ``torch.cuda.CUDAGraph`` under the
+    process's capture lock, after one eager call of it where `warm_up` is
+    set (the kernel libraries load and set up, which no capture may do).
+    Returns the graph and what the captured ``fn()`` returned: tensors
+    that every replay rewrites.  A capture that fails raises."""
+    with _CAPTURE_LOCK:
+        if warm_up:
+            fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = fn()
+    return graph, out
+
+
 # ops the compiled path runs on the host between captured segments: each
 # reads a condition back, and its block is compiled into graphs of its own
 CONTROL_FLOW = ("while", "conditional_block")
@@ -260,19 +291,79 @@ def refuse_host_syncing(graph: Graph) -> None:
             f"kernel that does not, or run the eager build_callable")
 
 
-def _plan(graph: Graph) -> list:
-    """The topological order cut at the control-flow ops: lists of ops (a
-    segment, one CUDA graph each) and control-flow ops, in order; the
+def _plan(graph: Graph, ctx: ExecutionContext) -> list:
+    """The topological order cut at the control-flow ops and after each op
+    for which `ctx` names a host step: lists of ops (a segment, one CUDA
+    graph each), control-flow ops and :class:`_HostStep`s, in order; the
     first step is a segment, maybe empty."""
     steps: list = [[]]
     for op in graph.topological_order():
         if op.op_type in CONTROL_FLOW:
             steps.append(op)
-        elif steps and isinstance(steps[-1], list):
-            steps[-1].append(op)
-        else:
-            steps.append([op])
+            continue
+        if not isinstance(steps[-1], list):
+            steps.append([])
+        steps[-1].append(op)
+        fn = ctx.host_step(op)
+        if fn is not None:
+            steps.append(_HostStep(op, fn))
     return steps
+
+
+class _HostStep:
+    """A context's host step after `op` in the compiled path (a sharded
+    run's gather): `fn` on each of the op's outputs, run on the host
+    between two segments.  It reads the output from the tensor the
+    previous segment wrote, and copies its result into a static buffer of
+    its own (made at the first run, outside any capture), which the next
+    segment reads: a captured graph reads fixed addresses, so the fresh
+    tensor `fn` returns is never handed on."""
+
+    def __init__(self, op: OpNode, fn: Callable[[torch.Tensor], torch.Tensor]):
+        self.op = op
+        self.fn = fn
+        self.names = op.output_names()
+        self.src: Dict[str, torch.Tensor] = {}
+        self.dst: Dict[str, torch.Tensor] = {}
+
+    def __call__(self, env: Dict[str, Any]) -> None:
+        """Run on `env`'s outputs of the op (an eager run over the static
+        buffers, or the capture, whose tensors later replays rewrite), and
+        put the static buffers in their place."""
+        self.src = {n: env[n] for n in self.names}
+        self.replay()
+        env.update(self.dst)
+
+    def replay(self) -> None:
+        """Run again on the tensors of the last :meth:`__call__`."""
+        for n, t in self.src.items():
+            out = self.fn(t)
+            if n not in self.dst:
+                self.dst[n] = torch.empty_like(out)
+            self.dst[n].copy_(out)
+
+
+def load_static_inputs(what: str, inputs: Dict[str, Any], buffers: Dict[str, torch.Tensor],
+                       stager: Optional[InputStager]) -> None:
+    """Copy `inputs` (numpy arrays or tensors) into the static input
+    `buffers` of a compiled function (`what`, for the messages), cast to
+    each buffer's dtype, through `stager` on the card; a missing input or
+    one of another shape raises ``ValueError``."""
+    missing = [n for n in buffers if n not in inputs]
+    if missing:
+        raise ValueError(f"{what}: missing inputs {missing}")
+    for name, dst in buffers.items():
+        value = inputs[name]
+        got = tuple(value.shape) if isinstance(value, torch.Tensor) \
+            else tuple(np.shape(value))
+        if got != tuple(dst.shape):
+            raise ValueError(f"{what}: input {name!r} has shape {got}, "
+                             f"compiled for {tuple(dst.shape)}")
+        if stager is None:
+            dst.copy_(value if isinstance(value, torch.Tensor)
+                      else torch.from_numpy(np.asarray(value)))
+        else:
+            stager.copy(name, value, dst)
 
 
 def _shares_storage(t: torch.Tensor, others) -> bool:
@@ -372,10 +463,16 @@ class CompiledGraph:
     control-flow op runs on the host between two segments: its block is
     compiled by this class into graphs of its own, once, and replayed once
     a trip on static state buffers; the condition is read on the host
-    (:class:`_While`, :class:`_ConditionalBlock`).  A graph without control
-    flow is one segment, one CUDA graph.  ``subgraph`` stays inline in its
-    segment.  A capture that fails raises; nothing falls back to the eager
-    loop.  :attr:`n_graphs` counts the CUDA graphs captured, nested ones
+    (:class:`_While`, :class:`_ConditionalBlock`).  The graph is also cut
+    after each op for which the context names a host step
+    (:meth:`ExecutionContext.host_step`, a sharded run's collective): the
+    step runs on the host between the two replays, from the tensor the
+    first segment wrote into a static buffer the second reads
+    (:class:`_HostStep`).  A graph without either is one segment, one CUDA
+    graph.  ``subgraph`` stays inline in its segment.  The static input
+    buffers have the context's shapes (:meth:`ExecutionContext.var_shape`:
+    a rank's data shard).  A capture that fails raises; nothing falls back
+    to the eager loop.  :attr:`n_graphs` counts the CUDA graphs captured, nested ones
     included.  On ``"cpu"`` there is no CUDA graph: the segments run
     eagerly, and the control-flow ops through their compiled blocks, on
     the same static buffers, so the contract is the same on both devices:
@@ -403,11 +500,12 @@ class CompiledGraph:
         self.weights = weights
         self.ctx = ctx or ExecutionContext(graph=graph, device=device)
         self.carried = frozenset(carried)
-        self._steps = [_op_runner(graph, s, self.ctx) if isinstance(s, list)
+        self._steps = [_op_runner(graph, s, self.ctx, host_steps=False)
+                       if isinstance(s, list) else s if isinstance(s, _HostStep)
                        else (s, _CONTROL_EXEC[s.op_type](s, device))
-                       for s in _plan(graph)]
+                       for s in _plan(graph, self.ctx)]
         self._inputs = {
-            n: torch.empty(graph.vars[n].shape,
+            n: torch.empty(self.ctx.var_shape(n),
                            dtype=graph.vars[n].precision.torch_dtype, device=device)
             for n in graph.inputs}
         self._outputs: Optional[Dict[str, torch.Tensor]] = None
@@ -428,6 +526,19 @@ class CompiledGraph:
         return (sum(g is not None for g in self._graphs)
                 + sum(ex.n_graphs for s, ex in
                       (st for st in self._steps if isinstance(st, tuple))))
+
+    @property
+    def n_segments(self) -> int:
+        """Segments of the plan: the CUDA graphs a call replays on the card,
+        the control-flow blocks' apart."""
+        return sum(1 for st in self._steps
+                   if not isinstance(st, (tuple, _HostStep)))
+
+    @property
+    def input_shapes(self) -> Dict[str, tuple]:
+        """The static input buffers' shapes (the context's: a rank's
+        data shard)."""
+        return {n: tuple(t.shape) for n, t in self._inputs.items()}
 
     @property
     def control_flow(self) -> List[Any]:
@@ -453,29 +564,12 @@ class CompiledGraph:
                 "with (the graph holds their device pointers); use the weights "
                 "compile_graph returned")
 
-    def _load(self, inputs: Dict[str, Any]) -> None:
-        missing = [n for n in self._inputs if n not in inputs]
-        if missing:
-            raise ValueError(f"compiled graph: missing inputs {missing}")
-        for name, dst in self._inputs.items():
-            value = inputs[name]
-            got = tuple(value.shape) if isinstance(value, torch.Tensor) \
-                else tuple(np.shape(value))
-            if got != tuple(dst.shape):
-                raise ValueError(f"compiled graph: input {name!r} has shape {got}, "
-                                 f"compiled for {tuple(dst.shape)}")
-            if self._stager is None:
-                dst.copy_(value if isinstance(value, torch.Tensor)
-                          else torch.from_numpy(np.asarray(value)))
-            else:
-                self._stager.copy(name, value, dst)
-
     def warm_up(self, weights: Dict[str, Any], inputs: Dict[str, Any]) -> None:
         """Load `inputs` and run the segments eagerly once on the static
         buffers (the first call does this before it captures)."""
         self._check_weights(weights)
         with self._lock, _CAPTURE_LOCK:
-            self._load(inputs)
+            load_static_inputs("compiled graph", inputs, self._inputs, self._stager)
             self._eager()
 
     def _start_env(self) -> Dict[str, Any]:
@@ -494,9 +588,9 @@ class CompiledGraph:
     def capture(self) -> None:
         """Capture each segment over the static buffers as a CUDA graph
         (after :meth:`warm_up`; the first call does both); the first one
-        also holds the inputs' island rounding.  Where control flow follows
-        a segment, the segment is replayed and the control flow run once,
-        so that every later capture reads real values."""
+        also holds the inputs' island rounding.  Where control flow or a
+        host step follows a segment, the segment is replayed and the step
+        run once, so that every later capture reads real values."""
         with self._lock, _CAPTURE_LOCK, fp32_exact():
             island = island_dtype(self.graph)
             env: Dict[str, Any] = {}
@@ -508,17 +602,22 @@ class CompiledGraph:
                     self._control(*step, env)
                     graphs.append(None)
                     continue
+                if isinstance(step, _HostStep):  # nor this
+                    step(env)
+                    graphs.append(None)
+                    continue
                 if i == 0 and not step.ops and island is None:
                     env.update(self._start_env())  # nothing to capture
                     graphs.append(None)
                     continue
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+
+                def segment(i=i, step=step, last=last):
                     if i == 0:
                         env.update(self._start_env())
                     step(env)
-                    if last:
-                        outputs = self._finish(env)
+                    return self._finish(env) if last else None
+
+                graph, outputs = capture_cuda_graph(segment)
                 if not last:
                     graph.replay()
                 graphs.append(graph)
@@ -541,7 +640,7 @@ class CompiledGraph:
                 if isinstance(step, tuple):
                     self._control(*step, env)
                 else:
-                    step(env)
+                    step(env)  # a segment or a host step
             return self._finish(env)
 
     def _execute(self) -> Dict[str, torch.Tensor]:
@@ -556,6 +655,8 @@ class CompiledGraph:
                     graph.replay()
                 elif isinstance(step, tuple):
                     self._control(*step, self._env)
+                elif isinstance(step, _HostStep):
+                    step.replay()
             return self._outputs
 
     def run_static(self) -> Dict[str, torch.Tensor]:
@@ -573,7 +674,7 @@ class CompiledGraph:
                  inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         self._check_weights(weights)
         with self._lock:
-            self._load(inputs)
+            load_static_inputs("compiled graph", inputs, self._inputs, self._stager)
             return {n: v.clone() for n, v in self.run_static().items()}
 
 

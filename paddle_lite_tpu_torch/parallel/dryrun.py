@@ -8,7 +8,9 @@ on two seeded batches, served by :class:`~.sharding.ShardedPredictor` at
 virtual n-device CPU mesh in one process and strips its Pallas kernels
 (``pallas=False``); here n gloo ranks are spawned (``distributed.spawn``)
 and the graph keeps the port's kernel tags (on the CPU each kernel wrapper
-runs its plain version).
+runs its plain version).  The step runs compiled, as the reference's
+``jax.jit`` does (the predictor's default; CUDA graphs cut at the
+collectives on the card).
 
     python3 -m paddle_lite_tpu_torch.parallel.dryrun 4 --device cpu
 """
@@ -42,7 +44,7 @@ def flagship_int8_graph(batch: int, image_size: int, num_classes: int = 1000,
 
 
 def _step(graph, dp: int, tp: int, device: str) -> dict:
-    """One rank's step: the sharded predictor on the seeded feed."""
+    """One rank's step: the compiled sharded predictor on the seeded feed."""
     from .sharding import MeshConfig, ShardedPredictor
 
     n = dp * tp

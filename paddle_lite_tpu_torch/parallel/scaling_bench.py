@@ -2,8 +2,10 @@
 
 Port of ``paddle_lite_tpu/parallel/scaling_bench.py``: the int8 model
 served over n devices with the per-device batch held constant (weak
-scaling, the serving configuration), images/s by rank 0's host clock
-around `loop` requests between two barriers, and ``efficiency(n) =
+scaling, the serving configuration), compiled as the reference's
+``jax.jit`` loop is (the predictor's default: CUDA graphs cut at the
+collectives), images/s by rank 0's host clock around `loop` requests
+between two barriers, and ``efficiency(n) =
 ips(n) / (n · ips(first n) / first n)``: the same rows ``{"devices", "dp",
 "tp", "batch", "images_per_sec", "efficiency"}``.
 
@@ -30,8 +32,9 @@ from . import distributed
 
 
 def _throughput(graph, dp: int, tp: int, device: str, backend: str, loop: int) -> dict:
-    """One rank's reading: ``loop`` requests of the whole batch, timed on
-    the host clock between barriers after one warm-up request."""
+    """One rank's reading: ``loop`` requests of the whole batch through
+    the compiled predictor, timed on the host clock between barriers after
+    one warm-up request (which also captures its CUDA graphs)."""
     import torch.distributed as dist
 
     from .sharding import MeshConfig, ShardedPredictor
@@ -51,7 +54,7 @@ def _throughput(graph, dp: int, tp: int, device: str, backend: str, loop: int) -
             torch.cuda.synchronize(local)
         dist.barrier()
 
-    pred.run(feed)
+    pred.run(feed)  # warm-up and capture
     sync()
     t0 = time.perf_counter()
     for _ in range(loop):

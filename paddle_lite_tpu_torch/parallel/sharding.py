@@ -13,8 +13,9 @@ device), rank ``r`` at data index ``r // model`` and model index
   group-1 conv2d's filter, an fc / mul weight) runs its own tagged impl on
   the rank's slice of the weight, its bias and its per-channel scales
   (the int8 GEMM family as ``"tp_cuda"``, ``tp_ops``; the stem's fp32 3x3
-  conv as ``"torch"``), then ``all_gather``s its output channels over the
-  model group (a residual input is sliced to the rank's channels first);
+  conv as ``"torch"``; a residual input sliced to the rank's channels
+  first), and its output channels are then ``all_gather``ed over the
+  model group: the op's host step (``ShardedContext.host_step``);
 - every other op runs replicated, on whole weights: a depthwise bias that
   ``weight_pspec`` marks ``"model"`` stays whole, as the depthwise op reads
   every channel;
@@ -34,8 +35,19 @@ before, ``.to(device)`` after, :meth:`Mesh._host`), whether or not the
 installed torch's gloo takes CUDA tensors; nothing is caught and retried
 another way.  A group of one rank runs no collective.
 
-The run is the eager loop (``core.executor.build_callable``); collectives
-inside captured CUDA graphs are later work.
+**Compiled.**  The run is compiled, as the reference's is under
+``jax.jit`` (``core.executor.CompiledGraph`` over the rank's context): on
+the card the first request captures the graph as CUDA graphs, cut after
+each split op, and later requests replay them; each gather runs on the
+host between two replays (through the host copy on gloo), from the
+tensor the first graph wrote into a static buffer the second reads.  A
+model group of one rank gathers nothing, so the 1x1 and Dx1 meshes are
+one graph a rank; MobileNetV1 at 1x2 (15 split ops) is 16.  NCCL
+collectives are cut the same way, not captured in a graph.  The data
+group's gather of the outputs follows the compiled call.
+``compiled=False`` runs the eager loop (``core.executor.build_callable``,
+the gather inside it after each split op), the only path with the
+``capture(name, value)`` hook.
 """
 
 from __future__ import annotations
@@ -48,7 +60,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..core.executor import ExecutionContext, build_callable, stage_weights
+from ..core.executor import CompiledGraph, ExecutionContext, build_callable, stage_weights
 from ..core.ir import Graph, OpNode
 from ..runtime.predictor import validate_inputs
 from . import distributed
@@ -324,8 +336,8 @@ def shard_inputs(graph: Graph, inputs: Dict[str, Any], mesh: Mesh) -> Dict[str, 
 @dataclasses.dataclass
 class ShardedContext(ExecutionContext):
     """A rank's execution context: its mesh, var quant and shapes as the
-    rank holds them, and each split op's impl wrapped to gather its output
-    channels over the model axis."""
+    rank holds them, each split op's impl on the rank's channels, and the
+    gather of its output channels over the model axis as its host step."""
 
     mesh: Optional[Mesh] = None
     split: FrozenSet[int] = frozenset()
@@ -356,19 +368,23 @@ class ShardedContext(ExecutionContext):
     def impl_for(self, op: OpNode):
         tag = op.attrs.get("kernel")
         impl = self.tp_impls[op.op_type] if tag == "tp_cuda" else super().impl_for(op)
-        if op.id not in self.split:
+        if op.id not in self.split or not op.maybe_input("ResidualData"):
             return impl
         mesh = self.mesh
 
         def split_impl(ctx, op_, ins):
-            if "ResidualData" in ins:
-                ins = dict(ins, ResidualData=[mesh.local_slice(r, "model", r.ndim - 1)
-                                              for r in ins["ResidualData"]])
-            outs = impl(ctx, op_, ins)
-            return {slot: [mesh.all_gather(a, "model", dim=-1) for a in arrs]
-                    for slot, arrs in outs.items()}
+            ins = dict(ins, ResidualData=[mesh.local_slice(r, "model", r.ndim - 1)
+                                          for r in ins["ResidualData"]])
+            return impl(ctx, op_, ins)
 
         return split_impl
+
+    def host_step(self, op: OpNode):
+        """A split op's output channels gathered over the model group."""
+        if op.id not in self.split:
+            return None
+        mesh = self.mesh
+        return lambda t: mesh.all_gather(t, "model", dim=-1)
 
 
 class ShardedPredictor:
@@ -378,20 +394,38 @@ class ShardedPredictor:
     graph and calls :meth:`run` with the same whole feed; each returns the
     whole result.
 
-    Int8 fc / mul / unpadded 1x1 convs run as ``"tp_cuda"``
-    (``tp_ops.assign_tp_kernels``: kernel 1 on the rank's column shard,
-    ``tp_cuda.column_parallel_int8_matmul``).  Like the reference, it
-    retags the graph it is given.  ``capture(name, value)`` sees every
-    intermediate as this rank holds it (its rows, channels gathered)."""
+    With `use_tp_cuda` (the reference's ``use_tp_pallas``), int8 fc / mul
+    / unpadded 1x1 convs run as ``"tp_cuda"`` (``tp_ops.assign_tp_kernels``:
+    kernel 1 on the rank's column shard,
+    ``tp_cuda.column_parallel_int8_matmul``); without it nothing is
+    retagged there and every ``"cuda"`` tag becomes ``"torch"``, so every
+    op runs its plain impl.  Like the reference, it retags the graph it is
+    given.  `compiled` (the default) runs the request as captured CUDA
+    graphs cut at the collectives (the module's rule); ``compiled=False``
+    runs the eager loop, where ``capture(name, value)`` sees every
+    intermediate as this rank holds it (its rows, channels gathered).
+    With `compiled`, `capture` raises.  ``use_tp_cuda=False`` is the plain
+    sharded path that the tests hold the kernels' path against, as the
+    reference's tests use ``use_tp_pallas=False``; no entry point sets it."""
 
     def __init__(self, graph: Graph, mesh_config: MeshConfig, devices=None, *,
-                 backend: Optional[str] = None, capture=None):
+                 backend: Optional[str] = None, use_tp_cuda: bool = True,
+                 compiled: bool = True, capture=None):
         from .tp_ops import TP_IMPLS, assign_tp_kernels
 
+        if compiled and capture is not None:
+            raise ValueError("ShardedPredictor: capture= sees the eager loop's "
+                             "intermediates; pass compiled=False with it")
         self.graph = graph
         self.mesh = mesh_config.build(devices, backend=backend)
         self.device = self.mesh.device
-        self.n_tp_ops = assign_tp_kernels(graph, self.mesh)
+        if use_tp_cuda:
+            self.n_tp_ops = assign_tp_kernels(graph, self.mesh)
+        else:
+            self.n_tp_ops = 0
+            for op in graph.ops:
+                if op.attrs.get("kernel") == "cuda":
+                    op.attrs["kernel"] = "torch"
         rows = batch_vars(graph) if _batch_split(graph, self.mesh) else frozenset()
         self._ctx = ShardedContext(
             graph=graph, device=self.device, mesh=self.mesh,
@@ -401,8 +435,9 @@ class ShardedPredictor:
             tp_impls=TP_IMPLS)
         with self._on_device():
             self._weights = shard_weights(graph, stage_weights(graph, self.device), self.mesh)
-        self._fn = build_callable(graph, device=self.device, capture=capture,
-                                  context=self._ctx)
+        self._fn = (CompiledGraph(graph, self.device, self._weights, self._ctx) if compiled
+                    else build_callable(graph, device=self.device, capture=capture,
+                                        context=self._ctx))
 
     def _on_device(self):
         """The rank's card as the current device (the kernels launch there)."""
@@ -412,6 +447,45 @@ class ShardedPredictor:
     @property
     def n_split_ops(self) -> int:
         return len(self._ctx.split)
+
+    def _compiled(self) -> CompiledGraph:
+        if not isinstance(self._fn, CompiledGraph):
+            raise ValueError("ShardedPredictor: built with compiled=False, it "
+                             "captures nothing")
+        return self._fn
+
+    def warm_up(self, inputs: Dict[str, Any]) -> None:
+        """What the compiled run's first request does before it captures,
+        alone: `inputs` (the whole feed) loaded and the graph run eagerly
+        once on the static buffers, its gathers between the segments."""
+        validate_inputs(self.graph, inputs)
+        local = shard_inputs(self.graph, inputs, self.mesh)
+        with self._on_device():
+            self._compiled().warm_up(self._weights, local)
+
+    def capture(self) -> None:
+        """Capture the compiled run's CUDA graphs (on the card, after
+        :meth:`warm_up`; the first :meth:`run` does both)."""
+        with self._on_device():
+            self._compiled().capture()
+
+    @property
+    def input_shapes(self) -> Dict[str, tuple]:
+        """The compiled run's static input buffers' shapes: the rank's
+        shard of each input."""
+        return self._compiled().input_shapes
+
+    @property
+    def n_segments(self) -> int:
+        """The compiled plan's segments (a CUDA graph each on the card); 0
+        for the eager loop."""
+        return self._fn.n_segments if isinstance(self._fn, CompiledGraph) else 0
+
+    @property
+    def n_graphs(self) -> int:
+        """CUDA graphs captured so far (none before the first request, on
+        the CPU or for the eager loop)."""
+        return self._fn.n_graphs if isinstance(self._fn, CompiledGraph) else 0
 
     @property
     def batch_vars(self) -> FrozenSet[str]:

@@ -99,7 +99,7 @@ def sharded_runs(graph_path: str, feed: Dict[str, np.ndarray],
                 seen[name] = value
 
         sp = ShardedPredictor(g, MeshConfig(data=dp, model=tp), [device] * world,
-                              backend="gloo", capture=capture)
+                              backend="gloo", compiled=False, capture=capture)
         y = {k: v.cpu().numpy() for k, v in sp.run(feed).items()}
         ints = {}
         for name in sorted(seen):  # the same names, in one order, on every rank
@@ -112,6 +112,64 @@ def sharded_runs(graph_path: str, feed: Dict[str, np.ndarray],
                      "tagged": sorted(op.op_type for op in g.ops
                                       if op.attrs.get("kernel") == "tp_cuda")})
     return runs
+
+
+def with_all_outputs(graph):
+    """A copy of `graph` with every op output among its outputs, so that a
+    compiled function returns every intermediate."""
+    g = copy.deepcopy(graph)
+    g.outputs = list(g.outputs) + [n for op in g.topological_order()
+                                   for n in op.output_names() if n not in g.outputs]
+    return g
+
+
+def compiled_runs(graph_paths: Sequence[str], feeds: Sequence[Dict[str, np.ndarray]],
+                  meshes: Sequence[Tuple[int, int]], device: str = "cpu") -> List[List[dict]]:
+    """Each pickled optimized graph of `graph_paths`, with every
+    intermediate among its outputs (:func:`with_all_outputs`), through the
+    compiled :class:`ShardedPredictor` and the eager one at each (data,
+    model) mesh of `meshes`, each on every feed of `feeds` in turn, and
+    through the compiled one with ``use_tp_cuda=False`` on the first feed.
+    By graph, then by mesh: the outputs as numpy (``"compiled"`` /
+    ``"eager"`` a list by feed, ``"plain"``), whether the first compiled
+    result was left unchanged by the later calls and shares no storage
+    with them, the plan's segments, the static input buffers' shapes, the
+    retag counts and the plain run's kernel tags."""
+    world = int(np.prod(meshes[0]))
+    by_graph = []
+    for path in graph_paths:
+        with open(path, "rb") as f:
+            g0 = with_all_outputs(pickle.load(f))
+        runs = []
+        for dp, tp in meshes:
+            mesh = MeshConfig(data=dp, model=tp)
+
+            def make(**kw):
+                return ShardedPredictor(copy.deepcopy(g0), mesh, [device] * world,
+                                        backend="gloo", **kw)
+
+            eager, comp, plain = make(compiled=False), make(), make(use_tp_cuda=False)
+            outs = [comp.run(f) for f in feeds]
+            first = {k: v.clone() for k, v in outs[0].items()}
+            ptrs = {v.untyped_storage().data_ptr() for o in outs[1:] for v in o.values()}
+            runs.append({
+                "mesh": (dp, tp),
+                "compiled": [{k: v.cpu().numpy() for k, v in o.items()} for o in outs],
+                "eager": [{k: v.cpu().numpy() for k, v in eager.run(f).items()}
+                          for f in feeds],
+                "plain": {k: v.cpu().numpy() for k, v in plain.run(feeds[0]).items()},
+                "first_unchanged": all(torch.equal(first[k], outs[0][k]) for k in first),
+                "first_unshared": not any(v.untyped_storage().data_ptr() in ptrs
+                                          for v in outs[0].values()),
+                "n_segments": comp.n_segments, "eager_segments": eager.n_segments,
+                "n_graphs": comp.n_graphs,
+                "input_shapes": comp.input_shapes,
+                "n_tp_ops": comp.n_tp_ops, "n_split_ops": comp.n_split_ops,
+                "plain_tp_ops": plain.n_tp_ops,
+                "plain_tags": sorted({op.attrs.get("kernel") or "torch"
+                                      for op in plain.graph.ops})})
+        by_graph.append(runs)
+    return by_graph
 
 
 # ---- on the card: ranks sharing one card over gloo, or one rank on NCCL --------
@@ -185,83 +243,175 @@ def ffn_pair(m: int, hidden: int, ffn: int, seed: int, device: str) -> dict:
             "finite": bool(torch.isfinite(got).all())}
 
 
-def sharded_requests(graph, feed: Dict[str, np.ndarray], meshes: Sequence[Tuple[int, int]],
-                     device: str, backend: str, requests: int) -> List[dict]:
+def _bits(t: torch.Tensor) -> bytes:
+    return t.cpu().numpy().tobytes()
+
+
+def reading_requests(run_once, device: torch.device, least: int, window_s: float) -> int:
+    """The requests that fill a reading of `window_s` seconds: `least`
+    timed on this rank (after a sync and a barrier), then the count that
+    rate gives for 1.1 windows, timed again until a timed run lasts a
+    window.  Every rank runs the count rank 0 finds, as a request's
+    collectives pair the ranks."""
+    import math
+    import time
+
+    import torch.distributed as dist
+
+    n = least
+    while True:
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run_once()
+        _sync(device)
+        secs = time.perf_counter() - t0
+        step = [secs >= window_s, max(n + 1, math.ceil(1.1 * window_s * n / secs))]
+        if dist.is_initialized():
+            dist.broadcast_object_list(step, src=0)
+        if step[0]:
+            return n
+        n = step[1]
+
+
+def sharded_requests(graph, feeds: Sequence[Dict[str, np.ndarray]],
+                     meshes: Sequence[Tuple[int, int]], device: str, backend: str,
+                     reading: Tuple[int, float], predictor_turns: bool = False) -> List[dict]:
     """`graph` (optimized) through :class:`ShardedPredictor` at each mesh
-    of `meshes` on this rank: one request counted (launches from 0 just
-    before it, read just after), then `requests` timed between barriers
-    (rank 0's host clock).  Rank 0 also holds every int8 intermediate
-    (gathered over the data group) against the single-device eager loop's
-    on the same card: elements that differ and by how much."""
+    of `meshes` on this rank, eager and compiled.  The eager one
+    (``compiled=False``): one request on ``feeds[0]`` counted (launches
+    from 0 just before it, read just after), and rank 0 holds every int8
+    intermediate (gathered over the data group) against the single-device
+    eager loop's on the same card: elements that differ and by how much.
+    The compiled one: warmed up on ``feeds[0]``, its launches counted at
+    the capture, its CUDA graphs and segments; its output on each feed
+    against the eager one's, bit for bit, the first left unchanged by the
+    second; no launch on a replay.  Then img/s in turns (eager, compiled,
+    compiled, eager) on ``feeds[0]``, timed between barriers (rank 0's host
+    clock); `reading` is (least requests, seconds): each predictor's
+    readings run the count of requests that filled that window, at least
+    `least` (:func:`reading_requests`).  With `predictor_turns` (a 1x1
+    mesh) also the single-device ``Predictor`` against the compiled one
+    (Predictor, compiled, compiled, Predictor)."""
     import time
 
     import torch.distributed as dist
 
     from ..core.executor import build_callable, stage_weights
+    from ..runtime.predictor import Predictor
 
     dev = torch.device(device)
     world = dist.get_world_size()
+    batch = graph.vars[graph.inputs[0]].shape[0]
+    on_card = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+    least, window_s = reading
     out = []
     for dp, tp in meshes:
+        mesh = MeshConfig(data=dp, model=tp)
         g = copy.deepcopy(graph)
+        name = g.outputs[0]
         seen: Dict[str, torch.Tensor] = {}
 
-        def capture(name, value):
+        def capture(n, value):
             if value.dtype == torch.int8:
-                seen[name] = value
+                seen[n] = value
 
-        sp = ShardedPredictor(g, MeshConfig(data=dp, model=tp), [device] * world,
-                              backend=backend, capture=capture)
-        sp.run(feed)  # warm-up: per-op constants, libraries
+        sp = ShardedPredictor(g, mesh, [device] * world, backend=backend, compiled=False,
+                              capture=capture)
+        sp.run(feeds[0])  # warm-up: per-op constants, libraries
         _sync(dev)
         _reset_counts()
-        y = sp.run(feed)[g.outputs[0]]
+        eager_out = [sp.run(feeds[0])[name]]
         _sync(dev)
         counts = _counts()
         ints = {}
-        for name in sorted(seen):
-            v = seen[name]
-            ints[name] = sp.mesh.all_gather(v, "data", dim=0) if name in sp.batch_vars else v
+        for n in sorted(seen):
+            v = seen[n]
+            ints[n] = sp.mesh.all_gather(v, "data", dim=0) if n in sp.batch_vars else v
+        eager_out += [sp.run(f)[name] for f in feeds[1:]]
         seen.clear()
-        t0 = time.perf_counter()
-        for _ in range(requests):
-            sp.run(feed)
+
+        cp = ShardedPredictor(copy.deepcopy(graph), mesh, [device] * world, backend=backend)
+        cp.warm_up(feeds[0])
         _sync(dev)
-        secs = time.perf_counter() - t0
+        _reset_counts()
+        if dev.type == "cuda":  # on the CPU there is no CUDA graph to capture
+            cp.capture()
+        _sync(dev)
+        at_capture = _counts()
+        got = [cp.run(feeds[0])[name]]
+        kept = got[0].clone()
+        got += [cp.run(f)[name] for f in feeds[1:]]
+        _sync(dev)
+        compiled = {"launches_at_capture": at_capture, "replay_launches": {
+                        k: v - at_capture[k] for k, v in _counts().items()},
+                    "n_graphs": cp.n_graphs, "n_segments": cp.n_segments,
+                    "equal_to_eager": [_bits(a) == _bits(b) for a, b in zip(got, eager_out)],
+                    "first_unchanged": _bits(got[0]) == _bits(kept),
+                    "outs": [o.cpu().numpy() for o in got]}
+
+        preds = {"eager": sp, "compiled": cp}
+        if predictor_turns:
+            preds["predictor"] = Predictor(copy.deepcopy(graph), device=dev)
+            for f in feeds:  # warm-up and capture; both pinned staging buffers made
+                preds["predictor"].run(f)
+        n_req = {k: reading_requests(lambda p=p: p.run(feeds[0]), dev, least, window_s)
+                 for k, p in preds.items()}
+
+        def img_s(which) -> float:
+            _sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(n_req[which]):
+                preds[which].run(feeds[0])
+            _sync(dev)
+            return batch * n_req[which] / (time.perf_counter() - t0)
+
+        turns = {"eager": [], "compiled": []}
+        for which in ("eager", "compiled", "compiled", "eager"):
+            turns[which].append(img_s(which))
+        if predictor_turns:
+            turns["predictor"], turns["compiled_vs_predictor"] = [], []
+            for which in ("predictor", "compiled", "compiled", "predictor"):
+                key = "predictor" if which == "predictor" else "compiled_vs_predictor"
+                turns[key].append(img_s(which))
+        preds.clear()
+        compiled["img_s_in_turns"] = turns
         row = {"mesh": [dp, tp], "backend": sp.mesh.backend, "launches": counts,
-               "n_tp_ops": sp.n_tp_ops, "n_split_ops": sp.n_split_ops, "seconds": secs,
-               "requests": requests, "out": y.cpu().numpy()}
+               "n_tp_ops": sp.n_tp_ops, "n_split_ops": sp.n_split_ops,
+               "requests": n_req, "out": eager_out[0].cpu().numpy(), "compiled": compiled}
         if dist.get_rank() == 0:  # the single-device eager loop, same card, same graph
             ref: Dict[str, torch.Tensor] = {}
             one = copy.deepcopy(graph)
             fn = build_callable(one, device=dev, capture=lambda n, v: ref.__setitem__(n, v)
                                 if v.dtype == torch.int8 else None)
-            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
-                fn(stage_weights(one, dev), feed)
+            with on_card:
+                fn(stage_weights(one, dev), feeds[0])
             diffs = {}
-            for name, v in ints.items():
-                d = (v.to(torch.int32) - ref[name].to(torch.int32)).abs()
-                diffs[name] = {"numel": v.numel(), "n_diff": int((d > 0).sum()),
-                               "max_diff": int(d.max()) if v.numel() else 0}
+            for n, v in ints.items():
+                d = (v.to(torch.int32) - ref[n].to(torch.int32)).abs()
+                diffs[n] = {"numel": v.numel(), "n_diff": int((d > 0).sum()),
+                            "max_diff": int(d.max()) if v.numel() else 0}
             row["int8_diffs"] = diffs
         ints.clear()
         out.append(row)
-        del sp
+        del sp, cp
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return out
 
 
-def card_ranks(graph, feed: Dict[str, np.ndarray], meshes: Sequence[Tuple[int, int]],
-               backend: str, requests: int, device: str = "cuda:0",
-               pair: Tuple[int, int, int] = None) -> dict:
+def card_ranks(graph, feeds: Sequence[Dict[str, np.ndarray]],
+               meshes: Sequence[Tuple[int, int]], backend: str, reading: Tuple[int, float],
+               device: str = "cuda:0", pair: Tuple[int, int, int] = None,
+               predictor_turns: bool = False) -> dict:
     """One rank of ``chip_smoke.py``'s phase 17, every rank on `device`
     (the one card): the FFN pair (where `pair` gives its M, hidden, FFN)
-    and the sharded requests."""
+    and the sharded requests, eager and compiled."""
     if device.startswith("cuda"):
         torch.cuda.set_device(torch.device(device))
     res = {}
     if pair is not None:
         res["pair"] = ffn_pair(*pair, seed=0, device=device)
-    res["sharded"] = sharded_requests(graph, feed, meshes, device, backend, requests)
+    res["sharded"] = sharded_requests(graph, feeds, meshes, device, backend, reading,
+                                      predictor_turns)
     return res
