@@ -259,7 +259,16 @@ Phases:
    segments and block captured, its outputs bit-equal to the eager
    ``build_callable``'s on the card and to ``load_predictor`` of its saved
    artifact, the final scores within rtol 1e-4 of the CPU's (ids
-   agreement information); ms a trip, compiled and eager.
+   agreement information); ms a trip, compiled and eager, in turns.  (d)
+   The control-flow graphs of the CPU tests
+   (``testing/control_flow_graphs``: a loop of no trip, one that stops
+   early, one cut by ``max_iters``, crossed state, a
+   ``conditional_block`` both ways, one holding a ``while``, the decode
+   loop at b2 / vocabulary 50) through ``Predictor`` and through a loaded
+   exported program, each captured on the card (the loaded one cut at its
+   ``while_loop`` / ``cond``: ``testing/control_flow_graphs.
+   LOADED_GRAPHS`` CUDA graphs), every feed bit-equal to the eager loop,
+   the top-level loop's trips as the case says.
 15. The port's front ends and tools.  (a) The NMS kernel's division form
    (``iou_form="div"``, the reference's ``_nms_single_class`` test)
    bit-exact against its plain version on the RPN's own candidates (G = 1
@@ -274,9 +283,11 @@ Phases:
    exported by ``formats/aot.save_compiled`` (``torch.export``, the
    kernels as ``plt::`` custom ops), loaded by ``load_compiled_file`` in a
    fresh process that imports only the port, each replaying one CUDA
-   graph (captured at its first call; no launch on a replay), its outputs
-   on the first call, on a later one and on a second feed after the
-   capture bit-equal to the compiled predictor's; file MB, save and load
+   graph (captured at its first call; no launch on a replay; phase 14c's
+   decode loop, exported too, three: the graph before its ``while_loop``,
+   the trip's and the one after, the condition read between them), its
+   outputs on the first call, on a later one and on a second feed after
+   the capture bit-equal to the compiled predictor's; file MB, save and load
    s, items/s of both, each reading sized to last 0.5 s (the
    predictor's read before and after the loading process);
    MobileNetV1's ``torch_ckpt`` round trip through ``Predictor``
@@ -3722,25 +3733,74 @@ def _decode() -> dict:
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / reps / DECODE["steps"]
 
-    ms_compiled = per_trip(lambda: pred.run(on_dev))
-    ms_eager = per_trip(lambda: eager_fn(w_dev, on_dev))
+    ms = {"compiled": [], "eager": []}
+    for which in ("compiled", "eager", "eager", "compiled"):
+        ms[which].append(per_trip((lambda: pred.run(on_dev)) if which == "compiled"
+                                  else (lambda: eager_fn(w_dev, on_dev))))
+    ms_compiled, ms_eager = (statistics.median(ms[k]) for k in ("compiled", "eager"))
     out = {"trips": trips, "steps_out": float(got[steps]), "captured": captured,
            "equal_to_eager": same_eager, "equal_on_second_call": same_again,
            "equal_after_load": same_loaded, "artifact_mb": mb,
            "score_max_rel_err": score_err, "ids_agreement": ids_agree,
-           "ms_a_trip": {"compiled": ms_compiled, "eager": ms_eager}}
+           "ms_a_trip": {"compiled": ms_compiled, "eager": ms_eager}, "ms_a_trip_turns": ms}
     print(f"  14c: decode b{DECODE['batch']} beam {DECODE['beam']} hidden {DECODE['hidden']} "
           f"vocab {DECODE['vocab']}: {trips} trips (step out {out['steps_out']:g}); captured "
           f"{captured}; compiled == eager on the card: {same_eager}, second call: {same_again}, "
           f"loaded artifact ({mb:.1f} MB): {same_loaded}; scores vs the CPU max rel diff "
           f"{score_err:.3g} (rtol {DECODE_SCORE_RTOL}), ids agreement {ids_agree:.4f}; "
-          f"ms a trip: compiled {ms_compiled:.4f}, eager {ms_eager:.4f} (host clock, "
-          f"5 requests)")
+          f"ms a trip in turns (compiled, eager, eager, compiled; host clock, 5 requests "
+          f"a reading): compiled {', '.join(f'{t:.4f}' for t in ms['compiled'])}, eager "
+          f"{', '.join(f'{t:.4f}' for t in ms['eager'])}")
     if (trips != DECODE["steps"] or out["steps_out"] != DECODE["steps"]
             or not pred._fn.captured or captured["block_graphs"] < 1
             or not (same_eager and same_again and same_loaded and score_ok)):
         fail(f"14c: {out}")
     del pred, loaded, eager_fn, w_dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def _control_flow_cases() -> dict:
+    """14d: the CPU tests' control-flow graphs on the card, each through
+    ``Predictor`` and a loaded exported program, captured at the first
+    feed: every feed bit-equal to the eager loop, the top-level loop's
+    trips, the loaded program's CUDA graphs (cut at its control flow) as
+    ``LOADED_GRAPHS`` says."""
+    from paddle_lite_tpu_torch.core.executor import build_callable, stage_weights
+    from paddle_lite_tpu_torch.formats import aot
+    from paddle_lite_tpu_torch.runtime.predictor import Predictor
+    from paddle_lite_tpu_torch.testing import control_flow_graphs as cfg
+    from paddle_lite_tpu_torch.tools import graph_conditionals
+
+    t0 = time.perf_counter()
+    calls = {c: hasattr(torch.cuda.CUDAGraph, c) for c in graph_conditionals.CALLS}
+    out, bad = {"conditional_node_calls": calls}, []
+    for name, (g, feeds, trips) in cfg.cases().items():
+        eager = build_callable(g, device=DEV)
+        w = stage_weights(g, DEV)
+        pred = Predictor(g, device=DEV)
+        run = aot.load_compiled(aot.export_compiled(g, device=DEV))
+        row = {"equal": [], "trips": []}
+        for feed, want in zip(feeds, trips):
+            want_out = eager(w, feed)
+            row["equal"].append(_outs_equal(want_out, pred.run(feed))
+                                and _outs_equal(want_out, run(feed)))
+            row["trips"].append(None if want is None else pred._fn.control_flow[0].trips)
+        row.update(predictor_captured=pred._fn.captured, predictor_graphs=pred._fn.n_graphs,
+                   loaded_captured=run.captured, loaded_graphs=run.n_graphs,
+                   loaded_control_flow=run.control_flow)
+        out[name] = row
+        if (not all(row["equal"]) or row["trips"] != trips or not row["predictor_captured"]
+                or not run.captured or run.n_graphs != cfg.LOADED_GRAPHS[name]):
+            bad.append(name)
+    secs = time.perf_counter() - t0
+    print(f"  14d: torch {torch.__version__}'s CUDAGraph calls for conditional nodes "
+          f"{calls}; control-flow graphs on the card ({secs:.1f} s): " + "; ".join(
+              f"{n}: bit-equal to eager {r['equal']}, trips {r['trips']}, Predictor graphs "
+              f"{r['predictor_graphs']}, loaded {r['loaded_control_flow']} in "
+              f"{r['loaded_graphs']} graphs" for n, r in out.items() if n in cfg.LOADED_GRAPHS))
+    if bad:
+        fail(f"14d: {bad}: {out}")
     torch.cuda.empty_cache()
     return out
 
@@ -3754,6 +3814,7 @@ def phase_op_library() -> dict:
         fail(f"14a: {len(out['arena']['failures'])} op names fail on the card")
     out["rpn"] = _rpn()
     out["decode"] = _decode()
+    out["control_flow"] = _control_flow_cases()
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 14: {out['seconds']:.1f} s")
     return out
@@ -3978,7 +4039,7 @@ for name in names:
     res[name] = {"load_s": load_s, "ms_a_request": ms, "requests": n, "launches": first,
                  "later_launches": {k: v - first[k] for k, v in counts().items()},
                  "captured": run.captured, "n_graphs": run.n_graphs, "n_folded": run.n_folded,
-                 "control_flow": run.control_flow,
+                 "control_flow": run.control_flow, "n_passed_through": run.n_passed_through,
                  "custom_ops": sorted({str(n.target) for n in
                      run.program.graph.nodes if str(n.target).startswith("plt.")})}
 res["foreign"] = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -4168,9 +4229,10 @@ def _export(models) -> tuple:
             launches[f"export_{name}"] = o["launches"]
             rates = (o["predictor_items_s"], o["predictor_items_s_after"])
             ratios = [o["loaded_items_s"] / r for r in rates]
-            how = ("one CUDA graph" if o["captured"] else
-                   f"the module op by op, not captured (its {o['control_flow']} read a "
-                   f"condition on the host)")
+            how = ("one CUDA graph" if not o["control_flow"] else
+                   f"CUDA graphs cut at its {o['control_flow']} (the condition read on "
+                   f"the host between replays; {o['n_passed_through']} carried input(s) "
+                   f"passed through)")
             print(f"  15b: {name}: {o['file_mb']:.2f} MB, save {o['save_s']:.2f} s, load "
                   f"{o['load_s']:.2f} s in a fresh process (its imports {child['import_s']:.1f} "
                   f"s); runs as {how}, {o['n_graphs']} graph(s) captured ({o['n_folded']} "
@@ -4190,13 +4252,15 @@ def _export(models) -> tuple:
                   f"{o['predictor_items_s']:.1f}, loaded program {o['loaded_items_s']:.1f}, "
                   f"compiled predictor again {rates[1]:.1f} (x{min(ratios):.3f}-x"
                   f"{max(ratios):.3f})")
-            # the decode loop is fp32 with no kernel op: it launches none, and
-            # its while_loop reads its condition on the host: not captured
+            # the decode loop is fp32 with no kernel op: it launches none; it
+            # is cut at its while_loop (the graphs before, of a trip, after),
+            # the vocabulary projection passed through
             kernels = name != "beam_decode"
             if (not (o["equal"] and o["later_equal"] and o["second_equal"]
                      and o["second_differs"])
                     or any(o["launches"].values()) != kernels
-                    or o["captured"] != kernels or o["n_graphs"] != int(kernels)
+                    or not o["captured"] or o["n_graphs"] != (1 if kernels else 3)
+                    or o["n_passed_through"] != (0 if kernels else 1)
                     or any(o["later_launches"].values())
                     or o["control_flow"] != ([] if kernels else ["while_loop"])):
                 fail(f"15b: {name}: {o}")

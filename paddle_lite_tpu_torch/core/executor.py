@@ -29,9 +29,10 @@ operands in float32 and promote as ``jnp`` does (``ops/common.upcast``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -233,6 +234,21 @@ def stage_weights(graph: Graph, device: torch.device) -> Dict[str, torch.Tensor]
 # control flow compiles each block (warm-up and capture) between the
 # outer segments' captures, on the same thread
 _CAPTURE_LOCK = threading.RLock()
+
+
+@contextlib.contextmanager
+def capture_session() -> Iterator[None]:
+    """Around captures of several CUDA graphs made by hand
+    (``CUDAGraph.capture_begin`` / ``capture_end``, one memory pool): the
+    process's capture lock held, the card synchronised, and a side stream
+    current, as ``torch.cuda.graph`` sets them for one graph."""
+    with _CAPTURE_LOCK:
+        torch.cuda.synchronize()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            yield
+        torch.cuda.current_stream().wait_stream(stream)
 
 
 def capture_cuda_graph(fn: Callable[[], Any], *, warm_up: bool = False

@@ -9,7 +9,9 @@ a second feed's own result, inputs cast to the graph's precision, a wrong
 shape or a missing input refused; MobileNetV1 and SSD bit-equal to
 ``Predictor``; the host constants' copies folded at load (a CUDA graph
 cannot capture a copy from pageable host memory).  The beam-search decode
-loop (``while_loop``) says it is not captured and equals its eager run.
+loop (``while_loop``) is not captured on the CPU, as no program is, and
+equals its eager run; on the card it is captured cut at its loop
+(``tests/test_torch_device_control_flow.py``, phases 14d and 15b).
 """
 
 import numpy as np

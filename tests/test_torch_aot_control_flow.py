@@ -18,13 +18,11 @@ import torch
 
 from paddle_lite_tpu.formats import aot as r_aot
 from paddle_lite_tpu.formats import artifact as r_artifact
-from paddle_lite_tpu_torch.core.builder import GraphBuilder
-from paddle_lite_tpu_torch.core.types import Precision
 from paddle_lite_tpu_torch.formats import aot
 from paddle_lite_tpu_torch.formats import artifact as p_artifact
 from paddle_lite_tpu_torch.models import beam_decode
 from paddle_lite_tpu_torch.runtime.predictor import Predictor
-from test_torch_control_flow import _cond_graph
+from paddle_lite_tpu_torch.testing import control_flow_graphs as cf_graphs
 
 SMALL = dict(batch=2, beam=2, hidden=8)
 
@@ -87,7 +85,7 @@ def test_decode_loop_export_is_the_references(tmp_path):
 
 @pytest.mark.parametrize("nested_while", [False, True])
 def test_conditional_block_exports(tmp_path, nested_while):
-    g = _cond_graph(nested_while=nested_while)
+    g = cf_graphs.cond_graph(nested_while=nested_while)
     run = _round_trip(g, tmp_path)
     assert _hops(run) == ({"cond", "while_loop"} if nested_while else {"cond"})
     pred = Predictor(g, device="cpu")
@@ -100,30 +98,7 @@ def test_conditional_block_exports(tmp_path, nested_while):
     assert not torch.equal(outs[True][g.outputs[0]], outs[False][g.outputs[0]])
 
 
-def _counting_loop(limit: float, max_iters: int):
-    """x <- x·0.5 + 0.25 while a step counter stays below `limit`, at most
-    `max_iters` trips; outputs the step count and x."""
-    inner = GraphBuilder("count")
-    inner.input("c_in", (1,), precision=Precision.BOOL)
-    s = inner.input("s_in", (1,))
-    xi = inner.input("x_in", (2, 3))
-    inner.weight("limit", np.full((1,), limit, np.float32))
-    s2 = inner.op("increment", {"X": [s]}, attrs={"step": 1.0})[0]
-    c2 = inner.op("less_than", {"X": [s2], "Y": ["limit"]}, shape_args=[s2, "limit"],
-                  out_precisions=[Precision.BOOL])[0]
-    x2 = inner.op("scale", {"X": [xi]}, attrs={"scale": 0.5, "bias": 0.25})[0]
-    inner.mark_output(c2, s2, x2)
-    b = GraphBuilder("outer")
-    x = b.input("x", (2, 3))
-    c = b.op("fill_constant", {}, attrs={"shape": [1], "value": True, "dtype": "bool"},
-             shape_args=[], out_precisions=[Precision.BOOL])[0]
-    s0 = b.op("fill_constant", {}, attrs={"shape": [1], "value": 0.0}, shape_args=[])[0]
-    outs = b.op("while", {"X": [c, s0, x]},
-                attrs={"block": inner.build(), "cond_index": 0, "max_iters": max_iters},
-                shape_args=[c, s0, x], out_slots=("Out",),
-                out_precisions=[Precision.BOOL, Precision.FP32, Precision.FP32])
-    b.mark_output(outs[1], outs[2])
-    return b.build()
+_counting_loop = cf_graphs.counting_loop
 
 
 @pytest.mark.parametrize("limit,max_iters,trips", [(5.0, 100, 5), (5.0, 3, 3), (1.0, 4, 1)])

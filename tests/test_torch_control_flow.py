@@ -23,6 +23,7 @@ from paddle_lite_tpu_torch.core.types import Precision
 from paddle_lite_tpu_torch.formats import artifact as p_artifact
 from paddle_lite_tpu_torch.models import beam_decode
 from paddle_lite_tpu_torch.runtime.predictor import Predictor, load_predictor
+from paddle_lite_tpu_torch.testing import control_flow_graphs as cf_graphs
 from paddle_lite_tpu_torch.testing import op_cases
 
 CPU = torch.device("cpu")
@@ -52,45 +53,8 @@ def _run_reference(rg, feed):
     return {n: np.asarray(jax.device_get(v)) for n, v in out.items()}
 
 
-def _cond_graph(n: int = 3, c: int = 4, nested_while: bool = False):
-    """x -> scale -> conditional_block(affine) -> tanh, the block run when
-    the input flag holds; optionally a while loop inside the block."""
-    b = GraphBuilder("cond_outer")
-    x = b.input("x", (n, c))
-    flag = b.input("flag", (1,), precision=Precision.BOOL)
-    y = b.op("scale", {"X": [x]}, attrs={"scale": 2.0, "bias": 0.0})[0]
-    block = op_cases._affine_block((n, c))
-    if nested_while:
-        block = _block_with_while((n, c))
-    y = b.op("conditional_block", {"Cond": [flag], "Input": [y]}, attrs={"block": block},
-             shape_args=[flag, y])[0]
-    b.mark_output(b.act(y, "tanh"))
-    return b.build()
-
-
-def _block_with_while(shape):
-    """A block whose body holds a while loop (five trips of x <- x·0.5 + 0.25)."""
-    bb = GraphBuilder("with_loop")
-    x = bb.input("x_in", shape)
-    cond = bb.op("fill_constant", {}, attrs={"shape": [1], "value": True, "dtype": "bool"},
-                 shape_args=[], out_precisions=[Precision.BOOL])[0]
-    step = bb.op("fill_constant", {}, attrs={"shape": [1], "value": 0.0}, shape_args=[])[0]
-    inner = GraphBuilder("inner")
-    inner.input("c_in", (1,), precision=Precision.BOOL)
-    s = inner.input("s_in", (1,))
-    xi = inner.input("x_in", shape)
-    inner.weight("limit", np.full((1,), 5.0, np.float32))
-    s2 = inner.op("increment", {"X": [s]}, attrs={"step": 1.0})[0]
-    c2 = inner.op("less_than", {"X": [s2], "Y": ["limit"]}, shape_args=[s2, "limit"],
-                  out_precisions=[Precision.BOOL])[0]
-    x2 = inner.op("scale", {"X": [xi]}, attrs={"scale": 0.5, "bias": 0.25})[0]
-    inner.mark_output(c2, s2, x2)
-    outs = bb.op("while", {"X": [cond, step, x]},
-                 attrs={"block": inner.build(), "cond_index": 0, "max_iters": 100},
-                 shape_args=[cond, step, x], out_slots=("Out",),
-                 out_precisions=[Precision.BOOL, Precision.FP32, Precision.FP32])
-    bb.mark_output(outs[2])
-    return bb.build()
+_cond_graph = cf_graphs.cond_graph
+_block_with_while = cf_graphs.block_with_while
 
 
 def _subgraph_graph(n: int = 3, c: int = 4):
@@ -160,32 +124,7 @@ def test_compiled_block_outputs_never_alias_the_state():
             assert n.untyped_storage().data_ptr() != s.untyped_storage().data_ptr()
 
 
-def _swap_graph():
-    """A while loop whose block swaps its two state vars (outputs named as
-    the other's input) and counts three trips."""
-    inner = GraphBuilder("swap")
-    inner.input("c_in", (1,), precision=Precision.BOOL)
-    s = inner.input("s_in", (1,))
-    inner.input("a_in", (2, 3))
-    inner.input("b_in", (2, 3))
-    inner.weight("limit", np.full((1,), 3.0, np.float32))
-    s2 = inner.op("increment", {"X": [s]}, attrs={"step": 1.0})[0]
-    c2 = inner.op("less_than", {"X": [s2], "Y": ["limit"]}, shape_args=[s2, "limit"],
-                  out_precisions=[Precision.BOOL])[0]
-    inner.mark_output(c2, s2, "b_in", "a_in")
-    b = GraphBuilder("swap_outer")
-    a = b.input("a", (2, 3))
-    bx = b.input("b", (2, 3))
-    cond = b.op("fill_constant", {}, attrs={"shape": [1], "value": True, "dtype": "bool"},
-                shape_args=[], out_precisions=[Precision.BOOL])[0]
-    step = b.op("fill_constant", {}, attrs={"shape": [1], "value": 0.0}, shape_args=[])[0]
-    outs = b.op("while", {"X": [cond, step, a, bx]},
-                attrs={"block": inner.build(), "cond_index": 0, "max_iters": 10},
-                shape_args=[cond, step, a, bx], out_slots=("Out",),
-                out_precisions=[Precision.BOOL, Precision.FP32, Precision.FP32,
-                                Precision.FP32])
-    b.mark_output(outs[2], outs[3])
-    return b.build()
+_swap_graph = cf_graphs.swap_graph
 
 
 def test_compiled_while_swaps_crossed_state():
