@@ -237,7 +237,8 @@ Phases:
    and back; ``qat_lenet`` at cosine > 0.999 against its QAT fp32 graph;
    ``crnn_fluid`` (``gru``, ``squeeze2``) PTQ int8 agreeing with fp32 on
    more than 95 % of the per-step argmaxes (the reference's bars).
-14. The rest of the op library (no kernel launch: plain PyTorch under
+14. The rest of the op library (no kernel launch but (d)'s int8 loop and
+   the conditional nodes': plain PyTorch under
    the ``"torch"`` tag).  (a) The arena: every registered op name (the
    reference's 208) as a one-op graph through the eager executor on the
    card and on the CPU, on the same seeded inputs at the case table's
@@ -255,20 +256,35 @@ Phases:
    rtol / atol 1e-5 of the CPU's on the first 64 RoIs (the CPU runs 64);
    ms a call of each op.  (c) A beam-search decode loop under ``while``
    (``models/beam_decode``: b32, beam 4, hidden 1,024, vocabulary 18,000,
-   32 steps) through ``Predictor``: 32 trips, the compiled predictor's
-   segments and block captured, its outputs bit-equal to the eager
-   ``build_callable``'s on the card and to ``load_predictor`` of its saved
-   artifact, the final scores within rtol 1e-4 of the CPU's (ids
-   agreement information); ms a trip, compiled and eager, in turns.  (d)
+   32 steps) through ``Predictor``: one CUDA graph (one segment), its loop
+   one WHILE node (``core/conditional_nodes``: two set-conditional
+   launches at the capture), a replay with the input on the card under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), 32 trips
+   read from the loop's counter after it, its outputs bit-equal to the
+   eager ``build_callable``'s on the card and to ``load_predictor`` of its
+   saved artifact, the final scores within rtol 1e-4 of the CPU's (ids
+   agreement information); ms a trip, compiled and eager, in turns, and
+   the MB of the bodies' memory pool.  (d)
    The control-flow graphs of the CPU tests
    (``testing/control_flow_graphs``: a loop of no trip, one that stops
    early, one cut by ``max_iters``, crossed state, a
    ``conditional_block`` both ways, one holding a ``while``, the decode
    loop at b2 / vocabulary 50) through ``Predictor`` and through a loaded
-   exported program, each captured on the card (the loaded one cut at its
-   ``while_loop`` / ``cond``: ``testing/control_flow_graphs.
-   LOADED_GRAPHS`` CUDA graphs), every feed bit-equal to the eager loop,
-   the top-level loop's trips as the case says.
+   exported program, each captured on the card as one CUDA graph holding
+   the conditional nodes ``testing/control_flow_graphs.NODES`` names,
+   every feed bit-equal to the eager loop, the top-level loop's trips as
+   the case says; then ``int8_loop`` (an int8 ``fc`` at 4,096 x 1,024 x
+   1,024 inside the loop's body, 4 trips) through ``Predictor`` and a
+   loaded program: one graph each, bit-equal to eager, the GEMM wrapper's
+   launches at each first request (the warm-up's 4 trips and its run on
+   copies of the state, one into the body's capture), none on a replay
+   (the launches torch.profiler
+   reports in a replay are information: it reports a kernel inside a
+   WHILE body once a replay).  (e) The set-conditional
+   kernel (``csrc/graph_cond.cu``) against its plain version
+   (``bool(flag)``) on 64 IF-node pairs and three draws of random flags,
+   0 differences; its device time a launch (profiled) and with its node,
+   the plain host read's time, its bound (one byte).
 15. The port's front ends and tools.  (a) The NMS kernel's division form
    (``iou_form="div"``, the reference's ``_nms_single_class`` test)
    bit-exact against its plain version on the RPN's own candidates (G = 1
@@ -284,8 +300,7 @@ Phases:
    kernels as ``plt::`` custom ops), loaded by ``load_compiled_file`` in a
    fresh process that imports only the port, each replaying one CUDA
    graph (captured at its first call; no launch on a replay; phase 14c's
-   decode loop, exported too, three: the graph before its ``while_loop``,
-   the trip's and the one after, the condition read between them), its
+   decode loop, exported too, its ``while_loop`` a WHILE node of it), its
    outputs on the first call, on a later one and on a second feed after
    the capture bit-equal to the compiled predictor's; file MB, save and load
    s, items/s of both, each reading sized to last 0.5 s (the
@@ -3564,6 +3579,11 @@ RPN_AGREEMENT = 0.99
 RPN_CPU_ROIS = 64
 ROI_TOL = 1e-5
 DECODE = dict(batch=32, beam=4, hidden=1024, vocab=18000, steps=32)
+# 14d's loop around the int8 GEMM: (M, K, trips), x (M, K) @ w (K, K) a trip at
+# ERNIE-tiny's b32 / len 128 projection shape (4,096 x 1,024 x 1,024)
+INT8_LOOP = (4096, 1024, 4)
+SET_COND_NODES = 64  # IF-node pairs of the set-conditional kernel's check
+SET_COND_TIMED = 100  # IF nodes of its timed graph
 DECODE_SCORE_RTOL = 1e-4
 
 
@@ -3687,10 +3707,20 @@ def _rpn() -> dict:
     return out
 
 
+def _pool_mb(pool) -> float:
+    """MB the allocator holds in the memory pool `pool` (its reserved
+    segments; a graph's pool keeps them while the graph lives, so this is
+    its peak)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id") or ()) == tuple(pool)) / 1e6
+
+
 def _decode() -> dict:
-    """14c: the beam-search decode loop under while, through Predictor."""
+    """14c: the beam-search decode loop under while, through Predictor: one
+    CUDA graph, its loop a WHILE node."""
     import tempfile
 
+    from paddle_lite_tpu_torch.core import conditional_nodes as cn
     from paddle_lite_tpu_torch.core.executor import build_callable, stage_weights
     from paddle_lite_tpu_torch.models import beam_decode
     from paddle_lite_tpu_torch.runtime.predictor import Predictor, load_predictor
@@ -3700,16 +3730,29 @@ def _decode() -> dict:
     on_dev = {k: torch.from_numpy(v).to(DEV) for k, v in feed.items()}
     ids, scores, steps = g.outputs
     pred = Predictor(g, device=DEV)
+    nodes0, sets0 = cn.nodes, cn.launches
     got = pred.run(feed)
-    (loop,) = pred._fn.control_flow
+    fn = pred._fn
+    (loop,) = fn.control_flow
     trips = loop.trips
-    captured = {"graphs": pred._fn.n_graphs, "block_graphs": loop.body.n_graphs,
-                "segments": sum(1 for st in pred._fn._steps if not isinstance(st, tuple))}
+    captured = {"graphs": fn.n_graphs, "segments": fn.n_segments,
+                "nodes": cn.nodes - nodes0, "set_conditional_launches": cn.launches - sets0}
+    pool = cn.body_pool(fn._graphs[0]) if fn._graphs else None
+    pool_mb = _pool_mb(pool) if pool is not None else 0.0
     eager_fn = build_callable(g, device=DEV)
     w_dev = stage_weights(g, DEV)
     eager = eager_fn(w_dev, on_dev)
     same_eager = all(torch.equal(got[n], eager[n]) for n in g.outputs)
-    again = pred.run(on_dev)
+    torch.cuda.synchronize()
+    # a replay with the input on the card synchronises with the host nowhere
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = pred.run(on_dev)
+    except RuntimeError as e:
+        fail(f"14c: the decode request synchronises with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    trips_again = loop.trips
     same_again = all(torch.equal(got[n], again[n]) for n in g.outputs)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_decode_") as tmp:
         path = os.path.join(tmp, "decode.pnb")
@@ -3738,21 +3781,26 @@ def _decode() -> dict:
         ms[which].append(per_trip((lambda: pred.run(on_dev)) if which == "compiled"
                                   else (lambda: eager_fn(w_dev, on_dev))))
     ms_compiled, ms_eager = (statistics.median(ms[k]) for k in ("compiled", "eager"))
-    out = {"trips": trips, "steps_out": float(got[steps]), "captured": captured,
+    out = {"trips": trips, "trips_after_replay": trips_again, "steps_out": float(got[steps]),
+           "captured": captured, "body_pool_mb": pool_mb,
            "equal_to_eager": same_eager, "equal_on_second_call": same_again,
            "equal_after_load": same_loaded, "artifact_mb": mb,
            "score_max_rel_err": score_err, "ids_agreement": ids_agree,
            "ms_a_trip": {"compiled": ms_compiled, "eager": ms_eager}, "ms_a_trip_turns": ms}
     print(f"  14c: decode b{DECODE['batch']} beam {DECODE['beam']} hidden {DECODE['hidden']} "
-          f"vocab {DECODE['vocab']}: {trips} trips (step out {out['steps_out']:g}); captured "
-          f"{captured}; compiled == eager on the card: {same_eager}, second call: {same_again}, "
+          f"vocab {DECODE['vocab']}: {trips} trips, {trips_again} on a replay under "
+          f"set_sync_debug_mode('error') with the input on the card (step out "
+          f"{out['steps_out']:g}); captured {captured}; the bodies' pool {pool_mb:.1f} MB; "
+          f"compiled == eager on the card: {same_eager}, second call: {same_again}, "
           f"loaded artifact ({mb:.1f} MB): {same_loaded}; scores vs the CPU max rel diff "
           f"{score_err:.3g} (rtol {DECODE_SCORE_RTOL}), ids agreement {ids_agree:.4f}; "
           f"ms a trip in turns (compiled, eager, eager, compiled; host clock, 5 requests "
           f"a reading): compiled {', '.join(f'{t:.4f}' for t in ms['compiled'])}, eager "
           f"{', '.join(f'{t:.4f}' for t in ms['eager'])}")
-    if (trips != DECODE["steps"] or out["steps_out"] != DECODE["steps"]
-            or not pred._fn.captured or captured["block_graphs"] < 1
+    if (trips != DECODE["steps"] or trips_again != DECODE["steps"]
+            or out["steps_out"] != DECODE["steps"] or not fn.captured
+            or captured != {"graphs": 1, "segments": 1, "nodes": 1,
+                            "set_conditional_launches": 2}
             or not (same_eager and same_again and same_loaded and score_ok)):
         fail(f"14c: {out}")
     del pred, loaded, eager_fn, w_dev
@@ -3760,12 +3808,23 @@ def _decode() -> dict:
     return out
 
 
-def _control_flow_cases() -> dict:
+def _control_flow_cases() -> tuple:
     """14d: the CPU tests' control-flow graphs on the card, each through
     ``Predictor`` and a loaded exported program, captured at the first
-    feed: every feed bit-equal to the eager loop, the top-level loop's
-    trips, the loaded program's CUDA graphs (cut at its control flow) as
-    ``LOADED_GRAPHS`` says."""
+    feed as one CUDA graph holding the conditional nodes ``NODES`` names:
+    every feed bit-equal to the eager loop, the top-level loop's trips.
+    Then a loop whose body holds an int8 ``fc`` on the GEMM kernel
+    (``testing/control_flow_graphs.int8_loop``) through ``Predictor`` and
+    a loaded program: one graph each, bit-equal to eager (each trip
+    requantizes the state, so
+    only every trip's GEMM gives eager's output), the wrapper's launches at
+    the first request (the warm-up's trips and its run on copies of the
+    state, and one into the body's capture), none on a replay; the
+    kernel's launches that torch.profiler reports in a replay are
+    information.  Returns (the report, that case's launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_lite_tpu_torch.core import conditional_nodes as cn
     from paddle_lite_tpu_torch.core.executor import build_callable, stage_weights
     from paddle_lite_tpu_torch.formats import aot
     from paddle_lite_tpu_torch.runtime.predictor import Predictor
@@ -3774,50 +3833,207 @@ def _control_flow_cases() -> dict:
 
     t0 = time.perf_counter()
     calls = {c: hasattr(torch.cuda.CUDAGraph, c) for c in graph_conditionals.CALLS}
-    out, bad = {"conditional_node_calls": calls}, []
+    out, bad = {"torch_conditional_node_calls": calls}, []
     for name, (g, feeds, trips) in cfg.cases().items():
         eager = build_callable(g, device=DEV)
         w = stage_weights(g, DEV)
         pred = Predictor(g, device=DEV)
         run = aot.load_compiled(aot.export_compiled(g, device=DEV))
-        row = {"equal": [], "trips": []}
+        row = {"equal": [], "trips": [], "nodes": {}}
         for feed, want in zip(feeds, trips):
             want_out = eager(w, feed)
-            row["equal"].append(_outs_equal(want_out, pred.run(feed))
-                                and _outs_equal(want_out, run(feed)))
+            n0 = cn.nodes
+            got = pred.run(feed)
+            row["nodes"].setdefault("predictor", cn.nodes - n0)
+            n0 = cn.nodes
+            got_loaded = run(feed)
+            row["nodes"].setdefault("loaded", cn.nodes - n0)
+            row["equal"].append(_outs_equal(want_out, got) and _outs_equal(want_out, got_loaded))
             row["trips"].append(None if want is None else pred._fn.control_flow[0].trips)
-        row.update(predictor_captured=pred._fn.captured, predictor_graphs=pred._fn.n_graphs,
-                   loaded_captured=run.captured, loaded_graphs=run.n_graphs,
-                   loaded_control_flow=run.control_flow)
+        row.update(predictor_graphs=pred._fn.n_graphs, predictor_segments=pred._fn.n_segments,
+                   loaded_graphs=run.n_graphs, loaded_control_flow=run.control_flow)
         out[name] = row
-        if (not all(row["equal"]) or row["trips"] != trips or not row["predictor_captured"]
-                or not run.captured or run.n_graphs != cfg.LOADED_GRAPHS[name]):
+        n_nodes = len(cfg.NODES[name])
+        if (not all(row["equal"]) or row["trips"] != trips or row["predictor_graphs"] != 1
+                or row["predictor_segments"] != 1 or row["loaded_graphs"] != 1
+                or row["nodes"] != {"predictor": n_nodes, "loaded": n_nodes}):
             bad.append(name)
     secs = time.perf_counter() - t0
     print(f"  14d: torch {torch.__version__}'s CUDAGraph calls for conditional nodes "
-          f"{calls}; control-flow graphs on the card ({secs:.1f} s): " + "; ".join(
-              f"{n}: bit-equal to eager {r['equal']}, trips {r['trips']}, Predictor graphs "
-              f"{r['predictor_graphs']}, loaded {r['loaded_control_flow']} in "
-              f"{r['loaded_graphs']} graphs" for n, r in out.items() if n in cfg.LOADED_GRAPHS))
+          f"{calls} (the port's own library makes them); control-flow graphs on the card "
+          f"({secs:.1f} s): " + "; ".join(
+              f"{n}: bit-equal to eager {r['equal']}, trips {r['trips']}, Predictor "
+              f"{r['predictor_graphs']} graph, loaded {r['loaded_control_flow']} in "
+              f"{r['loaded_graphs']} graph, conditional nodes {r['nodes']}"
+              for n, r in out.items() if n in cfg.NODES))
     if bad:
         fail(f"14d: {bad}: {out}")
+    if any(_counts().values()):
+        fail(f"phase 14 launched a kernel before 14d's int8 loop: {_counts()}")
+
+    # the int8 GEMM kernel inside a while body, through both paths (the
+    # export's warm-up launches it too, before the counts start)
+    m, k, trips = INT8_LOOP
+    g = cfg.int8_loop(m=m, k=k, trips=trips)
+    feed = cfg.int8_feed(m=m, k=k)
+    want_out = build_callable(g, device=DEV)(stage_weights(g, DEV), feed)
+    pred = Predictor(g, device=DEV)
+    run = aot.load_compiled(aot.export_compiled(g, device=DEV))
+    _reset_counts()
+    first = pred.run(feed)
+    torch.cuda.synchronize()
+    at_first = _counts()
+    on = _on_dev(feed)
+    later = pred.run(on)
+    torch.cuda.synchronize()
+    at_later = _counts()
+    n0 = cn.nodes
+    loaded = [run(feed), run(on)]
+    torch.cuda.synchronize()
+    loaded_nodes = cn.nodes - n0
+    at_loaded = _counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pred.run(on)
+        torch.cuda.synchronize()
+    in_body = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and KERNEL_SYMBOLS["int8_gemm"] in e.key)
+    row = {"shape": [m, k, k], "trips": pred._fn.control_flow[0].trips,
+           "equal": _outs_equal(want_out, first) and _outs_equal(want_out, later),
+           "loaded_equal": all(_outs_equal(want_out, o) for o in loaded),
+           "graphs": pred._fn.n_graphs, "loaded_graphs": run.n_graphs,
+           "loaded_nodes": loaded_nodes,
+           "launches_at_first_request": at_first["int8_gemm"],
+           "launches_on_a_replay": at_later["int8_gemm"] - at_first["int8_gemm"],
+           "loaded_launches": at_loaded["int8_gemm"] - at_later["int8_gemm"],
+           "kernel_launches_in_a_profiled_replay": in_body}
+    out["int8_loop"] = row
+    print(f"  14d: int8 fc ({m}x{k} @ {k}x{k}) inside a while body, {row['trips']} trips: "
+          f"bit-equal to eager through Predictor {row['equal']} ({row['graphs']} graph) and "
+          f"the loaded program {row['loaded_equal']} ({row['loaded_graphs']} graph, "
+          f"{loaded_nodes} conditional node); GEMM wrapper launches at the first request "
+          f"{row['launches_at_first_request']} (the warm-up's {trips} trips and its run on "
+          f"copies of the state, one into the body's capture), on a replay "
+          f"{row['launches_on_a_replay']}, the loaded program's first and second call "
+          f"{row['loaded_launches']}; the kernel's device launches that torch.profiler "
+          f"reports in one replay {in_body} (it reports a kernel inside a WHILE body once a "
+          f"replay, not once a trip: the output, bit-equal after {trips} requantized trips, "
+          f"shows every trip ran it)")
+    if (not (row["equal"] and row["loaded_equal"]) or row["trips"] != trips
+            or row["graphs"] != 1 or row["loaded_graphs"] != 1 or loaded_nodes != 1
+            or row["launches_at_first_request"] != trips + 2
+            or row["launches_on_a_replay"] != 0 or row["loaded_launches"] != trips + 2):
+        fail(f"14d: the int8 loop: {row}")
+    del pred, run
     torch.cuda.empty_cache()
-    return out
+    return out, {"int8_gemm": at_loaded["int8_gemm"]}
 
 
-def phase_op_library() -> dict:
-    """Phase 14: the rest of the op library, the RPN stage, the decode loop."""
+def phase_op_library() -> tuple:
+    """Phase 14: the rest of the op library, the RPN stage, the decode loop,
+    the control-flow cases (no kernel launch but 14d's int8 loop's and the
+    set-conditional kernel's), then the set-conditional kernel against its
+    plain version (14e).  Returns (the report, launches by path, 14e's
+    rows)."""
+    from paddle_lite_tpu_torch.core import conditional_nodes as cn
+
     t0 = time.perf_counter()
-    print("phase 14: the op library on the card (no kernel launch)")
+    print("phase 14: the op library on the card (no kernel launch but 14d's int8 loop "
+          "and the conditional nodes')")
+    _reset_counts()
     out = {"arena": _arena()}
     if out["arena"]["failures"]:
         fail(f"14a: {len(out['arena']['failures'])} op names fail on the card")
     out["rpn"] = _rpn()
+    sets = cn.launches
     out["decode"] = _decode()
-    out["control_flow"] = _control_flow_cases()
+    launches = {"decode": {"graph_set_conditional": cn.launches - sets}}
+    sets = cn.launches
+    out["control_flow"], int8 = _control_flow_cases()
+    launches["control_flow"] = dict(int8, graph_set_conditional=cn.launches - sets)
+    rows, out["set_conditional"] = _set_conditional_rows()
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 14: {out['seconds']:.1f} s")
-    return out
+    return out, launches, rows
+
+
+def _set_conditional_rows() -> tuple:
+    """14e: the set-conditional kernel (``csrc/graph_cond.cu``) against its
+    plain version, the host's ``bool(flag)``: one graph of SET_COND_NODES
+    IF-node pairs (``if_node``: the first body writes 1 into out[i], the
+    second 0) on as many one-byte flags, replayed on three draws of random
+    flags; the max abs difference between out and the plain values.
+    Timed: the kernel's own device time a launch under torch.profiler in a
+    replay of a graph of SET_COND_TIMED IF nodes (each a launch, its node
+    and a one-element body), and that graph's replay by CUDA events a node
+    (``ms_with_node``, the row's ``ms`` where the profiler misses a
+    launch); the plain version's host read by the host clock.
+    Its bound: one byte read a launch.  Rows as the kernels line takes
+    them, per decode request (one launch before the WHILE node, one a
+    trip)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_lite_tpu_torch.core import conditional_nodes as cn
+    from paddle_lite_tpu_torch.core.executor import capture_cuda_graph
+
+    rng = np.random.default_rng(14)
+    n = SET_COND_NODES
+    flags = torch.zeros(n, dtype=torch.bool, device=DEV)
+    out = torch.full((n,), -1, dtype=torch.int32, device=DEV)
+
+    def pairs():
+        for i in range(n):
+            cn.if_node(flags[i], lambda i=i: out[i].fill_(1), lambda i=i: out[i].fill_(0))
+
+    pairs()  # eager: the host's branch, and the fill kernel loaded
+    graph, _ = capture_cuda_graph(pairs)
+    err = 0.0
+    for _ in range(3):
+        flags.copy_(torch.from_numpy(rng.integers(0, 2, n).astype(bool)))
+        out.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        plain = torch.tensor([int(cn.set_conditional_plain(flags[i])) for i in range(n)],
+                             dtype=torch.int32)
+        err = max(err, float((out.cpu() - plain).abs().max()))
+    k = SET_COND_TIMED
+    one = torch.ones((), dtype=torch.bool, device=DEV)
+    sink = torch.zeros(k, device=DEV)
+    timed, _ = capture_cuda_graph(
+        lambda: [cn.if_node(one, lambda i=i: sink[i].add_(1.0)) for i in range(k)])
+    timed.replay()
+    with_node = _median_ms(timed.replay, 25) / k
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        timed.replay()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+          and "set_conditional_kernel" in e.key]
+    count = sum(e.count for e in ev)
+    us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+             for e in ev)
+    plain_ms = []
+    for _ in range(25):
+        t0 = time.perf_counter()
+        cn.set_conditional_plain(one)
+        plain_ms.append(1e3 * (time.perf_counter() - t0))
+    b = bound(1, 0.0)
+    per_request = 1 + DECODE["steps"]
+    row = {"kernel": "graph_set_conditional", "path": "decode", "case": "set_conditional",
+           "max_abs_err": err, "ms": us / 1e3 / count if count == k else with_node,
+           "ms_from": "profiler" if count == k else "events, with its node",
+           "ms_with_node": with_node, "plain_ms": statistics.median(plain_ms),
+           "library_ms": None, "per_request": per_request, "profiled_launches": count, **b}
+    print(f"  14e: the set-conditional kernel on {n} IF-node pairs, three draws of random "
+          f"flags: max abs diff against bool(flag) {err:g}; its time a launch "
+          f"{row['ms']:.5f} ms (from the {row['ms_from']}; the profiler saw {count} of {k} "
+          f"launches, {us / 1e3 / max(count, 1):.5f} ms each), a launch "
+          f"with its IF node and a one-element body {with_node:.5f} ms (CUDA events, "
+          f"median of 25 replays); the plain host read {row['plain_ms']:.5f} ms; bound "
+          f"{b['bound_ms']:.3g} ms (one byte)")
+    if err != 0:
+        fail(f"14e: the set-conditional kernel: {row}")
+    del graph, timed
+    return [row], {k2: v for k2, v in row.items()}
 
 
 # ---- phase 15 ---------------------------------------------------------------
@@ -4172,8 +4388,9 @@ def _second_feed(name: str, feed: dict) -> dict:
 
 def _export(models) -> tuple:
     """15b: each model exported (save_compiled), loaded in a fresh process
-    that imports only the port, and run there, one CUDA graph but for the
-    decode loop; its outputs against the compiled predictor's, bit for
+    that imports only the port, and run there, one CUDA graph each (the
+    decode loop's while_loop a WHILE node in it); its outputs against the
+    compiled predictor's, bit for
     bit, on the first call, on a later one and on a second feed after the
     capture; MobileNetV1's torch_ckpt round trip through Predictor."""
     import tempfile
@@ -4230,9 +4447,8 @@ def _export(models) -> tuple:
             rates = (o["predictor_items_s"], o["predictor_items_s_after"])
             ratios = [o["loaded_items_s"] / r for r in rates]
             how = ("one CUDA graph" if not o["control_flow"] else
-                   f"CUDA graphs cut at its {o['control_flow']} (the condition read on "
-                   f"the host between replays; {o['n_passed_through']} carried input(s) "
-                   f"passed through)")
+                   f"one CUDA graph, its {o['control_flow']} conditional nodes in it "
+                   f"({o['n_passed_through']} carried input(s) passed through)")
             print(f"  15b: {name}: {o['file_mb']:.2f} MB, save {o['save_s']:.2f} s, load "
                   f"{o['load_s']:.2f} s in a fresh process (its imports {child['import_s']:.1f} "
                   f"s); runs as {how}, {o['n_graphs']} graph(s) captured ({o['n_folded']} "
@@ -4252,14 +4468,14 @@ def _export(models) -> tuple:
                   f"{o['predictor_items_s']:.1f}, loaded program {o['loaded_items_s']:.1f}, "
                   f"compiled predictor again {rates[1]:.1f} (x{min(ratios):.3f}-x"
                   f"{max(ratios):.3f})")
-            # the decode loop is fp32 with no kernel op: it launches none; it
-            # is cut at its while_loop (the graphs before, of a trip, after),
-            # the vocabulary projection passed through
+            # the decode loop is fp32 with no kernel op: it launches none; its
+            # while_loop is a WHILE node of the one graph, the vocabulary
+            # projection passed through
             kernels = name != "beam_decode"
             if (not (o["equal"] and o["later_equal"] and o["second_equal"]
                      and o["second_differs"])
                     or any(o["launches"].values()) != kernels
-                    or not o["captured"] or o["n_graphs"] != (1 if kernels else 3)
+                    or not o["captured"] or o["n_graphs"] != 1
                     or o["n_passed_through"] != (0 if kernels else 1)
                     or any(o["later_launches"].values())
                     or o["control_flow"] != ([] if kernels else ["while_loop"])):
@@ -5201,6 +5417,11 @@ KERNELS = [  # name, source, TPU kernel it replaces, rows it covers
     ("int8_gemm_i32", "paddle_lite_tpu_torch/csrc/int8_gemm.cu",
      "paddle_lite_tpu/ops/kernels/int8_matmul.py:122",
      lambda r: r["kernel"] == "int8_gemm_i32"),
+    # no Pallas kernel: the device side of lax.while_loop / lax.cond, whose
+    # condition the reference evaluates on the device (ops/control_flow.py:77-94)
+    ("graph_set_conditional", "paddle_lite_tpu_torch/csrc/graph_cond.cu",
+     "paddle_lite_tpu/ops/control_flow.py:94",
+     lambda r: r["kernel"] == "graph_set_conditional"),
 ]
 
 
@@ -5325,10 +5546,7 @@ def main() -> None:
     ern_rows, ern_launches, ern, compiled["ernie"] = phase_ernie(fma_per_s)
     quant, quant_launches = phase_quant()
     fluid, fluid_launches = phase_fluid()
-    _reset_counts()
-    op_library = phase_op_library()
-    if any(_counts().values()):
-        fail(f"phase 14 launched a kernel: {_counts()}")
+    op_library, cf_launches, cond_rows = phase_op_library()
     tool_rows, port_tools, tool_launches = phase_port_tools(fma_per_s)
     if os.listdir(os.environ[tune_cache.ENV]):
         fail(f"phases 1-15 wrote to their empty kernel table: "
@@ -5336,14 +5554,14 @@ def main() -> None:
     tuning, tuning_launches = phase_tuning()
     par_rows, parallel, par_launches = phase_parallel()
     all_rows = (rows + ssd_rows + fused_rows + v3_rows + r50_rows + db_rows + rec_rows
-                + ern_rows + tool_rows + par_rows)
+                + ern_rows + tool_rows + par_rows + cond_rows)
     kernels = _kernel_line(all_rows, {"mobilenet_v1": launches, "ssd": ssd_launches,
                                       "mobilenet_v1_fused": fused_launches,
                                       "mobilenet_v3": v3_launches,
                                       "serving": serving["launches"],
                                       "resnet50": r50_launches, "dbnet": db_launches,
                                       "crnn": rec_launches, "ernie": ern_launches,
-                                      **quant_launches, **fluid_launches,
+                                      **quant_launches, **fluid_launches, **cf_launches,
                                       **tool_launches, **tuning_launches,
                                       **par_launches},
                            {"mobilenet_v1": e2e["profile"]["int8"],

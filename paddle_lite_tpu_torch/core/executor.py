@@ -10,12 +10,13 @@ topological order, with the same name-keyed ``env`` and the same
 output, ``executor.py:97-117`` there).  ``compile_graph`` is the port's
 ``jax.jit``: on the card it captures that loop once, on the first call, as
 a ``torch.cuda.CUDAGraph`` over static input and output buffers, and every
-later call replays it (:class:`CompiledGraph`); a graph with ``while`` /
-``conditional_block`` ops is captured as one CUDA graph a segment between
-them, the control flow run on the host, each block compiled the same way.
-The execution context may name more such cuts: ops after which a step
-runs on the host between two replays (:meth:`ExecutionContext.host_step`:
-a sharded run's collectives).
+later call replays it (:class:`CompiledGraph`); its ``while`` /
+``conditional_block`` ops are conditional nodes of that graph
+(``core/conditional_nodes``), as the reference's ``lax.while_loop`` /
+``lax.cond`` run inside its one XLA computation.  The execution context
+may name cuts: ops after which a step runs on the host between two
+replays (:meth:`ExecutionContext.host_step`: a sharded run's
+collectives).
 
 bf16 islands (``graph.meta["island_dtype"] == "bfloat16"``, the
 reference's rule at ``executor.py:86-136``): every float32 graph input and
@@ -29,14 +30,14 @@ operands in float32 and promote as ``jnp`` does (``ops/common.upcast``).
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import threading
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import conditional_nodes
 from .device import InputStager, fp32_exact, to_tensor
 from .ir import Graph, OpNode
 from .registry import OPS
@@ -70,7 +71,7 @@ class ExecutionContext:
         """The step run on each output of `op` before any other op reads
         it, outside a captured segment (the compiled path cuts the graph
         after `op`), or None: here always None, so a single-device graph
-        is cut only at its control flow."""
+        is one segment."""
         return None
 
     def const(self, op: OpNode, key: str, make: Callable[[], Any]) -> Any:
@@ -136,19 +137,31 @@ def build_callable(
 
 def _op_runner(graph: Graph, ops: List[OpNode], ctx: ExecutionContext,
                capture: Optional[Callable[[str, torch.Tensor], None]] = None,
-               host_steps: bool = True):
-    """``run(env)``: `ops` in order over the name-keyed `env`, each output
-    written into it (rounded to the island dtype, then through the
-    context's host step where it names one and `host_steps` is set: the
-    eager loop; a compiled segment runs the steps between replays).
-    Impls are resolved here, so an unknown tag raises now."""
-    impls = [ctx.impl_for(op) for op in ops]
+               host_steps: bool = True, compiled: bool = False):
+    """``run(env, warm=False)``: `ops` in order over the name-keyed `env`,
+    each output written into it (rounded to the island dtype, then through
+    the context's host step where it names one and `host_steps` is set: the
+    eager loop; a compiled segment runs the steps between replays).  With
+    `compiled`, each ``while`` / ``conditional_block`` runs through an
+    executor of its own (:class:`_While`, :class:`_ConditionalBlock`: a
+    conditional node under a capture; `warm` runs every side of its
+    block), listed in ``run.control``.  Impls are resolved here, so an
+    unknown tag raises now."""
+    impls, control = [], []
+    for op in ops:
+        if compiled and op.op_type in CONTROL_FLOW:
+            ex = _CONTROL_EXEC[op.op_type](op, ctx)
+            control.append(ex)
+            impls.append(lambda c, o, ins, warm, ex=ex: ex(ins, warm))
+        else:
+            impl = ctx.impl_for(op)
+            impls.append(lambda c, o, ins, warm, impl=impl: impl(c, o, ins))
     steps = [ctx.host_step(op) if host_steps else None for op in ops]
     island = island_dtype(graph)
 
-    def run(env: Dict[str, Any]) -> None:
+    def run(env: Dict[str, Any], warm: bool = False) -> None:
         for op, impl, step in zip(run.ops, impls, steps):
-            outs = impl(ctx, op, _resolve_inputs(op, env))
+            outs = impl(ctx, op, _resolve_inputs(op, env), warm)
             for slot, arrs in outs.items():
                 for n, a in zip(op.outputs.get(slot, []), arrs):
                     a = _to_island(a, island)
@@ -157,6 +170,7 @@ def _op_runner(graph: Graph, ops: List[OpNode], ctx: ExecutionContext,
                         capture(n, env[n])
 
     run.ops = ops
+    run.control = control
     return run
 
 
@@ -216,6 +230,18 @@ def _runner(graph: Graph, ctx: ExecutionContext,
     return run_exact
 
 
+def block_context(ctx: ExecutionContext, op: OpNode, key: str = "block"
+                  ) -> Tuple[ExecutionContext, Dict[str, torch.Tensor]]:
+    """The context and the staged weights of the graph in ``op.attrs[key]``
+    (a control-flow block, a subgraph's region), once per op of `ctx`:
+    shared by the compiled path's executors and the eager and traced
+    runners of ``ops/control_flow``, so the per-op constants that a
+    warm-up makes are those an export's trace of the block reads."""
+    g = op.attrs[key]
+    return ctx.const(op, f"nested_{key}_context", lambda: (
+        ExecutionContext(graph=g, device=ctx.device), stage_weights(g, ctx.device)))
+
+
 def stage_weights(graph: Graph, device: torch.device) -> Dict[str, torch.Tensor]:
     """Weights as device tensors, copied once.  Under bf16 islands float32
     weights are stored as bf16 (rounded to nearest even); int8 weights are
@@ -230,45 +256,35 @@ def stage_weights(graph: Graph, device: torch.device) -> Dict[str, torch.Tensor]
 
 # one capture at a time in the process: a capture must not see another
 # thread's capture begin or end, and the warm-up that precedes it fills
-# per-op constants that clones share.  Reentrant: capturing a graph with
-# control flow compiles each block (warm-up and capture) between the
-# outer segments' captures, on the same thread
+# per-op constants that clones share.  Reentrant: a loaded program warms
+# up and captures under it
 _CAPTURE_LOCK = threading.RLock()
 
 
-@contextlib.contextmanager
-def capture_session() -> Iterator[None]:
-    """Around captures of several CUDA graphs made by hand
-    (``CUDAGraph.capture_begin`` / ``capture_end``, one memory pool): the
-    process's capture lock held, the card synchronised, and a side stream
-    current, as ``torch.cuda.graph`` sets them for one graph."""
-    with _CAPTURE_LOCK:
-        torch.cuda.synchronize()
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            yield
-        torch.cuda.current_stream().wait_stream(stream)
-
-
-def capture_cuda_graph(fn: Callable[[], Any], *, warm_up: bool = False
+def capture_cuda_graph(fn: Callable[[], Any], *,
+                       warm_up: Optional[Callable[[], Any]] = None
                        ) -> Tuple[torch.cuda.CUDAGraph, Any]:
     """``fn()`` captured as one ``torch.cuda.CUDAGraph`` under the
-    process's capture lock, after one eager call of it where `warm_up` is
-    set (the kernel libraries load and set up, which no capture may do).
+    process's capture lock, after one eager call of `warm_up` where given
+    (the kernel libraries load and set up, which no capture may do).
+    The conditional nodes that ``fn()`` makes (``core/conditional_nodes``)
+    are part of the graph, their bodies' memory pool kept as long as it.
     Returns the graph and what the captured ``fn()`` returned: tensors
     that every replay rewrites.  A capture that fails raises."""
     with _CAPTURE_LOCK:
-        if warm_up:
-            fn()
+        if warm_up is not None:
+            warm_up()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            out = fn()
+        with conditional_nodes.scope() as bodies:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                out = fn()
+        bodies.keep_with(graph)
     return graph, out
 
 
-# ops the compiled path runs on the host between captured segments: each
-# reads a condition back, and its block is compiled into graphs of its own
+# ops the compiled path runs as conditional nodes of the graph being
+# captured (a WHILE node; an IF node each way), their blocks' ops inline in
+# the bodies: nothing is read back to the host
 CONTROL_FLOW = ("while", "conditional_block")
 
 
@@ -282,9 +298,9 @@ def host_syncing_ops(graph: Graph, cut: bool = True) -> List[str]:
     """"op_type (tag)" of every op of `graph`, or of a graph nested in it,
     whose impl waits for the card on the host (registered with
     ``syncs_host=True``), less the control-flow ops (:data:`CONTROL_FLOW`)
-    of a graph that the compiled path cuts into segments (`cut`): the top
-    level and the control-flow blocks.  A ``subgraph``'s region stays
-    inline in its segment's capture, so control flow there counts."""
+    that the compiled path runs as conditional nodes (`cut`): those of the
+    top level and of the control-flow blocks.  A ``subgraph``'s region runs
+    its ops' eager impls inline, so control flow there counts."""
     found = []
     for op in graph.topological_order():
         flow = cut and op.op_type in CONTROL_FLOW
@@ -308,15 +324,12 @@ def refuse_host_syncing(graph: Graph) -> None:
 
 
 def _plan(graph: Graph, ctx: ExecutionContext) -> list:
-    """The topological order cut at the control-flow ops and after each op
-    for which `ctx` names a host step: lists of ops (a segment, one CUDA
-    graph each), control-flow ops and :class:`_HostStep`s, in order; the
-    first step is a segment, maybe empty."""
+    """The topological order cut after each op for which `ctx` names a host
+    step: lists of ops (a segment, one CUDA graph each, control flow
+    included) and :class:`_HostStep`s, in order; the first step is a
+    segment, maybe empty."""
     steps: list = [[]]
     for op in graph.topological_order():
-        if op.op_type in CONTROL_FLOW:
-            steps.append(op)
-            continue
         if not isinstance(steps[-1], list):
             steps.append([])
         steps[-1].append(op)
@@ -387,79 +400,141 @@ def _shares_storage(t: torch.Tensor, others) -> bool:
     return any(o.untyped_storage().data_ptr() == p for o in others)
 
 
-class _While:
-    """A ``while`` op in the compiled path: its block compiled once
-    (:class:`CompiledGraph`, its own graphs), its static input buffers the
-    loop state.  A call copies the state in, then replays the block once a
-    trip and copies its outputs back into the state, while the condition,
-    read on the host, holds and fewer than ``max_iters`` trips ran (the
-    reference's contract, ``ops/control_flow.while``).  A state var that
-    the block passes through under its own name (a carried weight) is its
-    input buffer itself, neither copied out nor back.  The final state
-    buffers are the op's outputs."""
+class _Block:
+    """A control-flow op's block in the compiled path: its staged weights,
+    a context of its own (its per-op constants; :func:`block_context` of
+    the op in the parent's context `ctx`) and its ops, run inline wherever
+    the op runs (in a conditional node's body under a capture), nested
+    control flow through executors of their own.  A loop's block (`state`)
+    holds the loop state in static buffers (:attr:`_inputs`): a var that
+    the block outputs unchanged under its own name (`carried`) is its
+    buffer itself; any other output that shares storage with a state
+    buffer is copied, so writing the state back never reads a half-written
+    one."""
 
-    def __init__(self, op: OpNode, device: torch.device):
+    def __init__(self, op: OpNode, ctx: ExecutionContext, carried=frozenset(),
+                 state: bool = False):
+        block = op.attrs["block"]
+        device = ctx.device
+        self.graph = block
+        self.device = device
+        self.ctx, self.weights = block_context(ctx, op)
+        self.carried = frozenset(carried)
+        self._ops = _op_runner(block, block.topological_order(), self.ctx,
+                               host_steps=False, compiled=True)
+        self._inputs = {n: torch.empty(block.vars[n].shape,
+                                       dtype=block.vars[n].precision.torch_dtype,
+                                       device=device)
+                        for n in block.inputs} if state else {}
+
+    @property
+    def control_flow(self) -> List[Any]:
+        """The block's control-flow executors, in order."""
+        return list(self._ops.control)
+
+    def __call__(self, inputs: Dict[str, Any], warm: bool = False) -> Dict[str, Any]:
+        env = _load_env(self.graph, self.weights, inputs, self.device)
+        self._ops(env, warm)
+        out = _public_outputs(self.graph, env)
+        state = list(self._inputs.values())
+        return {n: (v.clone() if _shares_storage(v, state) and not (
+                    n in self.carried and v is self._inputs[n]) else v)
+                for n, v in out.items()}
+
+
+class _While:
+    """A ``while`` op in the compiled path, on static state buffers (its
+    block's, :class:`_Block`): a call copies the state in, zeroes a device
+    trip counter and computes ``flag = cond != 0 and counter < max_iters``
+    (the reference's condition, ``ops/control_flow.py:77-82`` there), then
+    runs a trip while `flag` holds: the block's ops, its outputs copied
+    back into the state (a carried var is its own buffer), ``counter += 1``
+    and `flag` again.  Under a capture that is one WHILE node
+    (``conditional_nodes.while_node``), elsewhere a host loop.  The final
+    state buffers are the op's outputs.  `warm` (the warm-up before a
+    capture) first runs the block once on copies of the state, so that a
+    loop of no trip still fills its constants."""
+
+    def __init__(self, op: OpNode, ctx: ExecutionContext):
         block = op.attrs["block"]
         if len(block.outputs) != len(block.inputs):
             raise ValueError("while block must output one var per state input")
+        device = ctx.device
         self.names = list(block.inputs)
         self.outs = list(block.outputs)
-        self.body = CompiledGraph(block, device, stage_weights(block, device),
-                                  carried={n for n, o in zip(self.names, self.outs)
-                                           if n == o})
+        self.body = _Block(op, ctx, state=True,
+                           carried={n for n, o in zip(self.names, self.outs) if n == o})
         self.cond = self.names[int(op.attrs.get("cond_index", 0))]
         self.max_iters = int(op.attrs.get("max_iters", 1000))
-        self.trips = 0  # of the last call
+        self.counter = torch.zeros((), dtype=torch.int32, device=device)
+        self.flag = torch.zeros((), dtype=torch.bool, device=device)
 
-    def __call__(self, ins: Dict[str, List[Any]]) -> Dict[str, List[Any]]:
+    @property
+    def trips(self) -> int:
+        """Trips of the last run of the loop, read from the device counter
+        (only when asked: a request never reads it)."""
+        return int(self.counter)
+
+    def _next_flag(self) -> None:
+        c = self.body._inputs[self.cond].reshape(-1)[0] != 0
+        torch.logical_and(c, self.counter < self.max_iters, out=self.flag)
+
+    def _trip(self) -> None:
+        state = self.body._inputs
+        out = self.body(state)
+        for n, o in zip(self.names, self.outs):
+            if out[o] is not state[n]:
+                state[n].copy_(out[o])
+        self.counter.add_(1)
+        self._next_flag()
+
+    def __call__(self, ins: Dict[str, List[Any]], warm: bool = False) -> Dict[str, List[Any]]:
         state = self.body._inputs
         for n, x in zip(self.names, ins["X"]):
             state[n].copy_(x)
-        trips = 0
-        while trips < self.max_iters and bool(state[self.cond].reshape(-1)[0]):
-            out = self.body.run_static()
-            for n, o in zip(self.names, self.outs):
-                if out[o] is not state[n]:
-                    state[n].copy_(out[o])
-            trips += 1
-        self.trips = trips
+        if warm:
+            self.body({n: s.clone() for n, s in state.items()}, warm=True)
+        self.counter.zero_()
+        self._next_flag()
+        conditional_nodes.while_node(self.flag, self._trip)
         return {"Out": [state[n] for n in self.names]}
-
-    @property
-    def n_graphs(self) -> int:
-        return self.body.n_graphs
 
 
 class _ConditionalBlock:
-    """A ``conditional_block`` op in the compiled path: its block compiled
-    once; a call reads ``Cond`` on the host and either runs the block on
-    the inputs or passes them through, into static output buffers."""
+    """A ``conditional_block`` op in the compiled path: where ``Cond``
+    holds, its block runs on the inputs, else they pass through, either
+    way into one set of static output buffers.  Under a capture that is
+    two IF nodes, on ``Cond`` and on its negation
+    (``conditional_nodes.if_node``), elsewhere a branch on the host.
+    `warm` runs both sides first."""
 
-    def __init__(self, op: OpNode, device: torch.device):
+    def __init__(self, op: OpNode, ctx: ExecutionContext):
         block = op.attrs["block"]
-        self.body = CompiledGraph(block, device, stage_weights(block, device))
+        self.body = _Block(op, ctx)
         self.names = list(block.inputs)
         self.outs = list(block.outputs)
         self.buffers: Optional[List[torch.Tensor]] = None
 
-    def __call__(self, ins: Dict[str, List[Any]]) -> Dict[str, List[Any]]:
+    def __call__(self, ins: Dict[str, List[Any]], warm: bool = False) -> Dict[str, List[Any]]:
         xs = ins["Input"]
-        if self.buffers is None:
+        if self.buffers is None:  # at the first run: the warm-up on the card
             self.buffers = [torch.empty_like(x) for x in xs]
-        if bool(ins["Cond"][0].reshape(-1)[0]):
-            for n, x in zip(self.names, xs):
-                self.body._inputs[n].copy_(x)
-            out = self.body.run_static()
+
+        def taken(warm: bool = False) -> None:
+            out = self.body(dict(zip(self.names, xs)), warm)
             for buf, o in zip(self.buffers, self.outs):
                 buf.copy_(out[o])
-        else:
+
+        def passed() -> None:
             for buf, x in zip(self.buffers, xs):
                 buf.copy_(x)
-        return {"Out": list(self.buffers)}
 
-    @property
-    def n_graphs(self) -> int:
-        return self.body.n_graphs
+        if warm:
+            taken(warm=True)
+            passed()
+        pred = ins["Cond"][0].reshape(-1)[0] != 0
+        conditional_nodes.if_node(pred, taken, passed)
+        return {"Out": list(self.buffers)}
 
 
 _CONTROL_EXEC = {"while": _While, "conditional_block": _ConditionalBlock}
@@ -469,29 +544,31 @@ class CompiledGraph:
     """``fn(weights, inputs) -> outputs`` over static buffers: the
     ``jax.jit``-compiled function of the reference.
 
-    The graph is cut at its control-flow ops (``while``,
-    ``conditional_block``) into segments.  On ``"cuda"`` the first call
-    copies the inputs into the static input buffers, runs the segments
-    eagerly once on them (the warm-up: it fills the per-op constants, folded
-    scales and repacked weights, and loads and sets up the kernel libraries,
-    none of which may happen inside a capture), then captures each segment as a
-    ``torch.cuda.CUDAGraph`` with TF32 off; every call replays them.  A
-    control-flow op runs on the host between two segments: its block is
-    compiled by this class into graphs of its own, once, and replayed once
-    a trip on static state buffers; the condition is read on the host
-    (:class:`_While`, :class:`_ConditionalBlock`).  The graph is also cut
-    after each op for which the context names a host step
+    On ``"cuda"`` the first call copies the inputs into the static input
+    buffers, runs the graph eagerly once on them (the warm-up: it fills the
+    per-op constants, folded scales and repacked weights, and loads and
+    sets up the kernel libraries, none of which may happen inside a
+    capture; each control-flow block runs, a loop's on copies of its state
+    and both sides of a ``conditional_block``), then captures it as one
+    ``torch.cuda.CUDAGraph`` with TF32 off; every call replays it.  A
+    ``while`` is a WHILE node of that graph and a ``conditional_block`` two
+    IF nodes (``core/conditional_nodes``), their blocks' ops inline in the
+    nodes' bodies on static state buffers (:class:`_While`,
+    :class:`_ConditionalBlock`): the conditions are evaluated on the card
+    and a request reads nothing back.  The graph is cut only after each op
+    for which the context names a host step
     (:meth:`ExecutionContext.host_step`, a sharded run's collective): the
     step runs on the host between the two replays, from the tensor the
     first segment wrote into a static buffer the second reads
-    (:class:`_HostStep`).  A graph without either is one segment, one CUDA
-    graph.  ``subgraph`` stays inline in its segment.  The static input
-    buffers have the context's shapes (:meth:`ExecutionContext.var_shape`:
-    a rank's data shard).  A capture that fails raises; nothing falls back
-    to the eager loop.  :attr:`n_graphs` counts the CUDA graphs captured, nested ones
-    included.  On ``"cpu"`` there is no CUDA graph: the segments run
-    eagerly, and the control-flow ops through their compiled blocks, on
-    the same static buffers, so the contract is the same on both devices:
+    (:class:`_HostStep`).  A graph without one is one segment, one CUDA
+    graph, with or without control flow.  ``subgraph`` stays inline in its
+    segment.  The static input buffers have the context's shapes
+    (:meth:`ExecutionContext.var_shape`: a rank's data shard).  A capture
+    that fails raises; nothing falls back to the eager loop or to reading
+    a condition on the host.  :attr:`n_graphs` counts the CUDA graphs
+    captured.  On ``"cpu"`` there is no CUDA graph: the segments run
+    eagerly on the same static buffers, the control flow through the same
+    executors as host loops, so the contract is the same on both devices:
 
     - inputs are cast to the input var's precision; an input of another
       shape raises;
@@ -502,24 +579,18 @@ class CompiledGraph:
 
     Calls on one instance are serialised; :meth:`clone` gives a function
     with its own buffers and graphs that shares the weights and constants.
-    `carried` names inputs that the graph outputs unchanged under the same
-    name (a ``while`` block's carried state): such an output is the static
-    input buffer itself, not a copy of it.
     """
 
     def __init__(self, graph: Graph, device: torch.device,
                  weights: Dict[str, torch.Tensor],
-                 ctx: Optional[ExecutionContext] = None, carried=frozenset()):
+                 ctx: Optional[ExecutionContext] = None):
         refuse_host_syncing(graph)
         self.graph = graph
         self.device = device
         self.weights = weights
         self.ctx = ctx or ExecutionContext(graph=graph, device=device)
-        self.carried = frozenset(carried)
-        self._steps = [_op_runner(graph, s, self.ctx, host_steps=False)
-                       if isinstance(s, list) else s if isinstance(s, _HostStep)
-                       else (s, _CONTROL_EXEC[s.op_type](s, device))
-                       for s in _plan(graph, self.ctx)]
+        self._steps = [_op_runner(graph, s, self.ctx, host_steps=False, compiled=True)
+                       if isinstance(s, list) else s for s in _plan(graph, self.ctx)]
         self._inputs = {
             n: torch.empty(self.ctx.var_shape(n),
                            dtype=graph.vars[n].precision.torch_dtype, device=device)
@@ -537,18 +608,13 @@ class CompiledGraph:
 
     @property
     def n_graphs(self) -> int:
-        """CUDA graphs captured: one a segment, and those of the blocks of
-        the control-flow ops."""
-        return (sum(g is not None for g in self._graphs)
-                + sum(ex.n_graphs for s, ex in
-                      (st for st in self._steps if isinstance(st, tuple))))
+        """CUDA graphs captured: one a segment."""
+        return sum(g is not None for g in self._graphs)
 
     @property
     def n_segments(self) -> int:
-        """Segments of the plan: the CUDA graphs a call replays on the card,
-        the control-flow blocks' apart."""
-        return sum(1 for st in self._steps
-                   if not isinstance(st, (tuple, _HostStep)))
+        """Segments of the plan: the CUDA graphs a call replays on the card."""
+        return sum(1 for st in self._steps if not isinstance(st, _HostStep))
 
     @property
     def input_shapes(self) -> Dict[str, tuple]:
@@ -558,16 +624,16 @@ class CompiledGraph:
 
     @property
     def control_flow(self) -> List[Any]:
-        """The control-flow executors, in order (a ``_While`` reports its
-        last call's ``trips``)."""
-        return [st[1] for st in self._steps if isinstance(st, tuple)]
+        """The top level's control-flow executors, in order (a ``_While``
+        reads its last run's ``trips`` from the card)."""
+        return [ex for st in self._steps if not isinstance(st, _HostStep)
+                for ex in st.control]
 
     def clone(self) -> "CompiledGraph":
         """The same function with its own static buffers and its own graphs
         (captured on its first call), sharing the weights and the per-op
         constants."""
-        return CompiledGraph(self.graph, self.device, self.weights, self.ctx,
-                             self.carried)
+        return CompiledGraph(self.graph, self.device, self.weights, self.ctx)
 
     def _check_weights(self, weights: Dict[str, Any]) -> None:
         if weights is self.weights:
@@ -581,32 +647,30 @@ class CompiledGraph:
                 "compile_graph returned")
 
     def warm_up(self, weights: Dict[str, Any], inputs: Dict[str, Any]) -> None:
-        """Load `inputs` and run the segments eagerly once on the static
-        buffers (the first call does this before it captures)."""
+        """Load `inputs` and run the graph eagerly once on the static
+        buffers, every control-flow block included (the first call does
+        this before it captures)."""
         self._check_weights(weights)
         with self._lock, _CAPTURE_LOCK:
             load_static_inputs("compiled graph", inputs, self._inputs, self._stager)
-            self._eager()
+            self._eager(warm=True)
 
     def _start_env(self) -> Dict[str, Any]:
         return _load_env(self.graph, self.weights, self._inputs, self.device)
 
     def _finish(self, env: Dict[str, Any]) -> Dict[str, Any]:
         """The outputs over `env`; one that shares storage with a static
-        input buffer or a weight is copied, so a block's outputs never
-        alias its state, unless it is the buffer of its own name and that
-        name is carried."""
+        input buffer or a weight is copied."""
         own = list(self._inputs.values()) + list(self.weights.values())
-        return {n: (v.clone() if _shares_storage(v, own) and not (
-                    n in self.carried and v is self._inputs[n]) else v)
+        return {n: (v.clone() if _shares_storage(v, own) else v)
                 for n, v in _public_outputs(self.graph, env).items()}
 
     def capture(self) -> None:
         """Capture each segment over the static buffers as a CUDA graph
         (after :meth:`warm_up`; the first call does both); the first one
-        also holds the inputs' island rounding.  Where control flow or a
-        host step follows a segment, the segment is replayed and the step
-        run once, so that every later capture reads real values."""
+        also holds the inputs' island rounding.  Where a host step follows
+        a segment, the segment is replayed and the step run once, so that
+        the next capture reads real values."""
         with self._lock, _CAPTURE_LOCK, fp32_exact():
             island = island_dtype(self.graph)
             env: Dict[str, Any] = {}
@@ -614,11 +678,7 @@ class CompiledGraph:
             outputs = None
             for i, step in enumerate(self._steps):
                 last = i == len(self._steps) - 1
-                if isinstance(step, tuple):  # never the first step (_plan)
-                    self._control(*step, env)
-                    graphs.append(None)
-                    continue
-                if isinstance(step, _HostStep):  # nor this
+                if isinstance(step, _HostStep):  # never the first step (_plan)
                     step(env)
                     graphs.append(None)
                     continue
@@ -641,48 +701,41 @@ class CompiledGraph:
                 outputs = self._finish(env)
             self._env, self._outputs, self._graphs = env, outputs, graphs
 
-    def _control(self, op: OpNode, ex, env: Dict[str, Any]) -> None:
-        outs = ex(_resolve_inputs(op, env))
-        for slot, arrs in outs.items():
-            for n, a in zip(op.outputs.get(slot, []), arrs):
-                env[n] = a
-
-    def _eager(self) -> Dict[str, torch.Tensor]:
-        """One run over the static buffers, the segments eager, the control
-        flow between them: the warm-up on the card, every run on the CPU."""
+    def _eager(self, warm: bool = False) -> Dict[str, torch.Tensor]:
+        """One run over the static buffers, the segments eager, each
+        control-flow op's conditions read on the host: the warm-up on the
+        card (`warm`: every block run), every run on the CPU."""
         with fp32_exact():
             env = self._start_env()
             for step in self._steps:
-                if isinstance(step, tuple):
-                    self._control(*step, env)
+                if isinstance(step, _HostStep):
+                    step(env)
                 else:
-                    step(env)  # a segment or a host step
+                    step(env, warm)
             return self._finish(env)
 
     def _execute(self) -> Dict[str, torch.Tensor]:
         """One run over the static buffers: the captured graphs replayed
-        (on the CPU the segments run eagerly), the control flow run
-        between them.  Returns the output tensors themselves."""
+        (on the CPU the segments run eagerly), the host steps run between
+        them.  Returns the output tensors themselves."""
         if not self._graphs:
             return self._eager()
         with fp32_exact():
             for step, graph in zip(self._steps, self._graphs):
                 if graph is not None:
                     graph.replay()
-                elif isinstance(step, tuple):
-                    self._control(*step, self._env)
                 elif isinstance(step, _HostStep):
                     step.replay()
             return self._outputs
 
     def run_static(self) -> Dict[str, torch.Tensor]:
-        """Run on what the static input buffers hold (a control-flow block's
-        state); the first call on the card warms up and captures.  Returns
-        the output tensors themselves, overwritten by the next call."""
+        """Run on what the static input buffers hold; the first call on the
+        card warms up and captures.  Returns the output tensors
+        themselves, overwritten by the next call."""
         with self._lock:
             if self.device.type == "cuda" and not self._graphs:
                 with _CAPTURE_LOCK:
-                    self._eager()  # the warm-up
+                    self._eager(warm=True)
                 self.capture()
             return self._execute()
 
@@ -701,7 +754,7 @@ def compile_graph(graph: Graph, *, device: torch.device
     inputs)``.  The ``GenRuntimeProgram`` + first-``Run`` analog.  Raises
     ``ValueError`` for a graph holding an impl that synchronises with the
     host (the ``"torch"`` NMS), naming the op; ``while`` and
-    ``conditional_block`` are run on the host between captured segments
+    ``conditional_block`` run inside the CUDA graph as conditional nodes
     (:class:`CompiledGraph`)."""
     weights = stage_weights(graph, device)
     return CompiledGraph(graph, device, weights), weights

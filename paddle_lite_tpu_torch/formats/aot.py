@@ -32,13 +32,12 @@ no graph and runs no pass and no calibration.
   predictor does.
 - The loaded program runs compiled, as the reference's ``exported.call``
   is one XLA computation: on the card the first call warms the module up
-  once on static input buffers and captures it, and later calls replay
-  the capture (:class:`LoadedProgram`).  A program without control flow
-  is one CUDA graph.  The card's torch offers no conditional graph node,
-  so a program that holds ``while_loop`` or ``cond`` is cut at each, as
-  ``core/executor.compile_graph`` cuts a graph at its control flow: each
-  straight run of ops and each block's body a CUDA graph, the condition
-  read on the host between replays (:class:`_ControlFlow`).
+  once on static input buffers and captures it as one CUDA graph, and
+  later calls replay it (:class:`LoadedProgram`).  A ``while_loop`` is a
+  WHILE node of that graph and a ``cond`` two IF nodes
+  (``core/conditional_nodes``, the port's own library), as
+  ``core/executor.compile_graph`` runs ``while`` / ``conditional_block``:
+  the conditions are evaluated on the card (:class:`_ControlFlow`).
 
 The program's call signature is ``run(inputs_dict) -> outputs_dict``, as
 the reference's; inputs may be numpy arrays or tensors, each of its
@@ -48,12 +47,11 @@ the program's device; the outputs are fresh tensors.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import io
 import json
 import threading
-from typing import Any, Callable, Dict, List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -61,23 +59,35 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from .. import ops  # noqa: F401  (registers the plt:: custom ops)
 from ..core.device import DeviceLike, InputStager, fp32_exact, resolve_device
-from ..core.executor import (build_callable, capture_session, load_static_inputs,
-                             refuse_host_syncing, stage_weights)
+from ..core import conditional_nodes
+from ..core.executor import (CONTROL_FLOW, CompiledGraph, ExecutionContext, build_callable,
+                             capture_cuda_graph, load_static_inputs, refuse_host_syncing,
+                             stage_weights)
 from ..core.ir import Graph
 
 META = "plt_meta.json"
 
 
 class _Program(torch.nn.Module):
-    """The eager program of `graph` with its staged weights as buffers."""
+    """The eager program of `graph` with its staged weights as buffers.
+    Where `graph` holds control flow, every block's per-op constants are
+    made first, outside the trace, by a warm-up of the compiled path on
+    `example` (each block runs, both sides of a branch): made inside a
+    block that Dynamo traces, a constant is a tensor of the block's own
+    graph, which ``torch.export.save`` refuses; made before, it is an
+    operand the trace lifts, as the block's weights are."""
 
-    def __init__(self, graph: Graph, device: torch.device):
+    def __init__(self, graph: Graph, device: torch.device,
+                 example: Dict[str, torch.Tensor]):
         super().__init__()
         weights = stage_weights(graph, device)
         self.names = list(weights)
         for i, v in enumerate(weights.values()):
             self.register_buffer(f"w{i}", v)
-        self.fn = build_callable(graph, device=device)
+        ctx = ExecutionContext(graph=graph, device=device)
+        if any(op.op_type in CONTROL_FLOW for op in graph.ops):
+            CompiledGraph(graph, device, weights, ctx).warm_up(weights, example)
+        self.fn = build_callable(graph, device=device, context=ctx)
 
     def forward(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         weights = {n: getattr(self, f"w{i}") for i, n in enumerate(self.names)}
@@ -93,7 +103,7 @@ def export_program(graph: Graph, *, device: DeviceLike = None):
     example = {n: torch.zeros(graph.vars[n].shape, dtype=graph.vars[n].precision.torch_dtype,
                               device=dev) for n in graph.inputs}
     with torch.no_grad(), fp32_exact():
-        ep = torch.export.export(_Program(graph, dev), (example,), strict=False)
+        ep = torch.export.export(_Program(graph, dev, example), (example,), strict=False)
     ep.example_inputs = None  # else saved with the program: a batch of zeros
     meta = {"device": dev.type, "outputs": list(graph.outputs),
             "inputs": {n: {"shape": list(t.shape), "dtype": str(t.dtype).split(".")[1]}
@@ -204,92 +214,25 @@ def _fold_host_constants(module: torch.fx.GraphModule, constants) -> int:
     return folded
 
 
-class _Recording:
-    """A function's run on the card recorded as CUDA graphs cut at its
-    control flow: a graph for each straight run of ops and, between two,
-    the host step of the ``while_loop`` or ``cond`` that cut them.  A call
-    replays the steps in order and returns what the function returned at
-    the capture (tensors that every replay rewrites)."""
-
-    def __init__(self, capture: "_Capture"):
-        self.capture = capture
-        self.steps: List[Callable[[], Any]] = []
-        self.out: Any = None
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-
-    def begin(self) -> None:
-        self._graph = torch.cuda.CUDAGraph()
-        self._graph.capture_begin(self.capture.pool, capture_error_mode="thread_local")
-
-    def end(self) -> None:
-        graph, self._graph = self._graph, None
-        graph.capture_end()
-        self.capture.graphs.append(graph)
-        self.steps.append(graph.replay)
-
-    def __call__(self) -> Any:
-        for step in self.steps:
-            step()
-        return self.out
-
-
-class _Capture:
-    """One capture of a loaded program: its recordings share one memory
-    pool; :attr:`graphs` holds every CUDA graph captured."""
-
-    def __init__(self):
-        self.pool = torch.cuda.graph_pool_handle()
-        self.graphs: List[torch.cuda.CUDAGraph] = []
-        self._current: Optional[_Recording] = None
-
-    def record(self, fn: Callable[[], Any]) -> _Recording:
-        """`fn()` captured as a :class:`_Recording`; a capture that fails
-        raises, the graph it was capturing ended first."""
-        rec, outer = _Recording(self), self._current
-        self._current = rec
-        rec.begin()
-        try:
-            rec.out = fn()
-        except BaseException:
-            if rec._graph is not None:
-                with contextlib.suppress(RuntimeError):
-                    rec._graph.capture_end()
-            raise
-        finally:
-            self._current = outer
-        rec.end()
-        return rec
-
-    def split(self, make_step: Callable[[], Callable[[], None]]) -> None:
-        """End the graph being captured, append the host step that
-        `make_step()` returns (it records the blocks it replays), and begin
-        the next graph."""
-        rec = self._current
-        rec.end()
-        rec.steps.append(make_step())
-        rec.begin()
-
-
 class _ControlFlow(TorchDispatchMode):
     """Runs a loaded program's ``while_loop`` and ``cond`` as the compiled
     predictor runs ``while`` and ``conditional_block``
-    (``core/executor._While``, ``_ConditionalBlock``): the condition is
-    read on the host; a loop's state lives in buffers of its own, and each
-    trip runs the body, copies its outputs into the state and computes the
-    next condition into one flag.  Under a `capture`, the graph being
-    captured ends at the op (after the state is copied in and the first
-    condition computed), each block is captured as a recording of its own
-    (a trip; each branch, both writing one set of outputs) and the host
-    step between two graphs replays them; without one (the CPU, the
-    warm-up) the same steps run eagerly.  `warm` also runs each body and
-    both branches once whatever the condition, so that nothing first runs
+    (``core/executor._While``, ``_ConditionalBlock``), through
+    ``core/conditional_nodes``: under a capture a ``while_loop`` is a WHILE
+    node and a ``cond`` two IF nodes of the one graph being captured, the
+    blocks' ops inline in their bodies; elsewhere (the CPU, the warm-up)
+    the same steps with the condition read on the host.  A loop's state
+    lives in buffers of its own, and each trip runs the body, copies its
+    outputs into the state and computes the next condition (the exported
+    ``cond_fn``, which holds ``max_iters``) into one flag; both sides of a
+    ``cond`` write one set of outputs.  `warm` also runs each body and both
+    branches once whatever the condition, so that nothing first runs
     inside a capture."""
 
     supports_higher_order_operators = True
 
-    def __init__(self, capture: Optional[_Capture] = None, warm: bool = False):
+    def __init__(self, warm: bool = False):
         super().__init__()
-        self.capture = capture
         self.warm = warm
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -301,15 +244,6 @@ class _ControlFlow(TorchDispatchMode):
             with self:
                 return self._cond(*args, **kwargs)
         return func(*args, **kwargs)
-
-    def _host_step(self, make_step: Callable[[], Callable[[], None]]) -> None:
-        if self.capture is None:
-            make_step()()
-        else:
-            self.capture.split(make_step)
-
-    def _block(self, fn: Callable[[], Any]) -> Callable[[], Any]:
-        return fn if self.capture is None else self.capture.record(fn)
 
     def _while(self, cond_fn, body_fn, carried, additional):
         # a carried input the body passes through is never written: it is
@@ -326,33 +260,25 @@ class _ControlFlow(TorchDispatchMode):
                     s.copy_(v)
             flag.copy_(cond_fn(*state, *additional))
 
-        def make_step():
-            body = self._block(trip)
-
-            def loop():
-                while bool(flag):
-                    body()
-            return loop
-
-        self._host_step(make_step)
+        conditional_nodes.while_node(flag, trip)
         return tuple(state)
 
     def _cond(self, pred, true_fn, false_fn, operands):
         if self.warm:
             true_fn(*operands)
             false_fn(*operands)
-        if self.capture is None:
+        if not conditional_nodes.capturing(pred.device):
             return tuple((true_fn if bool(pred) else false_fn)(*operands))
         outs: List[torch.Tensor] = []
 
-        def make_step():
-            taken = self._block(lambda: tuple(true_fn(*operands)))
-            outs.extend(taken.out)
-            passed = self._block(lambda: [o.copy_(v) for o, v in
-                                          zip(outs, false_fn(*operands))])
-            return lambda: (taken if bool(pred) else passed)()
+        def taken():
+            outs.extend(true_fn(*operands))
 
-        self._host_step(make_step)
+        def passed():
+            for o, v in zip(outs, false_fn(*operands)):
+                o.copy_(v)
+
+        conditional_nodes.if_node(pred, taken, passed)
         return tuple(outs)
 
 
@@ -411,15 +337,13 @@ class LoadedProgram:
     On the card (:attr:`captured`) the first call runs the module once
     (the warm-up: the kernel libraries load and set up, and each
     control-flow block runs, both sides of a ``cond`` included) and
-    captures it with TF32 off; every call replays the capture.  A program
-    without control flow is one CUDA graph.  One with ``while_loop`` or
-    ``cond`` (:attr:`control_flow`) is cut at each, as ``compile_graph``
-    cuts a graph at ``while`` / ``conditional_block``: a CUDA graph for
-    each straight run of ops, each block's body a CUDA graph of its own,
-    the condition read on the host between replays (:class:`_ControlFlow`;
-    :attr:`n_graphs` counts them all).  A capture that fails raises.  On
-    the CPU each call runs the module on the same static buffers, its
-    control flow through the same steps without graphs."""
+    captures it as one CUDA graph with TF32 off; every call replays it.
+    Its ``while_loop`` and ``cond`` ops (:attr:`control_flow`) are
+    conditional nodes of that graph (:class:`_ControlFlow`), as
+    ``compile_graph`` runs ``while`` / ``conditional_block``: a request
+    reads no condition back.  A capture that fails raises.  On the CPU each
+    call runs the module on the same static buffers, its control flow
+    through the same steps as host loops."""
 
     def __init__(self, ep, meta: dict):
         self.program = ep
@@ -434,14 +358,14 @@ class LoadedProgram:
                                        device=self.device)
                         for n, s in meta["inputs"].items()}
         self._stager = InputStager() if self.device.type == "cuda" else None
-        self._capture: Optional[_Capture] = None
-        self._replay: Optional[_Recording] = None
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._out: Optional[Dict[str, torch.Tensor]] = None
         self._lock = threading.Lock()
 
     @property
     def n_graphs(self) -> int:
-        """CUDA graphs captured: 0 before the first call on the card."""
-        return len(self._capture.graphs) if self._capture is not None else 0
+        """CUDA graphs captured: 0 before the first call on the card, then 1."""
+        return int(self._graph is not None)
 
     def _run(self, mode: _ControlFlow):
         if not self.control_flow:
@@ -450,11 +374,9 @@ class LoadedProgram:
             return self.module(self._inputs)
 
     def _record(self) -> None:
-        with capture_session():
-            self._run(_ControlFlow(warm=True))
-            capture = _Capture()
-            self._replay = capture.record(lambda: self._run(_ControlFlow(capture)))
-            self._capture = capture
+        self._graph, self._out = capture_cuda_graph(
+            lambda: self._run(_ControlFlow()),
+            warm_up=lambda: self._run(_ControlFlow(warm=True)))
 
     def __call__(self, inputs: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         with self._lock, torch.no_grad(), fp32_exact():
@@ -462,9 +384,10 @@ class LoadedProgram:
             if not self.captured:
                 out = self._run(_ControlFlow())
             else:
-                if self._replay is None:
+                if self._graph is None:
                     self._record()
-                out = self._replay()
+                self._graph.replay()
+                out = self._out
             return {k: v.clone() for k, v in out.items()}
 
 

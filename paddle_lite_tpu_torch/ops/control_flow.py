@@ -22,8 +22,9 @@ reference's contract, kept here:
 A nested graph's runner and its staged weights are made once per op
 (``ctx.const``), not once per trip.  The eager impls of ``while`` and
 ``conditional_block`` read their condition on the host (``syncs_host``):
-``core.executor.compile_graph`` runs them between captured segments, each
-block compiled into CUDA graphs of its own.  Under ``torch.export``
+``core.executor.compile_graph`` runs them as conditional nodes of its CUDA
+graph instead (``core/conditional_nodes``), their blocks' ops inline in
+the nodes' bodies.  Under ``torch.export``
 (``formats/aot.py``) they trace instead as
 ``torch._higher_order_ops.while_loop`` and ``torch.cond``, the reference's
 ``lax.while_loop`` and ``lax.cond``, the same values as the eager forms.
@@ -35,19 +36,18 @@ from typing import Any, Dict
 
 import torch
 
-from ..core.executor import ExecutionContext, _runner, stage_weights
+from ..core.executor import _runner, block_context
 from ..core.registry import OPS
 
 
 def _nested(ctx, op, key: str, exact: bool = True):
     """(runner, staged weights) of the graph in ``op.attrs[key]``, once per
-    op (``executor._runner``'s `exact`)."""
-    def make():
-        g = op.attrs[key]
-        return (_runner(g, ExecutionContext(graph=g, device=ctx.device), exact=exact),
-                stage_weights(g, ctx.device))
-
-    return ctx.const(op, f"nested_{key}" + ("" if exact else "_traced"), make)
+    op (``executor._runner``'s `exact`), over the op's block context
+    (``executor.block_context``, shared with the compiled path)."""
+    nested, weights = block_context(ctx, op, key)
+    run = ctx.const(op, f"nested_{key}" + ("" if exact else "_traced"),
+                    lambda: _runner(op.attrs[key], nested, exact=exact))
+    return run, weights
 
 
 def _run_nested(ctx, op, key: str, env: Dict[str, Any]) -> Dict[str, Any]:

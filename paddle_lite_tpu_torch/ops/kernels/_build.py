@@ -31,7 +31,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 SOURCES = {"int8_gemm": "int8_gemm.cu", "dw_conv": "dw_conv.cu",
-           "nms": "nms.cu", "dw_pw_fused": "dw_pw_fused.cu"}
+           "nms": "nms.cu", "dw_pw_fused": "dw_pw_fused.cu",
+           "graph_cond": "graph_cond.cu"}
 HEADERS = ("epilogue.cuh", "mma_s8.cuh", "wgmma_s8.cuh")
 # per-device set-up a library needs before its first launch on a device
 # (shared-memory limits of its kernels), by C function
@@ -178,6 +179,23 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn = lib.plt_nms_keep
         # boxes, scores, out, G, k, iou_t, score_t, iou_div, stream
         fn.argtypes = [vp, vp, vp, ci, ci, cf, cf, ci, vp]
+    elif name == "graph_cond":
+        ull, sz = ctypes.c_ulonglong, ctypes.c_size_t
+        out_vp = ctypes.POINTER(vp)
+        # core/conditional_nodes.py: one function a CUDA runtime call
+        for fname, args in (("plt_graph_capture_info", [vp, out_vp, out_vp, ctypes.POINTER(sz)]),
+                            ("plt_graph_cond_handle", [vp, ctypes.POINTER(ull)]),
+                            ("plt_graph_set_cond", [vp, ull, vp]),
+                            ("plt_graph_add_cond_node", [vp, vp, sz, ull, ci, out_vp, out_vp]),
+                            ("plt_graph_set_deps", [vp, vp]),
+                            ("plt_graph_begin_body", [vp, vp]),
+                            ("plt_graph_end_body", [vp, vp]),
+                            ("plt_graph_stream", [out_vp])):
+            getattr(lib, fname).argtypes = args
+            getattr(lib, fname).restype = ci
+        lib.plt_graph_error.argtypes = [ci]
+        lib.plt_graph_error.restype = ctypes.c_char_p
+        return
     else:
         raise KeyError(name)
     fn.restype = ctypes.c_int

@@ -31,6 +31,7 @@ tensors and raise on a bf16 one.
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import numpy as np
@@ -81,7 +82,7 @@ def fc_cuda(ctx, op, ins):
     bias = ins.get("Bias", [None])[0]
     ncd = int(op.attrs.get("in_num_col_dims", x.ndim - 1))
     lead = tuple(x.shape[:ncd])
-    x2 = x.reshape((-1, int(np.prod(x.shape[ncd:]))))
+    x2 = x.reshape((-1, math.prod(x.shape[ncd:])))
     y = _gemm(ctx, op, x2, w, op.input("Input"), op.input("W"), bias)
     return {"Out": [y.reshape(lead + (w.shape[1],))]}
 
@@ -92,8 +93,8 @@ def mul_cuda(ctx, op, ins):
     xd = int(op.attrs.get("x_num_col_dims", 1))
     yd = int(op.attrs.get("y_num_col_dims", 1))
     lead, tail = tuple(x.shape[:xd]), tuple(w.shape[yd:])
-    x2 = x.reshape((-1, int(np.prod(x.shape[xd:]))))
-    w2 = w.reshape((int(np.prod(w.shape[:yd])), -1))
+    x2 = x.reshape((-1, math.prod(x.shape[xd:])))
+    w2 = w.reshape((math.prod(w.shape[:yd]), -1))
     y = _gemm(ctx, op, x2, w2, op.input("X"), op.input("Y"), None)
     return {"Out": [y.reshape(lead + tail)]}
 

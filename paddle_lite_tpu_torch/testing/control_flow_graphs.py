@@ -15,7 +15,11 @@ card.
 - :func:`cases`: every case above with its feeds and trip counts, and
   the beam-search decode loop (``models/beam_decode``) at b2 / beam 2 /
   hidden 8 / vocab 50 / 5 steps; :data:`LOADED_GRAPHS` the CUDA graphs a
-  loaded program of each captures.
+  loaded program of each captures, :data:`NODES` the conditional nodes
+  that a capture of each makes;
+- :func:`int8_loop`: a loop whose block holds an int8 ``fc`` on the GEMM
+  kernel (the ``"cuda"`` tag; its plain version on the CPU), its state
+  requantized each trip.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import numpy as np
 
 from ..core.builder import GraphBuilder
 from ..core.ir import Graph
-from ..core.types import Precision
+from ..core.types import Precision, QuantInfo
 from ..models import beam_decode
 from .op_cases import _affine_block
 
@@ -148,8 +152,53 @@ def cases() -> Dict[str, Tuple[Graph, List[dict], List[Optional[int]]]]:
     }
 
 
-# CUDA graphs a loaded program of each case captures: a graph either side
-# of each control-flow op (a cut), a loop's trip and each branch one of
-# their own, a cut inside a branch two more
-LOADED_GRAPHS = {"gated_loop": 3, "hits_max_iters": 3, "crossed_state": 3, "decode": 3,
-                 "cond": 4, "cond_while": 6}
+# CUDA graphs a loaded program of each case captures: one, its control
+# flow conditional nodes inside it, no host step
+LOADED_GRAPHS = {"gated_loop": 1, "hits_max_iters": 1, "crossed_state": 1, "decode": 1,
+                 "cond": 1, "cond_while": 1}
+
+# the conditional nodes that a capture of each case makes, in order, as
+# (kind, depth): a while one WHILE node, a conditional_block (a cond) two
+# IF nodes, on the flag and on its negation; a node made inside a body is
+# one deeper.  The compiled predictor and a loaded program make the same.
+NODES = {"gated_loop": [("while", 0)], "hits_max_iters": [("while", 0)],
+         "crossed_state": [("while", 0)], "decode": [("while", 0)],
+         "cond": [("if", 0), ("if", 0)],
+         "cond_while": [("if", 0), ("while", 1), ("if", 0)],
+         "int8_loop": [("while", 0)]}
+
+INT8_SCALE = 0.05  # the loop state's per-tensor scale, in and out
+
+
+def int8_loop(m: int = 64, k: int = 64, trips: int = 4, seed: int = 21) -> Graph:
+    """x <- requant(x @ w) for `trips` trips: a while loop whose block holds
+    an int8 ``fc`` (per-channel weight scales, int8 out at the state's
+    scale) tagged ``"cuda"``, so that on the card its GEMM kernel launches
+    inside the loop's body; outputs the step count and x."""
+    rng = np.random.default_rng(seed)
+    inner, c2, s2 = _step_block("int8_body", float(trips), None)
+    x = inner.input("x_in", (m, k), precision=Precision.INT8)
+    inner.g.vars[x].quant = QuantInfo.per_tensor(INT8_SCALE)
+    w = inner.weight("w", rng.integers(-127, 128, (k, k), dtype=np.int8))
+    inner.g.vars[w].quant = QuantInfo.per_channel_scales(
+        rng.uniform(0.5e-3, 2e-3, k).astype(np.float32), axis=1)
+    y = inner.op("fc", {"Input": [x], "W": [w]},
+                 attrs={"in_num_col_dims": 1, "enable_int8": True, "kernel": "cuda",
+                        "out_scale": INT8_SCALE},
+                 shape_args=[x, w], out_precisions=[Precision.INT8])[0]
+    inner.g.vars[y].quant = QuantInfo.per_tensor(INT8_SCALE)
+    inner.mark_output(c2, s2, y)
+    b = GraphBuilder("int8_outer")
+    xo = b.input("x", (m, k), precision=Precision.INT8)
+    b.g.vars[xo].quant = QuantInfo.per_tensor(INT8_SCALE)
+    cond, step = _true(b), _zero(b)
+    outs = b.op("while", {"X": [cond, step, xo]},
+                attrs={"block": inner.build(), "cond_index": 0, "max_iters": 100},
+                shape_args=[cond, step, xo], out_slots=("Out",),
+                out_precisions=[Precision.BOOL, Precision.FP32, Precision.INT8])
+    b.mark_output(outs[1], outs[2])
+    return b.build()
+
+
+def int8_feed(m: int = 64, k: int = 64, seed: int = 22) -> dict:
+    return {"x": np.random.default_rng(seed).integers(-127, 128, (m, k), dtype=np.int8)}

@@ -10,8 +10,9 @@ shape or a missing input refused; MobileNetV1 and SSD bit-equal to
 ``Predictor``; the host constants' copies folded at load (a CUDA graph
 cannot capture a copy from pageable host memory).  The beam-search decode
 loop (``while_loop``) is not captured on the CPU, as no program is, and
-equals its eager run; on the card it is captured cut at its loop
-(``tests/test_torch_device_control_flow.py``, phases 14d and 15b).
+equals its eager run; on the card it is captured as one graph, its loop
+a WHILE node (``tests/test_torch_device_control_flow.py``,
+``tests/test_torch_graph_conditionals.py``, phases 14d and 15b).
 """
 
 import numpy as np

@@ -1,13 +1,13 @@
 """Control flow in the port: ``while``, ``conditional_block`` and
-``subgraph`` through ``compile_graph`` (the segments between control-flow
-ops compiled, each block compiled into graphs of its own) against the
-eager loop, the beam-search decode loop against the reference, and the
-control-flow artifact both ways between the packages.
+``subgraph`` through ``compile_graph`` (on the card one CUDA graph, each
+control-flow op conditional nodes in it, its block's ops inline in their
+bodies) against the eager loop, the beam-search decode loop against the
+reference, and the control-flow artifact both ways between the packages.
 
-On the CPU the compiled path runs the same plan as on the card (segments,
-static state buffers, the condition read on the host) without CUDA
-graphs, so these tests hold its logic; ``chip_smoke.py`` phase 14c holds
-the captured graphs on the card.
+On the CPU the compiled path runs the same plan as on the card (one
+segment, static state buffers, a device trip counter) without CUDA
+graphs, the conditions read on the host, so these tests hold its logic;
+``chip_smoke.py`` phase 14c holds the captured graph on the card.
 """
 
 import jax
@@ -115,7 +115,7 @@ def test_compiled_block_outputs_never_alias_the_state():
     (loop,) = fn.control_flow
     state = loop.body._inputs
     assert loop.body.carried == {"w_vocab_in"}
-    out = loop.body.run_static()
+    out = loop.body(state)
     assert out["w_vocab_in"] is state["w_vocab_in"]
     for name, n in out.items():
         if name == "w_vocab_in":
@@ -145,8 +145,8 @@ def test_compiled_while_swaps_crossed_state():
 
 
 def test_control_flow_inside_a_subgraph_is_rejected():
-    """A subgraph's region stays inline in its segment's capture, so a
-    while loop inside one cannot run on the host between segments:
+    """A subgraph's region runs its ops' eager impls inline, so a while
+    loop inside one would read its condition on the host in the capture:
     compile_graph names it before any capture."""
     b = GraphBuilder("sub_while")
     x = b.input("x", (3, 4))

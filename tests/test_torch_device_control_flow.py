@@ -1,25 +1,26 @@
-"""A loaded exported program with control flow, cut at its higher-order ops.
+"""A loaded exported program with control flow, captured as one CUDA graph.
 
 On the card ``formats/aot.LoadedProgram`` captures a program that holds
-``while_loop`` or ``cond`` as CUDA graphs cut at each, as
-``compile_graph`` cuts a graph at ``while`` / ``conditional_block``: a
-graph for each straight run of ops, each block's body a graph of its own,
-the condition read on the host between replays (``aot._ControlFlow``; the
-card's torch offers no conditional graph nodes).  ``chip_smoke.py`` phase
-14d holds every case here captured on the card, 15b the decode loop at
-full size.  On the CPU the same steps run without graphs, so this file
-holds their logic:
+``while_loop`` or ``cond`` as one CUDA graph, as ``compile_graph``
+captures a graph with ``while`` / ``conditional_block``: a ``while_loop``
+is a WHILE node and a ``cond`` two IF nodes (``core/conditional_nodes``),
+the blocks' ops inline in the bodies, the conditions evaluated on the card
+(``aot._ControlFlow``).  ``chip_smoke.py`` phase 14d holds every case here
+captured on the card, 15b the decode loop at full size.  On the CPU the
+same steps run without graphs, the conditions read on the host, so this
+file holds their logic:
 
-- each case of ``testing/control_flow_graphs`` (a loop of no trip, one
-  that stops early, one cut by ``max_iters``, crossed and carried state, a
+- each case of ``testing/control_flow_graphs`` (a loop of no trip, one that
+  stops early, one cut by ``max_iters``, crossed and carried state, a
   ``conditional_block`` both ways with and without a nested ``while``, the
   decode loop at b2 / beam 2 / vocab 50 / 5 steps): the loaded program
   bit-equal to ``Predictor`` and to the eager loop on every feed, one
   program for all the feeds, and to the reference's ``compile_graph``
   (``jax.jit``) within the decode test's rtol 1e-5 / atol 1e-6;
-- the cut: with the CUDA graph's capture stood in by a stub, each case
-  captures the graphs ``LOADED_GRAPHS`` names and a host step at each
-  higher-order op;
+- the capture: with the CUDA graph's capture stood in by a stub, each case
+  captures the one graph ``LOADED_GRAPHS`` names, makes a conditional node
+  at each higher-order op (the kinds ``NODES`` names) and reads no
+  condition on the host;
 - a carried input passed through (the decode loop's vocabulary
   projection) is given back as itself, and a block's host constants are
   read as constants of its own (folded at load).
@@ -33,6 +34,7 @@ import torch
 import paddle_lite_tpu as R
 from paddle_lite_tpu.formats import artifact as r_artifact
 from paddle_lite_tpu_torch import build_callable, stage_weights
+from paddle_lite_tpu_torch.core import conditional_nodes as cn
 from paddle_lite_tpu_torch.formats import aot
 from paddle_lite_tpu_torch.formats import artifact as p_artifact
 from paddle_lite_tpu_torch.runtime.predictor import Predictor
@@ -92,14 +94,7 @@ def test_loaded_program_is_the_predictor(loaded, name):
 
 
 class _StubGraph:
-    """Stands in for ``torch.cuda.CUDAGraph`` on the CPU: counts captures,
-    replays nothing."""
-
-    def capture_begin(self, pool=None, capture_error_mode="global"):
-        pass
-
-    def capture_end(self):
-        pass
+    """Stands in for ``torch.cuda.CUDAGraph`` on the CPU: replays nothing."""
 
     def replay(self):
         raise AssertionError("a stub graph is never replayed")
@@ -107,23 +102,47 @@ class _StubGraph:
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_the_capture_cuts_at_each_higher_order_op(loaded, name, monkeypatch):
-    """The capture (a stub's on the CPU: the ops run as it records) ends a
-    graph at each ``while_loop`` / ``cond`` and puts the op's host step
-    between that graph and the next; each block is a recording of its
-    own."""
+    """The capture (a stub's on the CPU: the ops run as it records) is one
+    graph: each ``while_loop`` / ``cond`` makes its conditional nodes
+    inside it (a node's body run once, as it is captured), and no host
+    step reads a condition between graphs."""
+    capturing = []
+    made = []
+
+    class graph_ctx:
+        def __init__(self, graph, capture_error_mode="global"):
+            pass
+
+        def __enter__(self):
+            capturing.append(True)
+
+        def __exit__(self, *exc):
+            capturing.pop()
+
+    def node(kind, flag, body, bodies):
+        made.append({cn.IF: "if", cn.WHILE: "while"}[kind])
+        body()
+
+    real_bool = torch.Tensor.__bool__
+
+    def no_host_read(t):
+        assert not capturing, "a condition was read on the host during the capture"
+        return real_bool(t)
+
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _StubGraph)
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    monkeypatch.setattr(torch.cuda, "graph", graph_ctx)
+    monkeypatch.setattr(cn, "capturing", lambda device: bool(capturing))
+    monkeypatch.setattr(cn, "_node", node)
+    monkeypatch.setattr(torch.Tensor, "__bool__", no_host_read)
     run = loaded[name]
     g, feeds, _ = CASES[name]
     aot.load_static_inputs("loaded program", feeds[0], run._inputs, None)
-    capture = aot._Capture()
     with torch.no_grad():
-        rec = capture.record(lambda: run._run(aot._ControlFlow(capture)))
-    assert len(capture.graphs) == cfg.LOADED_GRAPHS[name]
-    graphs = [isinstance(getattr(s, "__self__", None), _StubGraph) for s in rec.steps]
-    # top level: a graph, then a host step and a graph for each op there
-    assert graphs == [True, False, True]
-    assert set(rec.out) == set(g.outputs)
+        run._record()
+    assert run.n_graphs == cfg.LOADED_GRAPHS[name] == 1
+    assert made == [kind for kind, _ in cfg.NODES[name]]
+    assert set(run._out) == set(g.outputs)
+    run._graph = None  # the stub graph is never replayed
 
 
 def test_a_carried_input_is_passed_through(loaded):
