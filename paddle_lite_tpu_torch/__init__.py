@@ -16,7 +16,8 @@ Layer map:
   tools.accuracy_report  calibration methods compared on torch twins
                       (testing.twins, formats.importer, tools.profile)
   core                IR, builder, registry, passes, eager executor and
-                      compile_graph (the graph captured as a CUDA graph)
+                      compile_graph (the graph captured as a CUDA graph);
+                      core.trace: the program's spans and counters
   ops                 torch impls; ops.kernels: the CUDA kernels, and the
                       kernel table measured on the card (tune_cache,
                       autotune; tools.cli tune)

@@ -15,6 +15,8 @@ from typing import Dict, Iterator, Optional, Union
 import numpy as np
 import torch
 
+from . import trace
+
 DeviceLike = Optional[Union[str, torch.device]]
 
 
@@ -77,8 +79,9 @@ class InputStager:
 
     A staging buffer is written again only after the CUDA event recorded
     behind its last copy has completed, so the host can fill request i+1's
-    buffer while the card still reads request i's.  A tensor already on a card is copied device to device, without
-    staging.
+    buffer while the card still reads request i's (where the host must
+    wait for the card, a ``stager.wait`` span).  A tensor already on a card
+    is copied device to device, without staging.
     """
 
     SLOTS = 2
@@ -102,8 +105,9 @@ class InputStager:
             ring.append([torch.empty(dst.shape, dtype=dst.dtype, pin_memory=True),
                          None])
         slot = ring[i]
-        if slot[1] is not None:
-            slot[1].synchronize()  # the card has finished reading this buffer
+        if slot[1] is not None and not slot[1].query():
+            with trace.span("stager.wait"):
+                slot[1].synchronize()  # the card has finished reading this buffer
         slot[0].copy_(src)
         dst.copy_(slot[0], non_blocking=True)
         slot[1] = torch.cuda.Event()

@@ -37,7 +37,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import conditional_nodes
+from . import conditional_nodes, trace
 from .device import InputStager, fp32_exact, to_tensor
 from .ir import Graph, OpNode
 from .registry import OPS
@@ -242,6 +242,7 @@ def block_context(ctx: ExecutionContext, op: OpNode, key: str = "block"
         ExecutionContext(graph=g, device=ctx.device), stage_weights(g, ctx.device)))
 
 
+@trace.setup_span("setup.stage_weights")
 def stage_weights(graph: Graph, device: torch.device) -> Dict[str, torch.Tensor]:
     """Weights as device tensors, copied once.  Under bf16 islands float32
     weights are stored as bf16 (rounded to nearest even); int8 weights are
@@ -279,6 +280,7 @@ def capture_cuda_graph(fn: Callable[[], Any], *,
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 out = fn()
         bodies.keep_with(graph)
+    trace.count("graph.captures")
     return graph, out
 
 
@@ -365,11 +367,12 @@ class _HostStep:
 
     def replay(self) -> None:
         """Run again on the tensors of the last :meth:`__call__`."""
-        for n, t in self.src.items():
-            out = self.fn(t)
-            if n not in self.dst:
-                self.dst[n] = torch.empty_like(out)
-            self.dst[n].copy_(out)
+        with trace.span("graph.host_step"):
+            for n, t in self.src.items():
+                out = self.fn(t)
+                if n not in self.dst:
+                    self.dst[n] = torch.empty_like(out)
+                self.dst[n].copy_(out)
 
 
 def load_static_inputs(what: str, inputs: Dict[str, Any], buffers: Dict[str, torch.Tensor],
@@ -653,7 +656,7 @@ class CompiledGraph:
         self._check_weights(weights)
         with self._lock, _CAPTURE_LOCK:
             load_static_inputs("compiled graph", inputs, self._inputs, self._stager)
-            self._eager(warm=True)
+            self._warm_up()
 
     def _start_env(self) -> Dict[str, Any]:
         return _load_env(self.graph, self.weights, self._inputs, self.device)
@@ -671,7 +674,7 @@ class CompiledGraph:
         also holds the inputs' island rounding.  Where a host step follows
         a segment, the segment is replayed and the step run once, so that
         the next capture reads real values."""
-        with self._lock, _CAPTURE_LOCK, fp32_exact():
+        with self._lock, _CAPTURE_LOCK, fp32_exact(), trace.setup_span("setup.capture"):
             island = island_dtype(self.graph)
             env: Dict[str, Any] = {}
             graphs: List[Optional[torch.cuda.CUDAGraph]] = []
@@ -701,17 +704,25 @@ class CompiledGraph:
                 outputs = self._finish(env)
             self._env, self._outputs, self._graphs = env, outputs, graphs
 
+    def _warm_up(self) -> None:
+        with trace.setup_span("setup.warm_up"):
+            self._eager(warm=True)
+
     def _eager(self, warm: bool = False) -> Dict[str, torch.Tensor]:
         """One run over the static buffers, the segments eager, each
         control-flow op's conditions read on the host: the warm-up on the
-        card (`warm`: every block run), every run on the CPU."""
+        card (`warm`: every block run), every run on the CPU (each segment
+        a ``graph.replay`` span, as a replay is on the card)."""
         with fp32_exact():
             env = self._start_env()
             for step in self._steps:
                 if isinstance(step, _HostStep):
                     step(env)
-                else:
+                elif warm:
                     step(env, warm)
+                else:
+                    with trace.span("graph.replay"):
+                        step(env)
             return self._finish(env)
 
     def _execute(self) -> Dict[str, torch.Tensor]:
@@ -723,7 +734,8 @@ class CompiledGraph:
         with fp32_exact():
             for step, graph in zip(self._steps, self._graphs):
                 if graph is not None:
-                    graph.replay()
+                    with trace.span("graph.replay"):
+                        graph.replay()
                 elif isinstance(step, _HostStep):
                     step.replay()
             return self._outputs
@@ -735,7 +747,7 @@ class CompiledGraph:
         with self._lock:
             if self.device.type == "cuda" and not self._graphs:
                 with _CAPTURE_LOCK:
-                    self._eager(warm=True)
+                    self._warm_up()
                 self.capture()
             return self._execute()
 
@@ -743,8 +755,11 @@ class CompiledGraph:
                  inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         self._check_weights(weights)
         with self._lock:
-            load_static_inputs("compiled graph", inputs, self._inputs, self._stager)
-            return {n: v.clone() for n, v in self.run_static().items()}
+            with trace.span("predictor.stage_inputs"):
+                load_static_inputs("compiled graph", inputs, self._inputs, self._stager)
+            out = self.run_static()
+            with trace.span("predictor.clone_outputs"):
+                return {n: v.clone() for n, v in out.items()}
 
 
 def compile_graph(graph: Graph, *, device: torch.device

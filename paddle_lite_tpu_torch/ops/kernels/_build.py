@@ -26,6 +26,8 @@ from typing import Dict, List, Optional, Set, Tuple
 
 import torch
 
+from ...core import trace
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -68,11 +70,18 @@ def lib_path(name: str) -> Path:
 def build(names: List[str] = None) -> Dict[str, float]:
     """Compile every missing library, one ``nvcc`` per source, all started
     together.  Returns {name: seconds from start to done} for what was
-    compiled."""
+    compiled (``setup.kernels_build``; ``kernels.builds`` counts them)."""
     names = list(SOURCES) if names is None else names
     todo = [n for n in names if not lib_path(n).exists()]
     if not todo:
         return {}
+    with trace.setup_span("setup.kernels_build"):
+        secs = _compile(todo)
+    trace.count("kernels.builds", len(secs))
+    return secs
+
+
+def _compile(todo: List[str]) -> Dict[str, float]:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -104,17 +113,20 @@ def build_log(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `name`, built first if needed, and set up
-    (:data:`PREPARE`) for the current CUDA device."""
+    (:data:`PREPARE`) for the current CUDA device.  Only a miss is a
+    ``setup.kernels_load`` span: the cached lookup runs on every launch."""
     lib = _LIBS.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(lib_path(name)))
-        _declare(name, lib)
+        with trace.setup_span("setup.kernels_load"):
+            lib = ctypes.CDLL(str(lib_path(name)))
+            _declare(name, lib)
         _LIBS[name] = lib
     if name in PREPARE:
         key = (name, torch.cuda.current_device())
         if key not in _PREPARED:
-            check(getattr(lib, PREPARE[name])(), f"{name} prepare")
+            with trace.setup_span("setup.kernels_load"):
+                check(getattr(lib, PREPARE[name])(), f"{name} prepare")
             _PREPARED.add(key)
     return lib
 

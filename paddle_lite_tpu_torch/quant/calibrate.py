@@ -27,6 +27,7 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from ..core import trace
 from ..core.executor import build_callable, stage_weights
 from ..core.ir import Graph
 from ..core.types import CalibMethod
@@ -111,6 +112,7 @@ def _make_observers(watch, method, bins, observer_kwargs) -> Dict[str, Observer]
     return {n: make_observer(method, **kw) for n in watch}
 
 
+@trace.setup_span("setup.calibrate")
 def calibrate(
     graph: Graph,
     batches: Iterable[Dict[str, np.ndarray]],

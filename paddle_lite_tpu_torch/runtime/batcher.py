@@ -18,6 +18,12 @@ With ``BatcherConfig.model`` naming an entry of the port's batch table
 (``runtime/batch_table.py``), the table is read once, here: the ladder is
 capped at the model's best measured batch and ``n`` requests go to the
 bucket that serves them fastest.
+
+``stats`` counts batches, requests and padded slots, and the seconds
+requests waited in the queue (from ``submit`` to their batch's dispatch:
+``queue_wait_s`` the sum, ``queue_wait_max_s`` the longest).  The
+dispatcher's ``batcher.collect``, ``batcher.stack`` and ``batcher.dispatch``
+are spans (``core/trace.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..core import trace
 from . import batch_table
 
 
@@ -80,7 +87,8 @@ class ContinuousBatcher:
         self._predictors: Dict[int, Any] = {}
         self._queue: "queue.Queue[_Pending]" = queue.Queue(self.config.max_queue)
         self._stop = threading.Event()
-        self.stats = {"batches": 0, "requests": 0, "padded_slots": 0}
+        self.stats = {"batches": 0, "requests": 0, "padded_slots": 0,
+                      "queue_wait_s": 0.0, "queue_wait_max_s": 0.0}
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="plt-torch-batcher")
         self._thread.start()
@@ -139,11 +147,13 @@ class ContinuousBatcher:
 
     def _loop(self) -> None:
         while not self._stop.is_set():
-            batch = self._collect()
+            with trace.span("batcher.collect"):
+                batch = self._collect()
             if not batch:
                 continue
             try:
-                self._dispatch(batch)
+                with trace.span("batcher.dispatch"):
+                    self._dispatch(batch)
             except Exception as e:  # a failing batch fails only its futures
                 for p in batch:
                     if not p.future.done():
@@ -151,17 +161,21 @@ class ContinuousBatcher:
 
     def _dispatch(self, batch: List[_Pending]) -> None:
         n = len(batch)
+        waits = [time.perf_counter() - p.enqueued_at for p in batch]
         bucket = self._bucket_for(n)
         pred = self._predictor(bucket)
         stacked: Dict[str, np.ndarray] = {}
-        for k in batch[0].inputs:
-            arrs = [p.inputs[k] for p in batch]
-            if bucket > n:
-                arrs = arrs + [np.zeros_like(arrs[0])] * (bucket - n)
-            stacked[k] = np.concatenate(arrs, axis=0)
+        with trace.span("batcher.stack"):
+            for k in batch[0].inputs:
+                arrs = [p.inputs[k] for p in batch]
+                if bucket > n:
+                    arrs = arrs + [np.zeros_like(arrs[0])] * (bucket - n)
+                stacked[k] = np.concatenate(arrs, axis=0)
         out = pred.run(stacked)
         for i, p in enumerate(batch):
             p.future.set_result({k: v[i] for k, v in out.items()})
         self.stats["batches"] += 1
         self.stats["requests"] += n
         self.stats["padded_slots"] += bucket - n
+        self.stats["queue_wait_s"] += sum(waits)
+        self.stats["queue_wait_max_s"] = max(self.stats["queue_wait_max_s"], max(waits))

@@ -18,6 +18,9 @@ op folds its scales and repacks its GEMM weight) and captures it as a CUDA
 graph, and every ``run`` replays it.  ``run`` takes name-keyed numpy arrays
 or tensors and returns fresh name-keyed tensors on the predictor's device.
 The eager loop stays reachable as ``core.executor.build_callable``.
+Each ``run`` is a ``predictor.run`` span over ``predictor.validate``, the
+compiled graph's ``predictor.stage_inputs``, ``graph.replay`` and
+``predictor.clone_outputs`` while a profiler records (``core/trace.py``).
 
 Arithmetic: convs and matmuls on the fp32 paths (the stem conv, the fp32
 predictor, softmax's input) run with TF32 off — full fp32, as in the
@@ -32,6 +35,7 @@ from typing import Any, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from ..core import trace
 from ..core.device import DeviceLike, resolve_device
 from ..core.executor import compile_graph
 from ..core.ir import Graph
@@ -87,9 +91,11 @@ class Predictor:
 
     # ---- execution -------------------------------------------------------
     def run(self, inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        if self.config.validate_inputs:
-            validate_inputs(self.graph, inputs)
-        return self._fn(self._weights, inputs)
+        with trace.span("predictor.run"):
+            if self.config.validate_inputs:
+                with trace.span("predictor.validate"):
+                    validate_inputs(self.graph, inputs)
+            return self._fn(self._weights, inputs)
 
     def __call__(self, inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return self.run(inputs)

@@ -25,6 +25,7 @@ from typing import Dict, Iterable, Optional
 
 import numpy as np
 
+from ..core import trace
 from ..core.device import DeviceLike, resolve_device
 from ..core.ir import Graph
 from ..core.pass_manager import PassManager
@@ -67,6 +68,7 @@ def conv1x1_dot_eligible(graph: Graph, op) -> bool:
             and normalize_paddings(op.attrs.get("paddings", (0, 0))) == ((0, 0), (0, 0)))
 
 
+@trace.setup_span("setup.optimize")  # its self time: the calibration is its own
 def optimize(
     graph: Graph,
     *,
@@ -96,7 +98,7 @@ def optimize(
             warnings.warn(
                 "CalibMethod.ENTROPY (KL) measurably degrades accuracy on "
                 "the measured zoo models (docs/ACCURACY.md); abs_max is the "
-                "validated default", stacklevel=2)
+                "validated default", stacklevel=3)  # past setup_span's wrapper
         if calib_result is None:
             if calib_batches is None:
                 raise ValueError("PTQ needs calib_batches or calib_result")

@@ -3,14 +3,21 @@
 The reference wraps ``jax.profiler`` (an xprof trace of the TPU).  Here
 :func:`trace` runs ``torch.profiler`` over the block (the host's ops, and on
 the card its kernels through CUPTI) and writes a Chrome trace, which
-``chrome://tracing`` or Perfetto opens; :func:`annotate` names a region of
-it (``torch.profiler.record_function``)::
+``chrome://tracing`` or Perfetto opens.  The program's own spans
+(``core/trace.py``) show in it, and :func:`annotate` names a region of the
+caller's (``torch.profiler.record_function``)::
 
     from paddle_lite_tpu_torch.tools.trace import annotate, trace
     with trace("traces") as t:
         with annotate("request"):
             pred.run(feed)
     print(t.path)  # traces/trace_<pid>_<n>.json
+    # request
+    #   plt.predictor.run
+    #     plt.predictor.validate
+    #     plt.predictor.stage_inputs
+    #     plt.graph.replay       (cudaGraphLaunch; the kernels on the card)
+    #     plt.predictor.clone_outputs
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import os
 from typing import Iterator, Optional
 
 import torch
+
+from ..core.trace import annotate  # noqa: F401  (re-exported)
 
 _count = itertools.count()
 
@@ -48,7 +57,3 @@ def trace(logdir: str) -> Iterator[Trace]:
     t.path = os.path.join(logdir, f"trace_{os.getpid()}_{next(_count)}.json")
     prof.export_chrome_trace(t.path)
 
-
-def annotate(name: str):
-    """Named region that shows up in the trace timeline."""
-    return torch.profiler.record_function(name)
