@@ -86,7 +86,9 @@ Phases:
    kernels at every shape and activation of the path (relu, hard_swish,
    hard_sigmoid, none) bit-exact against their plain versions; 3 compiled
    requests with twice as many launches as the graph has "cuda" ops of
-   each kind (38 GEMM, 15 depthwise), as many in one profiled replay; every
+   each kind (48 GEMM, 10 of them with the int8 residual in the epilogue,
+   twice 10 ``launches_residual``; 15 depthwise), as many in one profiled
+   replay; every
    kernel op within the tie bound of its torch op; int8 logits against
    the fp32 predictor's, cosine > 0.96 (the bar of
    ``tests/test_model_zoo_int8.py:38``).  img/s and a profiled request
@@ -118,9 +120,12 @@ Phases:
    batch=64, with_fp32=True)``.
 8. ResNet-50 b32/224 INT8 (``resnet.build`` → ``create_predictor(quant=
    QuantConfig(), ...)``, the second ``bench.py`` config): the GEMM kernel
-   at every shape of the path (its 37 "cuda" ops: 16 reduce 1x1, 16 3x3
-   through im2col, 4 expansion convs, the fc) bit-exact against its plain
-   version and timed as in phase 2; the route timings of phase 4 at every
+   at every shape of the path (its 53 "cuda" ops: 16 reduce 1x1, 16 3x3
+   through im2col, 4 expansion convs, the 16 convs that carry the int8
+   residual in the GEMM's epilogue, the fc) bit-exact against its plain
+   version and timed as in phase 2, the residual ones with their residual
+   (int8 and fp32 out) and once more with it sliced on its channel axis
+   through the "cuda" conv; the route timings of phase 4 at every
    k×k or strided conv; a saturating 3x3 conv (C = 512, K = 4608, b32 at
    7x7, x and w in 100..127, so the accumulator passes 2^25; fp32 out,
    scale 1) whose GEMM route must equal the exact accumulator rounded
@@ -132,15 +137,16 @@ Phases:
    int8 against the fp32 predictor at cosine > 0.98 (the bar of
    ``tests/test_models.py:41``); then phase 7a's checks on this path.
    img/s (compiled, in turns with the eager loop), fp32 img/s, one
-   profiled request's top device kernels, and the residual convs left on
-   the torch route timed at each shape (the whole op, and its fp32 conv
-   and ``round`` alone) are information.
+   profiled request's top device kernels are information; a first run
+   counts twice 16 ``launches_residual``; no int8 conv is left on the
+   torch route.
 9. DBNet-640 b4 INT8 with its zoo config (``recommended_quant
    ("ppocr_det")``: the defaults since the card's A/B, int8 depthwise
    convs, fp32 islands; PP-OCR detection, BASELINE config 4): the GEMM and
-   depthwise kernels at every shape of the path (15 GEMM ops: 10 int8 1x1
-   convs, 5 int8 3x3 convs through im2col at M = 102,400, K = 864, N = 24;
-   8 depthwise) bit-exact against their plain versions and timed as in
+   depthwise kernels at every shape of the path (18 GEMM ops: 10 int8 1x1
+   convs, the FPN's 3 int8 1x1 convs with the int8 residual in the
+   GEMM's epilogue, 5 int8 3x3 convs through im2col at M = 102,400, K =
+   864, N = 24; 8 depthwise) bit-exact against their plain versions and timed as in
    phase 2; the route timings of phase 4 at its 3x3 convs; 3 compiled requests
    with twice the graph's "cuda" ops, as many in one profiled replay;
    every kernel op within the tie bound of its torch op; the probability
@@ -193,7 +199,7 @@ Phases:
    full-width torch twins imported into the zoo graphs: every parameter
    imported (137, 267); the port's fp32 predictor within relative error
    1e-4 of the twin run on the card; each int8 predictor's first request
-   launching twice the path's kernel ops (14 GEMM + 13 depthwise; 37
+   launching twice the path's kernel ops (14 GEMM + 13 depthwise; 53
    GEMM), and the whole report three requests' worth a method; abs_max
    and percentile agreeing with fp32 on at least 99.5 % of the images
    (for BASELINE's 0.5-point top-1 contract); entropy's agreement, drift
@@ -578,7 +584,9 @@ def gemm_out_ok(got: torch.Tensor, ref: torch.Tensor, act) -> bool:
 
 
 def check_gemm(rng, m, k, n, int8_out: bool, timed: bool, act: str = "relu",
-               act_attrs: dict = None, eff_mul: float = 1.0):
+               act_attrs: dict = None, eff_mul: float = 1.0, residual: bool = False):
+    """The GEMM at one shape against its plain version; with `residual`
+    an int8 (M, N) residual at scale 0.03 goes into the epilogue."""
     from paddle_lite_tpu_torch.ops.kernels import int8_matmul as km
 
     x = _cuda_rand_int8(rng, (m, k))
@@ -591,15 +599,16 @@ def check_gemm(rng, m, k, n, int8_out: bool, timed: bool, act: str = "relu",
     acc_k = km.int8_matmul(x, w, ones, w_nk=w_nk)
     acc_p = km.int8_matmul_plain(x, w, ones)
     bad_acc, _ = _cmp(acc_k, acc_p)
-    y = km.int8_matmul_plain(x, w, eff, bias, act=act, act_attrs=act_attrs)
+    res = dict(residual=_cuda_rand_int8(rng, (m, n)), residual_scale=0.03) if residual else {}
+    y = km.int8_matmul_plain(x, w, eff, bias, act=act, act_attrs=act_attrs, **res)
     out_scale = float(y.abs().max()) / 127 * 0.75 if int8_out else None
-    kw = dict(act=act, act_attrs=act_attrs, out_scale=out_scale)
+    kw = dict(act=act, act_attrs=act_attrs, out_scale=out_scale, **res)
     got = km.int8_matmul(x, w, eff, bias, w_nk=w_nk, **kw)
     ref = km.int8_matmul_plain(x, w, eff, bias, **kw)
     bad, err = _cmp(got, ref)
     row = {"kernel": "int8_gemm", "shape": [m, k, n], "act": act,
            "out": "int8" if int8_out else "fp32",
-           "plan": km.plan(m, k, n, int8_out)._asdict(),
+           "plan": km.plan(m, k, n, int8_out, residual)._asdict(), "residual": residual,
            "acc_mismatch": bad_acc, "out_mismatch": bad, "max_abs_err": err,
            "out_ok": gemm_out_ok(got, ref, act)}
     if eff_mul != 1.0 or act_attrs:
@@ -614,7 +623,7 @@ def check_gemm(rng, m, k, n, int8_out: bool, timed: bool, act: str = "relu",
         # preferred operand order (information; the yardstick is the above)
         row["library_nk_ms"] = (time_ms(lambda: torch._int_mm(x, w_nk.t()))
                                 if row["library_ms"] is not None else None)
-        nbytes = m * k + k * n + m * n * (1 if int8_out else 4) + 8 * n
+        nbytes = m * k + k * n + m * n * ((1 if int8_out else 4) + residual) + 8 * n
         row.update(bound(nbytes, 2 * m * k * n / INT8_TC_OPS_PER_S), bytes=nbytes,
                    ops=2 * m * k * n)
     return row
@@ -782,7 +791,7 @@ def _report_rows(rows):
                   f"pair {r['unfused_ms_10']:.4f}")
         if r["kernel"] in ("dw_conv", "dw_pw_fused") and "ms" in r and r["plan"]:
             t += " | plan " + " ".join(f"{k}={v}" for k, v in r["plan"].items())
-        act = r.get("act") or "-"
+        act = (r.get("act") or "-") + ("+residual" if r.get("residual") else "")
         print(f"  {r['kernel']:9s} {str(r['shape']):28s} {r['out']:4s} {act:12s} "
               f"acc_mismatch {r['acc_mismatch']} out_mismatch {r['out_mismatch']}{t}")
     for s in (1, 2):  # the depthwise kernel's time per request, by stride
@@ -966,7 +975,7 @@ def _reset_counts():
     from paddle_lite_tpu_torch.ops.kernels import depthwise, dw_pw_fused, int8_matmul, nms
 
     int8_matmul.launches = depthwise.launches = dw_pw_fused.launches = nms.launches = 0
-    int8_matmul.launches_i32 = 0
+    int8_matmul.launches_i32 = int8_matmul.launches_residual = 0
     depthwise.launches_by_stride = {1: 0, 2: 0}
 
 
@@ -987,6 +996,66 @@ def path_launches(g) -> dict:
             "dw_conv_s2": len(dw) - n_s1, "dw_pw_fused": len(fused_shapes(g)),
             "nms": sum(1 for op in g.ops if op.op_type.startswith("multiclass_nms")
                        and op.attrs.get("kernel") == "cuda")}
+
+
+def _check_residual_launches(path: str, gemm: list, n: int) -> None:
+    """The first run's GEMM launches with a residual: `n` residual GEMM ops
+    in the graph (``kernel_shapes``), each launched once by the warm-up and
+    once by the capture (``int8_matmul.launches_residual``)."""
+    from paddle_lite_tpu_torch.ops.kernels import int8_matmul
+
+    ops = sum(1 for q in gemm if q[6])
+    print(f"  residual GEMM ops a request: {ops}; launches_residual over the first run: "
+          f"{int8_matmul.launches_residual}")
+    if ops != n or int8_matmul.launches_residual != n * PER_FIRST_RUN:
+        fail(f"{path}: expected {n} residual GEMM ops and {n * PER_FIRST_RUN} residual "
+             f"launches over the first run, got {ops} and {int8_matmul.launches_residual}")
+
+
+def sliced_residual_rows(rng) -> list:
+    """The "cuda" conv given a residual sliced on its channel axis (as
+    ``ShardedPredictor`` hands it) at a ResNet-50 and a MobileNetV3
+    residual shape: the kernel's output equal to the route's plain version
+    on the host, bit for bit, and to the "torch" conv within the tie bound."""
+    from paddle_lite_tpu_torch.core.builder import GraphBuilder
+    from paddle_lite_tpu_torch.core.executor import ExecutionContext
+    from paddle_lite_tpu_torch.core.registry import OPS
+    from paddle_lite_tpu_torch.core.types import Precision, QuantInfo
+    from paddle_lite_tpu_torch.testing import within_tie_bound
+
+    rows = []
+    for nb, h, c, oc, act in [(32, 56, 64, 256, "relu"), (64, 14, 480, 112, None)]:
+        b = GraphBuilder("sliced", seed=0)
+        b.conv2d(b.input("x", (nb, h, h, c)), oc, 1, stride=1, padding=0)
+        g = b.build()
+        conv = next(o for o in g.ops if o.op_type == "conv2d")
+        g.vars[conv.input("Input")].quant = QuantInfo.per_tensor(0.02)
+        g.vars[conv.input("Filter")].quant = QuantInfo(
+            scale=tuple(float(v) for v in rng.uniform(5e-4, 2e-3, oc)), axis=3)
+        g.add_var("r", g.vars[conv.output("Output")].shape, Precision.INT8).quant = \
+            QuantInfo.per_tensor(0.04)
+        conv.inputs["ResidualData"] = ["r"]
+        conv.attrs.update(enable_int8=True, out_scale=0.05, **({"fuse_act": act} if act else {}))
+        wide = _cuda_rand_int8(rng, (nb, h, h, 2 * oc))
+        ins = {"Input": [_cuda_rand_int8(rng, (nb, h, h, c))],
+               "Filter": [_cuda_rand_int8(rng, (1, 1, c, oc))],
+               "ResidualData": [wide[..., oc // 2: oc // 2 + oc]]}
+        ctx = ExecutionContext(graph=g, device=DEV)
+        got = OPS.get("conv2d").impls["cuda"](ctx, conv, ins)["Output"][0]
+        host = {s: [t.cpu() for t in v] for s, v in ins.items()}
+        plain = OPS.get("conv2d").impls["cuda"](
+            ExecutionContext(graph=g, device=torch.device("cpu")), conv, host)["Output"][0]
+        ref = OPS.get("conv2d").impls["torch"](ctx, conv, ins)["Output"][0]
+        n_diff, err = _cmp(got, ref)
+        row = {"shape": [nb, h, h, c, oc], "act": act, "equal_plain": torch.equal(got.cpu(), plain),
+               "vs_torch_n_diff": n_diff, "vs_torch_max": err,
+               "within_tie": within_tie_bound([{"numel": got.numel(), "n_diff": n_diff,
+                                                "max_diff": err}])}
+        print(f"  sliced residual {row}")
+        if not (row["equal_plain"] and row["within_tie"]):
+            fail(f"the GEMM with a sliced residual disagrees: {row}")
+        rows.append(row)
+    return rows
 
 
 def _check_first_run(path: str, launches: dict, want: dict) -> None:
@@ -1197,7 +1266,7 @@ def nms_needed_pairs(scores, out, score_t) -> float:
 
 
 def kernel_shapes(g):
-    """(M, K, N, int8 out, act, act attrs) of every GEMM op and
+    """(M, K, N, int8 out, act, act attrs, residual) of every GEMM op and
     ((N, H, W, C, k, s), int8 out, act, act attrs) of every depthwise op
     that the optimized graph `g` tags "cuda"."""
     gemm, dw = [], []
@@ -1211,19 +1280,20 @@ def kernel_shapes(g):
             kh, kw, _, oc = g.vars[op.input("Filter")].shape
             if op.op_type == "conv2d":  # the GEMM over the conv's im2col rows
                 _, oh, ow, _ = g.vars[op.output("Output")].shape
-                gemm.append((n * oh * ow, kh * kw * c, oc) + tail)
+                gemm.append((n * oh * ow, kh * kw * c, oc) + tail
+                            + (bool(op.maybe_input("ResidualData")),))
             else:
                 dw.append(((n, h, w, c, kh, int(a["strides"][0])),) + tail)
         elif op.op_type == "fc":
             x = g.vars[op.input("Input")].shape
             ncd = int(a.get("in_num_col_dims", len(x) - 1))
             k, n = g.vars[op.input("W")].shape
-            gemm.append((int(np.prod(x[:ncd])), k, n) + tail)
+            gemm.append((int(np.prod(x[:ncd])), k, n) + tail + (False,))
         elif op.op_type == "mul":
             x, w = g.vars[op.input("X")].shape, g.vars[op.input("Y")].shape
             xd, yd = int(a.get("x_num_col_dims", 1)), int(a.get("y_num_col_dims", 1))
             gemm.append((int(np.prod(x[:xd])), int(np.prod(x[xd:])),
-                         int(np.prod(w[yd:]))) + tail)
+                         int(np.prod(w[yd:]))) + tail + (False,))
     return gemm, dw
 
 
@@ -1237,10 +1307,10 @@ def path_kernel_rows(rng, g, path: str, fma_per_s: float):
     print(f"  timing floor before the {path} rows: a 16-element add reads "
           f"{time_ms(lambda: t.add_(1)):.4f} ms")
     rows, seen = [], {}
-    for m, k, n, int8_out, act, attrs in gemm:
-        key = ("gemm", m, k, n, int8_out, act, tuple(sorted(attrs.items())))
+    for m, k, n, int8_out, act, attrs, residual in gemm:
+        key = ("gemm", m, k, n, int8_out, act, tuple(sorted(attrs.items())), residual)
         if key not in seen:
-            seen[key] = check_gemm(rng, m, k, n, int8_out, True, act, attrs)
+            seen[key] = check_gemm(rng, m, k, n, int8_out, True, act, attrs, residual=residual)
             seen[key].update(per_request=0, path=path)
             rows.append(seen[key])
         seen[key]["per_request"] += 1
@@ -1868,13 +1938,14 @@ def phase_mnv3(fma_per_s: float):
 
     # (c) 3 requests: launches equal the "cuda" ops of each kind
     want = path_launches(g8)
-    if (want["int8_gemm"], want["dw_conv"], want["dw_pw_fused"], want["nms"]) != (38, 15, 0, 0):
-        fail(f"expected 38 GEMM and 15 depthwise ops on the kernels, got {want}")
+    if (want["int8_gemm"], want["dw_conv"], want["dw_pw_fused"], want["nms"]) != (48, 15, 0, 0):
+        fail(f"expected 48 GEMM and 15 depthwise ops on the kernels, got {want}")
     _reset_counts()
     outs = [pred8.run(f) for f in feeds]
     torch.cuda.synchronize()
     launches = _counts()
     _check_first_run("mobilenet_v3", launches, want)
+    _check_residual_launches("mobilenet_v3", gemm, 10)
     PATHS["mobilenet_v3"] = (pred8, feeds, want)
     out_name = g8.outputs[0]
     coss = []
@@ -2316,13 +2387,15 @@ def phase_resnet(fma_per_s: float):
     # (b) 3 requests: launches equal the "cuda" ops
     want = path_launches(g8)
     print(f"  kernel ops a request: {want}")
-    if (want["int8_gemm"], want["dw_conv"], want["dw_pw_fused"], want["nms"]) != (37, 0, 0, 0):
-        fail(f"expected 37 GEMM ops on the kernels, got {want}")
+    if (want["int8_gemm"], want["dw_conv"], want["dw_pw_fused"], want["nms"]) != (53, 0, 0, 0):
+        fail(f"expected 53 GEMM ops on the kernels, got {want}")
+    sliced = sliced_residual_rows(rng)
     _reset_counts()
     outs = [pred8.run(f) for f in feeds]
     torch.cuda.synchronize()
     launches = _counts()
     _check_first_run("resnet50", launches, want)
+    _check_residual_launches("resnet50", gemm, 16)
     out_name = g8.outputs[0]
     coss = []
     for i, (f, o) in enumerate(zip(feeds, outs)):
@@ -2357,7 +2430,8 @@ def phase_resnet(fma_per_s: float):
     return rows, launches, dict(serving, cosine=coss, op_local_worst_fraction=worst,
                                 op_local_outputs_with_diff=n_diff,
                                 torch_route_ops=len(left), torch_conv_acc=acc,
-                                conv_routes=routes, saturating=sat), compiled
+                                conv_routes=routes, saturating=sat,
+                                sliced_residual=sliced), compiled
 
 
 # ---- phase 9 ---------------------------------------------------------------
@@ -2422,8 +2496,8 @@ def phase_dbnet(fma_per_s: float):
     # (b) 3 requests; every kernel op against its torch op
     want = path_launches(g8)
     print(f"  kernel ops a request: {want}")
-    if (want["int8_gemm"], want["dw_conv"], want["dw_pw_fused"], want["nms"]) != (15, 8, 0, 0):
-        fail(f"expected 15 GEMM and 8 depthwise ops on the kernels, got {want}")
+    if (want["int8_gemm"], want["dw_conv"], want["dw_pw_fused"], want["nms"]) != (18, 8, 0, 0):
+        fail(f"expected 18 GEMM and 8 depthwise ops on the kernels, got {want}")
     checks = _path_checks("dbnet", g8, pred8, feeds, want)
     PATHS["dbnet"] = (pred8, feeds, want)
     out_name = g8.outputs[0]
@@ -3170,7 +3244,7 @@ def phase_quant() -> tuple:
         "mobilenet_v1", ("abs_max", "percentile", "entropy", "moving_average_abs_max"),
         137, {"int8_gemm": 14, "dw_conv": 13}, **ACC_MNV1)
     out["accuracy_resnet50"], launches["accuracy_resnet50"] = _accuracy(
-        "resnet", ("abs_max", "percentile", "entropy"), 267, {"int8_gemm": 37, "dw_conv": 0},
+        "resnet", ("abs_max", "percentile", "entropy"), 267, {"int8_gemm": 53, "dw_conv": 0},
         **ACC_RESNET)
     out["histograms"] = _histograms_on_card()
     out["bias_correction"], bc_launches = _bias_correction()

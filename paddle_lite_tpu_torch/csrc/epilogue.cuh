@@ -3,7 +3,9 @@
 // division they share.
 //
 // y = acc * scale[c]; y = y + bias[c]; y = act(y); then either fp32 out or
-// int8 clip(rint(y * inv_out_scale), -127, 127).
+// int8 clip(rint(y * inv_out_scale), -127, 127).  The GEMM may add an int8
+// residual before the activation: y = y + float(r) * s_r, r made float by
+// to_f32x4 below, each step rounded on its own.
 //
 // The reference rounds acc*scale and +bias separately (two fp32 roundings),
 // so these sources are compiled with --fmad=false: an FMA would round once

@@ -9,11 +9,11 @@ folds BN, fuses the shortcut add as ``ResidualData`` into the first conv
 that feeds it (the projection in a stage's first block, the expansion in
 the others) and the trailing relu into that conv's epilogue.
 
-Under ``QuantConfig()`` the 7x7 stem stays fp32 (``skip_stem_conv``); the
-16 reduce 1x1 convs, the 16 3x3 convs (through their im2col rows), the 4
-expansion convs without a residual and the fc run on the int8 GEMM; the
-16 convs that carry a residual run on the ``"torch"`` conv
-(``ops/kernels/select.py``).
+Under ``QuantConfig()`` the 7x7 stem stays fp32 (``skip_stem_conv``) on
+the ``"torch"`` conv; the 16 reduce 1x1 convs, the 16 3x3 convs (through
+their im2col rows), the 4 expansion convs without a residual, the 16 convs
+that carry the int8 residual (added in the GEMM's epilogue) and the fc run
+on the int8 GEMM: 53 launches (``ops/kernels/select.py``).
 """
 
 from __future__ import annotations

@@ -151,12 +151,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "int8_gemm":
         lib.plt_int8_gemm_prepare.argtypes = []
         lib.plt_int8_gemm_prepare.restype = ci
-        lib.plt_int8_gemm_occupancy.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
+        lib.plt_int8_gemm_occupancy.argtypes = [ci, ci, ci, ci, ci, ctypes.POINTER(ci)]
         lib.plt_int8_gemm_occupancy.restype = ci
         fn = lib.plt_int8_gemm
-        # ... act, the output kind, inv_out_scale, then the plan: bn, bk, warpgroups,
-        # width, out_width, shared bytes, blocks
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, *act, ci, cf,
+        # ... act, the output kind, inv_out_scale, the residual and its scale, then
+        # the plan: bn, bk, warpgroups, width, out_width, shared bytes, blocks
+        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, *act, ci, cf, vp, cf,
                        ci, ci, ci, ci, ci, ci, ci, vp]
     elif name == "dw_conv":
         lib.plt_dw_conv_prepare.argtypes = []

@@ -22,7 +22,7 @@ so a loaded exported program finds them.
 
 The schemas take tensors, numbers and strings: an activation's attributes
 travel as sorted JSON (:func:`attrs_json`), a requant scale as a float or
-None.
+None, the GEMM's residual as a tensor or None with its scale.
 """
 
 from __future__ import annotations
@@ -52,14 +52,16 @@ def _scale(v) -> Optional[float]:
 def _int8_gemm(x: torch.Tensor, w: torch.Tensor, eff_scale: torch.Tensor,
                bias: Optional[torch.Tensor], w_nk: Optional[torch.Tensor],
                act: Optional[str], act_attrs: str,
-               out_scale: Optional[float]) -> torch.Tensor:
+               out_scale: Optional[float], residual: Optional[torch.Tensor],
+               residual_scale: Optional[float]) -> torch.Tensor:
     return int8_matmul.int8_matmul(x, w, eff_scale, bias, act=act,
                                    act_attrs=_attrs(act_attrs), out_scale=out_scale,
-                                   w_nk=w_nk)
+                                   w_nk=w_nk, residual=residual,
+                                   residual_scale=residual_scale)
 
 
 @_int8_gemm.register_fake
-def _(x, w, eff_scale, bias, w_nk, act, act_attrs, out_scale):
+def _(x, w, eff_scale, bias, w_nk, act, act_attrs, out_scale, residual, residual_scale):
     return x.new_empty((x.shape[0], w.shape[1]),
                        dtype=torch.float32 if out_scale is None else torch.int8)
 
@@ -117,13 +119,14 @@ def _(boxes, scores, iou_t, score_t, iou_form):
 # the custom op ----------------------------------------------------------------
 
 def gemm(x, w, eff_scale, bias=None, *, act=None, act_attrs=None, out_scale=None,
-         w_nk=None) -> torch.Tensor:
+         w_nk=None, residual=None, residual_scale=None) -> torch.Tensor:
     """``plt::int8_gemm``: :func:`~.int8_matmul.int8_matmul`'s arguments."""
     if not torch.compiler.is_exporting():
         return int8_matmul.int8_matmul(x, w, eff_scale, bias, act=act, act_attrs=act_attrs,
-                                       out_scale=out_scale, w_nk=w_nk)
+                                       out_scale=out_scale, w_nk=w_nk, residual=residual,
+                                       residual_scale=residual_scale)
     return torch.ops.plt.int8_gemm(x, w, eff_scale, bias, w_nk, act, attrs_json(act_attrs),
-                                   _scale(out_scale))
+                                   _scale(out_scale), residual, _scale(residual_scale))
 
 
 def dw_conv(x, w, eff_scale, bias=None, *, stride=1, act=None, act_attrs=None,

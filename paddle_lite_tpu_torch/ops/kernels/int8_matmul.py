@@ -26,6 +26,15 @@ accumulator with no epilogue, the partial product a row-parallel shard
 sums over the shards before its epilogue (``parallel/tp_cuda.py``).  The
 plans take the kind where they took a bool ``out_i8``; ``True`` /
 ``False`` still read as int8 / fp32.
+
+Residual: the fp32 and int8 kinds take an optional int8 ``residual`` of
+the output's (M, N) shape with one scale ``s_r`` (a shortcut add fused into
+a conv, ``ResidualData``): ``y = acc·s (+ bias) + float(r)·s_r`` before the
+activation, each step rounded on its own as ``ops/nn._conv_epilogue``
+orders it.  Such a launch runs the kernel's residual instantiation, whose
+block also holds a ring of residual tiles (:func:`res_slots`), and is
+planned by the heuristic alone: the stored plans were measured without
+that ring.
 """
 
 from __future__ import annotations
@@ -40,9 +49,11 @@ from ..common import act_params, apply_activation, f32, gelu_approximate
 from . import _build, tune_cache
 
 # launches of the CUDA kernel, counted by the wrappers (CPU calls not
-# counted): fp32 / int8 out by int8_matmul, int32 out by int8_matmul_i32
+# counted): fp32 / int8 out by int8_matmul, int32 out by int8_matmul_i32;
+# launches_residual counts those of int8_matmul's that took a residual
 launches = 0
 launches_i32 = 0
+launches_residual = 0
 
 # the activations of every kernel's epilogue (``csrc/epilogue.cuh``,
 # ``plt::Act``): those whose fp32 arithmetic the kernels reproduce exactly.
@@ -84,12 +95,15 @@ def inv_out_scale(out_scale: float) -> float:
 
 
 def epilogue(acc: torch.Tensor, eff_scale, bias, act, act_attrs,
-             out_scale) -> torch.Tensor:
+             out_scale, residual=None, residual_scale=None) -> torch.Tensor:
     """The kernels' epilogue in plain PyTorch: acc (integer-valued fp32)
-    · scale (+ bias) → act → fp32, or int8 rint(y · inv) clipped to ±127."""
+    · scale (+ bias) (+ float(residual) · residual_scale) → act → fp32, or
+    int8 rint(y · inv) clipped to ±127."""
     y = acc * f32(eff_scale, acc.device)
     if bias is not None:
         y = y + bias.to(torch.float32)
+    if residual is not None:
+        y = y + residual.to(torch.float32) * f32(residual_scale, acc.device)
     y = apply_activation(y, act, act_attrs)
     if out_scale is None:
         return y
@@ -118,11 +132,13 @@ def int8_matmul_i32_plain(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
 
 
 def int8_matmul_plain(x_q, w_q, eff_scale, bias=None, *, act=None,
-                      act_attrs=None, out_scale=None) -> torch.Tensor:
+                      act_attrs=None, out_scale=None, residual=None,
+                      residual_scale=None) -> torch.Tensor:
     """Plain PyTorch version: a float64 matmul gives the exact int32
     accumulator, then the identical epilogue as separate torch ops."""
     acc = (x_q.to(torch.float64) @ w_q.to(torch.float64)).to(torch.float32)
-    return epilogue(acc, eff_scale, bias, act, act_attrs, out_scale)
+    return epilogue(acc, eff_scale, bias, act, act_attrs, out_scale, residual,
+                    residual_scale)
 
 
 # ---- the kernel's tiling (csrc/int8_gemm.cu takes these numbers as given) ----
@@ -139,7 +155,9 @@ class Plan(NamedTuple):
     K is walked in ``bk``-byte slabs copied in ``width``-byte pieces; a
     tile's rows are stored in ``out_width``-byte pieces.  A block takes
     ``smem_bytes`` of shared memory; the launch's blocks (:func:`blocks`)
-    walk the problem's ``tiles`` tiles between them."""
+    walk the problem's ``tiles`` tiles between them.  ``residual``: the
+    plan of the residual instantiation, whose shared bytes hold the
+    residual ring too."""
     bn: int
     bk: int
     warpgroups: int
@@ -147,6 +165,7 @@ class Plan(NamedTuple):
     out_width: int
     smem_bytes: int
     tiles: int
+    residual: bool = False
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -171,23 +190,36 @@ def slab_depths(k: int):
     return sorted((32, 64, 128), key=lambda bk: (_cdiv(k, bk) * bk, -bk))
 
 
-def smem_bytes(bm: int, bn: int, bk: int, out: int) -> int:
+def res_slots(k: int, bk: int) -> int:
+    """Residual tiles in a block's ring (``res_slots`` in int8_gemm.cu):
+    cdiv(STAGES, slabs a tile), so that a tile's residual, copied with its
+    last slab, never lands in a slot an earlier tile's epilogue still
+    reads."""
+    return _cdiv(STAGES, _cdiv(k, bk))
+
+
+def smem_bytes(bm: int, bn: int, bk: int, out: int, slots: int = 0) -> int:
     """Shared bytes of a block, as int8_gemm.cu lays them out: the ring of
     STAGES A and Bt slabs, the staged output tile (rows padded by 16 bytes,
-    32 for fp32 and int32: an int32 tile takes an fp32 tile's bytes), then
-    BN scales and BN biases.  `out` is an output kind (a bool reads as
-    int8 / fp32)."""
+    32 for fp32 and int32: an int32 tile takes an fp32 tile's bytes), BN
+    scales and BN biases, then `slots` residual tiles of bm rows of bn + 16
+    bytes (:func:`res_slots`; 0 without a residual).  `out` is an output
+    kind (a bool reads as int8 / fp32)."""
     return (STAGES * (bm + bn) * bk + bm * (bn + 16 if out == OUT_I8 else 4 * bn + 32)
-            + 8 * bn)
+            + 8 * bn + slots * bm * (bn + 16))
+
+
+def _res_slots(k: int, bk: int, residual: bool) -> int:
+    return res_slots(k, bk) if residual else 0
 
 
 @functools.lru_cache(maxsize=None)
-def default_plan(m: int, k: int, n: int, out: int) -> Plan:
+def default_plan(m: int, k: int, n: int, out: int, residual: bool = False) -> Plan:
     """The heuristic tiling of one (M, K) · (K, N) int8 GEMM with output
-    kind `out` (:data:`OUT_F32`, :data:`OUT_I8`, :data:`OUT_I32`): pure Python,
-    so the CPU tests check it; the kernel checks what it is given and
-    refuses a plan it cannot take.  Raises ValueError for a problem it
-    cannot take.
+    kind `out` (:data:`OUT_F32`, :data:`OUT_I8`, :data:`OUT_I32`), with a
+    residual or without: pure Python, so the CPU tests check it; the
+    kernel checks what it is given and refuses a plan it cannot take.
+    Raises ValueError for a problem it cannot take.
 
     BN is the narrowest tile width that covers N up to 256 (so A is read
     from device memory once), 256 past that; two warpgroups (BM = 128) a
@@ -195,10 +227,26 @@ def default_plan(m: int, k: int, n: int, out: int) -> Plan:
     thousand rows), a wide N takes BN = 128 at BM = 128 if that gives
     every SM a tile; otherwise BM is 64 and BN halves, down to 8, until
     every SM has a tile or halving adds no tile.  BK is the first of
-    :func:`slab_depths` whose ring fits the block's shared memory."""
+    :func:`slab_depths` whose ring fits the block's shared memory.
+
+    With a residual the epilogue reads a tile's residual too, and the block
+    runs its epilogue after its products, so the tile shape follows K (as
+    swept on an H100 at the 16 ResNet-50 and 10 MobileNetV3 residual
+    shapes): at K <= 256 tiles at most 64 wide on 64-byte slabs (32 at K <=
+    32), small enough that two blocks share an SM and one's epilogue
+    overlaps the other's copies; past it 128 x 128 tiles on 128-byte
+    slabs, where the products dominate and wide tiles read A and B fewer
+    times.  Where that does not fit (a wide fp32 tile beside the ring), the
+    plan without a residual's, on one warpgroup, then on half the tile
+    width, until the ring fits."""
     if m < 1 or n < 1 or k < 1:
         raise ValueError(f"int8_matmul: empty problem {(m, k, n)}")
     bn = next((b for b in BN_CHOICES if b >= n), BN_CHOICES[-1])
+    if residual:
+        rbn, rbk = (min(bn, 64), 32 if k <= 32 else 64) if k <= 256 else (min(bn, 128), 128)
+        rwgs = 2 if m > 64 else 1
+        if smem_bytes(64 * rwgs, rbn, rbk, out, res_slots(k, rbk)) <= SMEM_LIMIT:
+            return plan_of(m, k, n, out, rbn, rbk, rwgs, True)
 
     def tiles(wgs, bn):
         return _cdiv(m, 64 * wgs) * _cdiv(n, bn)
@@ -208,20 +256,26 @@ def default_plan(m: int, k: int, n: int, out: int) -> Plan:
         wgs, bn = 2, 128
     while tiles(wgs, bn) < SMS and bn > BN_CHOICES[0] and _cdiv(n, bn) < _cdiv(n, bn // 2):
         bn //= 2
-    bk = next(bk for bk in slab_depths(k)
-              if smem_bytes(64 * wgs, bn, bk, out) <= SMEM_LIMIT)
-    return plan_of(m, k, n, out, bn, bk, wgs)
+    while True:
+        bk = next((bk for bk in slab_depths(k) if smem_bytes(
+            64 * wgs, bn, bk, out, _res_slots(k, bk, residual)) <= SMEM_LIMIT), None)
+        if bk is not None:
+            return plan_of(m, k, n, out, bn, bk, wgs, residual)
+        wgs, bn = (1, bn) if wgs == 2 else (1, bn // 2)
 
 
-def plan_of(m: int, k: int, n: int, out: int, bn: int, bk: int, wgs: int) -> Plan:
+def plan_of(m: int, k: int, n: int, out: int, bn: int, bk: int, wgs: int,
+            residual: bool = False) -> Plan:
     """The plan of one GEMM at tile width `bn`, slab depth `bk` and `wgs`
-    warpgroups (its copy widths, shared bytes and tiles follow); raises
-    ValueError for one the kernel cannot run."""
+    warpgroups, with a residual or without (its copy widths, shared bytes
+    and tiles follow); raises ValueError for one the kernel cannot run."""
     if bn not in BN_CHOICES or bk not in (32, 64, 128) or wgs not in (1, 2):
         raise ValueError(f"int8_matmul: no instantiation takes bn={bn}, bk={bk}, "
                          f"{wgs} warpgroups")
+    if residual and out == OUT_I32:
+        raise ValueError("int8_matmul: the int32 output kind takes no residual")
     width = copy_width(k)
-    smem = smem_bytes(64 * wgs, bn, bk, out)
+    smem = smem_bytes(64 * wgs, bn, bk, out, _res_slots(k, bk, residual))
     if smem > SMEM_LIMIT:
         raise ValueError(f"int8_matmul: bn={bn}, bk={bk}, {wgs} warpgroups take {smem} "
                          f"shared bytes, past the block's {SMEM_LIMIT}")
@@ -230,14 +284,18 @@ def plan_of(m: int, k: int, n: int, out: int, bn: int, bk: int, wgs: int) -> Pla
         raise ValueError(f"int8_matmul: {(m, k, n)} has 2^31 tiles or more")
     es = 1 if out == OUT_I8 else 4
     out_width = next(w for w in (16, 8, 4, 2, 1) if (n * es) % w == 0 and (bn * es) % w == 0)
-    return Plan(bn, bk, wgs, width, out_width, smem, tiles)
+    return Plan(bn, bk, wgs, width, out_width, smem, tiles, residual)
 
 
-def plan(m: int, k: int, n: int, out: int) -> Plan:
+def plan(m: int, k: int, n: int, out: int, residual: bool = False) -> Plan:
     """The tiling of one GEMM: the plan measured fastest for its bucket and
     output kind on the card (``tune_cache.lookup_blocks``, filled by
     ``tune_cache.sweep_gemm_blocks``), else :func:`default_plan`.  A stored
-    plan the kernel cannot run raises (:func:`plan_of`)."""
+    plan the kernel cannot run raises (:func:`plan_of`).  A launch with a
+    residual takes :func:`default_plan`'s: no stored plan was measured with
+    the residual ring."""
+    if residual:
+        return default_plan(m, k, n, out, True)
     stored = tune_cache.lookup_blocks(m, k, n, out)
     if stored is None:
         return default_plan(m, k, n, out)
@@ -245,7 +303,8 @@ def plan(m: int, k: int, n: int, out: int) -> Plan:
 
 
 @functools.lru_cache(maxsize=None)
-def _resident(device: int, bn: int, wgs: int, out: int, smem: int) -> int:
+def _resident(device: int, bn: int, wgs: int, out: int, smem: int,
+              residual: bool = False) -> int:
     """Blocks of one instantiation the card `device` holds at once, as the
     built library reports its occupancy."""
     import ctypes
@@ -253,7 +312,8 @@ def _resident(device: int, bn: int, wgs: int, out: int, smem: int) -> int:
     with torch.cuda.device(device):
         per_sm = ctypes.c_int()
         _build.check(_build.load("int8_gemm").plt_int8_gemm_occupancy(
-            bn, wgs, int(out), smem, ctypes.byref(per_sm)), "int8_gemm occupancy")
+            bn, wgs, int(out), int(residual), smem, ctypes.byref(per_sm)),
+            "int8_gemm occupancy")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, per_sm.value) * sms
 
@@ -261,7 +321,8 @@ def _resident(device: int, bn: int, wgs: int, out: int, smem: int) -> int:
 def blocks(p: Plan, out: int, device: int) -> int:
     """The launch's blocks: as many as the card holds at once, at most one
     a tile; each walks its tiles (csrc/int8_gemm.cu)."""
-    return min(p.tiles, _resident(device, p.bn, p.warpgroups, int(out), p.smem_bytes))
+    return min(p.tiles, _resident(device, p.bn, p.warpgroups, int(out), p.smem_bytes,
+                                  p.residual))
 
 
 def check_aligned(p: Plan, k: int, **operands: torch.Tensor) -> None:
@@ -303,18 +364,23 @@ def _operands(x_q: torch.Tensor, w_q: torch.Tensor, w_nk: Optional[torch.Tensor]
 
 
 def _launch(x_q, w_nk, scale, bias, out, act_c, out_kind: int, inv: float,
-            tiling: Optional[Plan]) -> torch.Tensor:
-    global launches, launches_i32
+            tiling: Optional[Plan], residual: Optional[torch.Tensor] = None,
+            residual_scale: float = 0.0) -> torch.Tensor:
+    global launches, launches_i32, launches_residual
     m, k = x_q.shape
     n = w_nk.shape[0]
     dev = x_q.device
-    p = tiling or plan(m, k, n, out_kind)
+    p = tiling or plan(m, k, n, out_kind, residual is not None)
+    if p.residual != (residual is not None):
+        raise ValueError(f"int8_matmul: a plan {'with' if p.residual else 'without'} the "
+                         f"residual ring for a launch {'without' if p.residual else 'with'} one")
     check_aligned(p, k, x_q=x_q, w_nk=w_nk)
     lib = _build.load("int8_gemm")
     rc = lib.plt_int8_gemm(
         x_q.data_ptr(), w_nk.data_ptr(), None if scale is None else scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         m, n, k, *act_c, out_kind, inv,
+        None if residual is None else residual.data_ptr(), residual_scale,
         p.bn, p.bk, p.warpgroups, p.width, p.out_width, p.smem_bytes,
         blocks(p, out_kind, dev.index), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "int8_gemm")
@@ -322,6 +388,7 @@ def _launch(x_q, w_nk, scale, bias, out, act_c, out_kind: int, inv: float,
         launches_i32 += 1
     else:
         launches += 1
+        launches_residual += residual is not None
     return out
 
 
@@ -336,26 +403,36 @@ def int8_matmul(
     out_scale: Optional[float] = None,
     w_nk: Optional[torch.Tensor] = None,
     tiling: Optional[Plan] = None,
+    residual: Optional[torch.Tensor] = None,
+    residual_scale: Optional[float] = None,
 ) -> torch.Tensor:
     """out = epilogue((x_q @ w_q).i32) — fp32 out, or int8 when
     ``out_scale`` is given.  ``x_q`` (M, K) int8, ``w_q`` (K, N) int8,
     ``eff_scale`` = s_x·s_w per output column ((N,) or scalar), ``bias``
-    fp32 (N,) or None.  ``tiling`` is a :func:`plan_of` plan to launch
-    with (a plan sweep's), else :func:`plan`'s."""
+    fp32 (N,) or None, ``residual`` a contiguous (M, N) int8 tensor added
+    as ``float(r)·residual_scale`` before the activation, or None.
+    ``tiling`` is a :func:`plan_of` plan to launch with (a plan sweep's),
+    else :func:`plan`'s."""
+    if (residual is None) != (residual_scale is None):
+        raise ValueError("int8_matmul: a residual takes its scale, and a scale its residual")
     if x_q.device.type == "cpu":
         return int8_matmul_plain(x_q, w_q, eff_scale, bias, act=act,
-                                 act_attrs=act_attrs, out_scale=out_scale)
+                                 act_attrs=act_attrs, out_scale=out_scale,
+                                 residual=residual, residual_scale=residual_scale)
     m, k, n, w_nk = _operands(x_q, w_q, w_nk, "int8_matmul")
     dev = x_q.device
     scale = f32(eff_scale, dev).expand(n).contiguous()
     if bias is not None:
         _check(bias, "bias", torch.float32, (n,), dev)
+    if residual is not None:
+        _check(residual, "residual", torch.int8, (m, n), dev)
     act_c = act_args(act, act_attrs, GEMM_ACTS)
     out = torch.empty((m, n), device=dev,
                       dtype=torch.float32 if out_scale is None else torch.int8)
     kind = OUT_F32 if out_scale is None else OUT_I8
     inv = 0.0 if out_scale is None else inv_out_scale(out_scale)
-    return _launch(x_q, w_nk, scale, bias, out, act_c, kind, inv, tiling)
+    return _launch(x_q, w_nk, scale, bias, out, act_c, kind, inv, tiling, residual,
+                   0.0 if residual_scale is None else float(np.float32(residual_scale)))
 
 
 def int8_matmul_i32(

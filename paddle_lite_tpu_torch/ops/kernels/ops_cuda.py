@@ -68,12 +68,13 @@ def _bias(bias):
     return None if bias is None else upcast(bias)
 
 
-def _gemm(ctx, op, x2, w2, x_name, w_name, bias):
+def _gemm(ctx, op, x2, w2, x_name, w_name, bias, residual=None, residual_scale=None):
     _int8(op, x2, w2)
     return custom_ops.gemm(
         x2.contiguous(), w2, eff_scale(ctx, op, x_name, w_name), _bias(bias),
         act=op.attrs.get("fuse_act"), act_attrs=op.attrs.get("act_attrs"),
-        out_scale=op.attrs.get("out_scale"), w_nk=_packed(ctx, op, w2))
+        out_scale=op.attrs.get("out_scale"), w_nk=_packed(ctx, op, w2),
+        residual=residual, residual_scale=residual_scale)
 
 
 @OPS.kernel("fc", "cuda")
@@ -126,21 +127,28 @@ def im2col_nhwc(x: torch.Tensor, kh: int, kw: int, strides, paddings) -> torch.T
 
 @OPS.kernel("conv2d", "cuda")
 def conv2d_cuda(ctx, op, ins):
-    """Group-1 conv without residual as the int8 GEMM over its im2col rows
-    (the reference's ``conv_gemmlike`` path, ``ops_pallas.py:79-80``):
-    int32 accumulation, exact for any K."""
+    """Group-1 conv as the int8 GEMM over its im2col rows (the reference's
+    ``conv_gemmlike`` path, ``ops_pallas.py:79-80``): int32 accumulation,
+    exact for any K.  An int8 residual goes into the GEMM's epilogue as its
+    (M, N) rows, made contiguous (``ShardedPredictor`` hands a slice of its
+    channels), with its per-tensor scale."""
     x, w = ins["Input"][0], ins["Filter"][0]
     bias = ins.get("Bias", [None])[0]
+    residual = ins.get("ResidualData", [None])[0]
     kh, kw, c, oc = w.shape
     _require(
         int(op.attrs.get("groups", 1)) == 1
         and normalize_2d(op.attrs.get("dilations", (1, 1))) == (1, 1)
-        and "ResidualData" not in ins, op,
-        "only group-1, dilation-1 convs without residual run as the GEMM")
+        and (residual is None or residual.dtype == torch.int8), op,
+        "only group-1, dilation-1 convs with no residual or an int8 one run as the GEMM")
     _int8(op, x, w)
     geom = (kh, kw, op.attrs.get("strides", (1, 1)), op.attrs.get("paddings", (0, 0)))
-    y = _gemm(ctx, op, im2col_nhwc(x, *geom), w.reshape((kh * kw * c, oc)),
-              op.input("Input"), op.input("Filter"), bias)
+    rows = im2col_nhwc(x, *geom)
+    res = {} if residual is None else dict(
+        residual=residual.contiguous().reshape((rows.shape[0], oc)),
+        residual_scale=ctx.var_quant(op.input("ResidualData")).scale[0])
+    y = _gemm(ctx, op, rows, w.reshape((kh * kw * c, oc)), op.input("Input"),
+              op.input("Filter"), bias, **res)
     return {"Output": [y.reshape((x.shape[0], *_out_hw(x, *geom), oc))]}
 
 

@@ -8,15 +8,18 @@ measured on the card (below), and an int8 op that a kernel takes is tagged
 ``"cuda"`` unless that table measured its bucket slower than the op's
 ``"torch"`` impl.  The kernels take:
 
-- ``conv2d`` with group 1, dilation 1 and no residual, of any kernel size,
-  stride and explicit paddings, through its im2col rows
-  (``ops_cuda.im2col_nhwc``; the reference's ``conv_gemmlike`` mapping,
-  ``ops_pallas.py:79-80``), ``fc`` and ``mul``, each with an even K →
-  the int8 GEMM.  The GEMM accumulates in int32, exact for any K; the
-  ``"torch"`` conv (an fp32 conv, then ``round``) is exact only while
-  every partial sum stays below 2^24, which holds for every input only up
-  to K = kh·kw·C = 1040.  Residual convs stay on the ``"torch"`` path: the
-  GEMM has no residual operand (nor has the TPU one, ``ops_pallas.py:84-93``);
+- ``conv2d`` with group 1 and dilation 1, of any kernel size, stride and
+  explicit paddings, through its im2col rows (``ops_cuda.im2col_nhwc``;
+  the reference's ``conv_gemmlike`` mapping, ``ops_pallas.py:79-80``),
+  ``fc`` and ``mul``, each with an even K → the int8 GEMM.  The GEMM
+  accumulates in int32, exact for any K; the ``"torch"`` conv (an fp32
+  conv, then ``round``) is exact only while every partial sum stays below
+  2^24, which holds for every input only up to K = kh·kw·C = 1040.  A
+  conv with a residual (a shortcut add fused into it) takes the GEMM when
+  the residual is int8 with one per-tensor scale: the GEMM's epilogue
+  adds it (the TPU kernel had no residual operand, ``ops_pallas.py:84-93``
+  there, so the reference ran such convs on XLA).  A float residual stays
+  on the ``"torch"`` path;
 - ``depthwise_conv2d`` inside ``depthwise.supported_general`` → the
   depthwise kernel;
 
@@ -46,6 +49,7 @@ from typing import Optional
 
 import numpy as np
 
+from ...core.types import Precision
 from ..common import normalize_2d
 from .int8_matmul import GEMM_ACTS
 
@@ -56,11 +60,19 @@ def _kernel_epilogue(op, acts) -> bool:
     return bool(op.attrs.get("enable_int8")) and op.attrs.get("fuse_act") in acts
 
 
+def _int8_per_tensor(graph, name: str) -> bool:
+    """`name` is an int8 variable with one per-tensor scale."""
+    v = graph.vars[name]
+    return (v.precision == Precision.INT8 and v.quant is not None
+            and not v.quant.per_channel and len(v.quant.scale) == 1)
+
+
 def gemm_eligible(graph, op) -> bool:
     """An int8 ``fc`` / ``mul`` / ``conv2d`` that the GEMM takes: its K is
     even (the kernel copies rows in pieces of 2 bytes or more,
     ``int8_matmul.copy_width``); a conv has group 1, dilation 1 and no
-    residual."""
+    residual or an int8 one with a per-tensor scale (:func:`_int8_per_tensor`),
+    which the GEMM's epilogue adds."""
     if not _kernel_epilogue(op, GEMM_ACTS):
         return False
     if op.op_type == "fc":
@@ -70,10 +82,11 @@ def gemm_eligible(graph, op) -> bool:
         return int(np.prod(graph.vars[op.input("Y")].shape[:yd])) % 2 == 0
     if op.op_type == "conv2d":
         kh, kw, c = graph.vars[op.input("Filter")].shape[:3]
+        residual = op.maybe_input("ResidualData")
         return (
             int(op.attrs.get("groups", 1)) == 1
             and normalize_2d(op.attrs.get("dilations", (1, 1))) == (1, 1)
-            and not op.maybe_input("ResidualData")
+            and (residual is None or _int8_per_tensor(graph, residual))
             and (kh * kw * c) % 2 == 0
         )
     return False

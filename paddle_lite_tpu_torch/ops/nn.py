@@ -103,7 +103,10 @@ def eff_scale(ctx, op, x_name: str, w_name: str) -> torch.Tensor:
 def _conv_epilogue(ctx, op, acc, x_name, w_name, bias, residual, residual_name,
                    int8_acc: bool = False):
     """Shared conv/fc epilogue (``nn.py:65-91`` there).  ``int8_acc`` marks
-    a float accumulator that holds exact int8×int8 sums."""
+    a float accumulator that holds exact int8×int8 sums.  On the card an
+    int8 residual conv runs the GEMM instead (``select.gemm_eligible``),
+    whose epilogue (``int8_matmul.epilogue``) adds the residual in this
+    order; here it runs for a float residual and on the plain path."""
     attrs = op.attrs
     y = acc * eff_scale(ctx, op, x_name, w_name) if int8_acc else acc
     if bias is not None:

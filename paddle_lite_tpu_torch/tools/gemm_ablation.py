@@ -130,15 +130,15 @@ def main() -> None:
         row = {"shape": [m, k, n], "act": act, "plan": p._asdict()}
         for name, lib in libs.items():
             per_sm = ctypes.c_int()
-            _build.check(lib.plt_int8_gemm_occupancy(p.bn, p.warpgroups, 1, p.smem_bytes,
+            _build.check(lib.plt_int8_gemm_occupancy(p.bn, p.warpgroups, 1, 0, p.smem_bytes,
                                                      ctypes.byref(per_sm)), "occupancy")
             blocks = min(p.tiles, per_sm.value * sms)
 
             def call(lib=lib, blocks=blocks):
                 _build.check(lib.plt_int8_gemm(
                     x.data_ptr(), w_nk.data_ptr(), scale.data_ptr(), None, out.data_ptr(),
-                    m, n, k, act, *HARD_SWISH, 1, 20.0, p.bn, p.bk, p.warpgroups, p.width,
-                    p.out_width, p.smem_bytes, blocks,
+                    m, n, k, act, *HARD_SWISH, 1, 20.0, None, 0.0, p.bn, p.bk, p.warpgroups,
+                    p.width, p.out_width, p.smem_bytes, blocks,
                     torch.cuda.current_stream().cuda_stream), "int8_gemm")
 
             row[f"{name}_us"] = round(time_us(call), 1)

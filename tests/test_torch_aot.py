@@ -104,6 +104,30 @@ def test_ssd_exports_its_kernels_as_custom_ops():
     assert "plt.nms_keep.default" in text and "plt.int8_gemm.default" in text
 
 
+def test_residual_conv_exports_its_residual_into_the_gemm_op():
+    """A shortcut add fused into an int8 conv (``ResidualData``) exports as
+    one ``plt::int8_gemm`` op that takes the residual, and the loaded
+    program gives the predictor's output bit for bit."""
+    from paddle_lite_tpu_torch.core.builder import GraphBuilder
+
+    b = GraphBuilder("residual", seed=4)
+    x = b.conv_bn_act(b.input("x", (1, 8, 8, 16)), 16, 1, act="relu")
+    a = b.conv_bn_act(x, 32, 1, act="relu")
+    y = b.batch_norm(b.conv2d(a, 16, 1))
+    b.mark_output(b.act(b.eltwise(y, x, "add"), "relu"))
+    g = b.build()
+    rng = np.random.default_rng(5)
+    feed = {"x": rng.normal(size=(1, 8, 8, 16)).astype(np.float32)}
+    pred = create_predictor(g, quant=P.QuantConfig(), calib_batches=[feed], device="cpu")
+    convs = [o for o in g.ops if o.op_type == "conv2d"]
+    assert [bool(o.maybe_input("ResidualData")) for o in convs].count(True) == 1
+    assert all(o.attrs.get("kernel") == "cuda" for o in convs)
+    run = aot.load_compiled(aot.export_compiled(g, device="cpu"))
+    gemms = [n for n in run.program.graph.nodes if str(n.target) == "plt.int8_gemm.default"]
+    assert len(gemms) == 3 and sum(n.args[8] is not None for n in gemms) == 1
+    assert _equal(run(feed), pred.run(feed))
+
+
 def test_a_syncing_graph_is_refused():
     g, _, _ = _small_ssd()
     with pytest.raises(ValueError, match="compile_graph: multiclass_nms.*'torch'"):

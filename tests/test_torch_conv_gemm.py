@@ -36,6 +36,7 @@ from paddle_lite_tpu.core.types import QuantInfo as RQuant
 from paddle_lite_tpu.formats import artifact
 from paddle_lite_tpu_torch import testing
 from paddle_lite_tpu_torch.core.builder import GraphBuilder
+from paddle_lite_tpu_torch.core.types import Precision, QuantInfo
 from paddle_lite_tpu_torch.formats.interop import graph_from_reference
 from paddle_lite_tpu_torch.ops.kernels import int8_matmul
 from paddle_lite_tpu_torch.ops.kernels.ops_cuda import im2col_nhwc
@@ -64,8 +65,9 @@ def _pad_pairs(pads):
 
 
 def _one_conv(geom, *, x_scale=0.02, w_scales=None, bias=True, act="relu",
-              out_scale=None, x=None, w=None, seed=0):
-    """A reference graph holding one int8 conv2d, and its feed."""
+              out_scale=None, x=None, w=None, seed=0, residual_scale=None):
+    """A reference graph holding one int8 conv2d, and its feed; with
+    ``residual_scale`` an int8 residual input "r" at that per-tensor scale."""
     n, h, wd, c, k, s, pads, oc = geom
     rng = np.random.default_rng(seed)
     g = RGraph("t")
@@ -92,12 +94,19 @@ def _one_conv(geom, *, x_scale=0.02, w_scales=None, bias=True, act="relu",
     if out_scale:
         y.quant = RQuant.per_tensor(out_scale)
         attrs["out_scale"] = out_scale
+    feed = {}
+    if residual_scale:
+        r = g.add_var("r", (n, oh, ow, oc), precision=RPrecision.INT8)
+        r.quant = RQuant.per_tensor(residual_scale)
+        g.inputs.append("r")
+        ins["ResidualData"] = ["r"]
+        feed["r"] = rng.integers(-127, 128, size=(n, oh, ow, oc), dtype=np.int8)
     g.outputs.append("y")
     g.add_op("conv2d", ins, {"Output": ["y"]}, attrs)
     g.rebuild_links()
     if x is None:
         x = rng.integers(-127, 128, size=(n, h, wd, c), dtype=np.int8)
-    return g, {"x": x}
+    return g, {"x": x, **feed}
 
 
 def _run_port_cuda(g: RGraph, feed) -> np.ndarray:
@@ -143,6 +152,63 @@ def test_cuda_conv_route_vs_reference(name, out):
         assert (d > 0).sum() <= max(testing.TIE_COUNT, testing.TIE_FRACTION * d.size)
     else:
         np.testing.assert_allclose(got, ref, rtol=FP32_RTOL, atol=FP32_ATOL)
+
+
+@pytest.mark.parametrize("out", ["int8", "fp32"])
+@pytest.mark.parametrize("name", ["1x1_s1", "1x1_s2", "3x3_s1_p1", "3x3_s1_p1_n1"])
+def test_cuda_conv_route_with_residual_vs_reference(name, out):
+    """An int8 residual in the GEMM's epilogue (the port's plain version on
+    the CPU) against the reference's ``conv2d_xla``, which dequantizes the
+    residual and adds it after the bias."""
+    g, feed = _one_conv(GEOMETRIES[name], out_scale=0.05 if out == "int8" else None,
+                        act="relu", residual_scale=0.04, seed=30 + len(name))
+    ref, got = _run_reference(g, feed), _run_port_cuda(g, feed)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if out == "int8":
+        d = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+        assert d.max() <= testing.TIE_LSB
+        assert (d > 0).sum() <= max(testing.TIE_COUNT, testing.TIE_FRACTION * d.size)
+    else:
+        np.testing.assert_allclose(got, ref, rtol=FP32_RTOL, atol=FP32_ATOL)
+
+
+@pytest.mark.parametrize("act", ["relu", None])
+@pytest.mark.parametrize("out", ["int8", "fp32"])
+def test_plain_residual_epilogue_vs_conv_epilogue(out, act):
+    """``int8_matmul_plain`` with a residual against ``nn._conv_epilogue``'s
+    arithmetic on the same exact accumulator: fp32 out bit for bit (the
+    same steps in the same order), int8 out within the tie bound (the
+    GEMM requantizes with ``y·fp32(1/s)``, the epilogue with ``y / s``)."""
+    from paddle_lite_tpu_torch.core.executor import ExecutionContext
+    from paddle_lite_tpu_torch.ops.nn import _conv_epilogue, eff_scale
+
+    g, conv = _conv_graph(k=1, residual="int8", **({"act": act} if act else {}))
+    g.vars[conv.input("Input")].quant = QuantInfo.per_tensor(0.02)
+    g.vars[conv.input("Filter")].quant = QuantInfo(
+        scale=tuple(float(v) for v in np.random.default_rng(5).uniform(5e-4, 2e-3, 16)),
+        axis=3)
+    if out == "int8":
+        conv.attrs["out_scale"] = 0.05
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.integers(-127, 128, size=(64, 16), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, size=(16, 16), dtype=np.int8))
+    r = torch.from_numpy(rng.integers(-127, 128, size=(64, 16), dtype=np.int8))
+    bias = torch.from_numpy(rng.normal(0, 0.3, size=16).astype(np.float32))
+    ctx = ExecutionContext(graph=g, device=CPU)
+    eff = eff_scale(ctx, conv, conv.input("Input"), conv.input("Filter"))
+    acc = (x.double() @ w.double()).float()
+    want = _conv_epilogue(ctx, conv, acc, conv.input("Input"), conv.input("Filter"), bias,
+                          r, "r", int8_acc=True)
+    got = int8_matmul.int8_matmul_plain(
+        x, w, eff, bias, act=act, out_scale=conv.attrs.get("out_scale"), residual=r,
+        residual_scale=g.vars["r"].quant.scale[0])
+    assert got.dtype == want.dtype
+    if out == "fp32":
+        assert torch.equal(got, want)
+    else:
+        d = (got.int() - want.int()).abs()
+        assert d.max() <= testing.TIE_LSB
+        assert (d > 0).sum() <= max(testing.TIE_COUNT, testing.TIE_FRACTION * d.numel())
 
 
 @pytest.mark.parametrize("name", sorted(GEOMETRIES))
@@ -205,10 +271,12 @@ def test_im2col_of_a_1x1_stride_1_conv_is_a_view():
 # ---- which convs the GEMM takes ---------------------------------------------
 
 def _conv_graph(**kw):
-    """One conv2d in a port graph, marked int8 unless ``int8=False``."""
+    """One conv2d in a port graph, marked int8 unless ``int8=False``; with
+    ``residual="int8"`` / ``"fp32"`` a residual input of its output's shape,
+    int8 at a per-tensor scale or fp32."""
     c, k = kw.pop("c", 16), kw.pop("k", 3)
     int8 = kw.pop("int8", True)
-    residual = kw.pop("residual", False)
+    residual = kw.pop("residual", None)
     b = GraphBuilder("t", seed=0)
     x = b.input("x", (1, 8, 8, c))
     b.conv2d(x, 16, k, stride=kw.get("stride", 1), padding=k // 2,
@@ -219,7 +287,11 @@ def _conv_graph(**kw):
     if "act" in kw:
         conv.attrs["fuse_act"] = kw["act"]
     if residual:
-        conv.inputs["ResidualData"] = [x]
+        r = g.add_var("r", g.vars[conv.output("Output")].shape,
+                      Precision.INT8 if residual == "int8" else Precision.FP32)
+        if residual == "int8":
+            r.quant = QuantInfo.per_tensor(0.05)
+        conv.inputs["ResidualData"] = ["r"]
     return g, conv
 
 
@@ -228,7 +300,8 @@ def _conv_graph(**kw):
     ("7x7", dict(k=7, c=4), True),
     ("1x1", dict(k=1), True),
     ("relu6", dict(act="relu6"), True),
-    ("residual", dict(residual=True), False),
+    ("residual", dict(residual="int8"), True),  # the GEMM's epilogue adds it
+    ("residual_fp32", dict(residual="fp32"), False),
     ("grouped", dict(groups=2), False),
     ("dilated", dict(dilation=2), False),
     ("odd_k", dict(c=3), False),          # K = 27
@@ -254,8 +327,8 @@ def test_cuda_conv_raises_instead_of_falling_back(attrs, ins, match):
     conv.attrs.update(attrs)
     x = torch.zeros((1, 8, 8, 16), dtype=torch.int8)
     feed = {"Input": [x], "Filter": [torch.zeros((3, 3, 16, 16), dtype=torch.int8)]}
-    if ins:
-        feed["ResidualData"] = [x]
+    if ins:  # a float residual: only an int8 one goes into the GEMM's epilogue
+        feed["ResidualData"] = [x.float()]
     with pytest.raises(ValueError, match=match):
         OPS.get("conv2d").impls["cuda"](ExecutionContext(graph=g, device=CPU), conv, feed)
 
@@ -279,3 +352,86 @@ def test_route_on_card_is_the_exact_accumulator(cuda_device):
     got = int8_matmul.int8_matmul(cols, w.reshape(-1, 64).to(cuda_device), ones)
     want = int8_matmul.int8_matmul_plain(cols, w.reshape(-1, 64).to(cuda_device), ones)
     assert torch.equal(got, want)
+
+
+def _residual_shapes(path: str):
+    """(M, K, N, act) of each distinct residual conv of ResNet-50 b32 or
+    MobileNetV3 b64 at 224 px, read off the graph after the fusion passes."""
+    from paddle_lite_tpu_torch.core.pass_manager import PassManager
+    from paddle_lite_tpu_torch.models import mobilenet_v3, resnet
+    from paddle_lite_tpu_torch.tools.opt import FUSION_PASSES
+
+    g = (resnet.build(batch=32, image_size=224, seed=0) if path == "resnet"
+         else mobilenet_v3.build(batch=64, image_size=224, seed=0, with_softmax=False))
+    PassManager(FUSION_PASSES).run(g)
+    shapes = []
+    for op in g.topological_order():
+        if op.op_type == "conv2d" and op.maybe_input("ResidualData"):
+            n, oh, ow, oc = g.vars[op.output("Output")].shape
+            shapes.append((n * oh * ow, int(np.prod(g.vars[op.input("Filter")].shape[:3])),
+                           oc, op.attrs.get("fuse_act")))
+    assert len(shapes) == (16 if path == "resnet" else 10)
+    return sorted(set(shapes), key=str)
+
+
+@pytest.mark.parametrize("out", ["int8", "fp32"])
+@pytest.mark.parametrize("path", ["resnet", "mobilenet_v3"])
+def test_residual_gemm_on_card_vs_plain(cuda_device, path, out):
+    """The kernel's residual instantiation at every residual shape of the
+    path, bit for bit against ``int8_matmul_plain``."""
+    rng = np.random.default_rng(25)
+
+    def i8(*shape):
+        return torch.from_numpy(rng.integers(-127, 128, size=shape, dtype=np.int8)).to(cuda_device)
+
+    for m, k, n, act in _residual_shapes(path):
+        x, w, r = i8(m, k), i8(k, n), i8(m, n)
+        eff = torch.from_numpy(rng.uniform(1e-4, 2e-4, n).astype(np.float32)).to(cuda_device)
+        bias = torch.from_numpy(rng.normal(0, 0.5, n).astype(np.float32)).to(cuda_device)
+        kw = dict(act=act, residual=r, residual_scale=0.03)
+        if out == "int8":
+            y = int8_matmul.int8_matmul_plain(x, w, eff, bias, **kw)
+            kw["out_scale"] = float(y.abs().max()) / 127 * 0.75
+        before = int8_matmul.launches_residual
+        got = int8_matmul.int8_matmul(x, w, eff, bias, **kw)
+        assert int8_matmul.launches_residual == before + 1
+        assert torch.equal(got, int8_matmul.int8_matmul_plain(x, w, eff, bias, **kw)), (m, k, n)
+
+
+@pytest.mark.parametrize("geom", [(32, 56, 64, 256, "relu"), (64, 14, 480, 112, None)])
+def test_residual_route_on_card_takes_a_sliced_residual(cuda_device, geom):
+    """The "cuda" conv given a residual sliced on its channel axis (as
+    ``ShardedPredictor`` hands it): the kernel's output equals the route's
+    plain version on the CPU bit for bit, and the "torch" conv within the
+    tie bound."""
+    from paddle_lite_tpu_torch.core.executor import ExecutionContext
+    from paddle_lite_tpu_torch.core.registry import OPS
+
+    nb, h, c, oc, act = geom
+    rng = np.random.default_rng(7)
+    b = GraphBuilder("t", seed=0)
+    b.conv2d(b.input("x", (nb, h, h, c)), oc, 1, stride=1, padding=0)
+    g = b.build()
+    conv = next(o for o in g.ops if o.op_type == "conv2d")
+    g.vars[conv.input("Input")].quant = QuantInfo.per_tensor(0.02)
+    g.vars[conv.input("Filter")].quant = QuantInfo(
+        scale=tuple(float(v) for v in rng.uniform(5e-4, 2e-3, oc)), axis=3)
+    g.add_var("r", g.vars[conv.output("Output")].shape, Precision.INT8).quant = \
+        QuantInfo.per_tensor(0.04)
+    conv.inputs["ResidualData"] = ["r"]
+    conv.attrs.update(enable_int8=True, out_scale=0.05, **({"fuse_act": act} if act else {}))
+    x = torch.from_numpy(rng.integers(-127, 128, (nb, h, h, c), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (1, 1, c, oc), dtype=np.int8))
+    wide = torch.from_numpy(rng.integers(-127, 128, (nb, h, h, 2 * oc), dtype=np.int8))
+    ins = {"Input": [x], "Filter": [w], "ResidualData": [wide[..., oc // 2: oc // 2 + oc]]}
+    on_card = {s: [t.to(cuda_device) for t in v] for s, v in ins.items()}
+    assert not on_card["ResidualData"][0].is_contiguous()
+    conv2d = OPS.get("conv2d")
+    card_ctx = ExecutionContext(graph=g, device=cuda_device)
+    got = conv2d.impls["cuda"](card_ctx, conv, on_card)["Output"][0].cpu()
+    plain = conv2d.impls["cuda"](ExecutionContext(graph=g, device=CPU), conv, ins)["Output"][0]
+    assert torch.equal(got, plain)
+    ref = conv2d.impls["torch"](card_ctx, conv, on_card)["Output"][0].cpu()
+    d = (got.int() - ref.int()).abs()
+    assert d.max() <= testing.TIE_LSB
+    assert (d > 0).sum() <= max(testing.TIE_COUNT, testing.TIE_FRACTION * d.numel())

@@ -18,11 +18,13 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_lite_tpu_torch.core.pass_manager import PassManager
 from paddle_lite_tpu_torch.models import mobilenet_v1, mobilenet_v3, resnet, ssd
 from paddle_lite_tpu_torch.ops.kernels import _build, depthwise
 from paddle_lite_tpu_torch.ops.kernels import int8_matmul as km
 from paddle_lite_tpu_torch.ops.kernels.select import gemm_eligible
 from paddle_lite_tpu_torch.tools import gen_wgmma_s8
+from paddle_lite_tpu_torch.tools.opt import FUSION_PASSES
 
 SMEM_BLOCK = 227 * 1024  # shared bytes a block may take on an H100 (232,448)
 
@@ -78,6 +80,47 @@ def test_plan_fits_every_path_shape(path, count):
             assert p.bk in (32, 64, 128) and p.bk % 32 == 0
             assert k % p.width == 0 and p.bk % p.width == 0
             assert (n * es) % p.out_width == 0 and (p.bn * es) % p.out_width == 0
+            # the same launch with a residual: its ring of residual tiles fits too
+            r = km.plan(m, k, n, out_i8, True)
+            assert r.residual and not p.residual
+            slots = km.res_slots(k, r.bk)
+            assert slots * -(-k // r.bk) >= km.STAGES
+            assert r.smem_bytes == km.smem_bytes(64 * r.warpgroups, r.bn, r.bk, out_i8, slots)
+            assert r.smem_bytes <= SMEM_BLOCK
+            assert r.tiles == -(-m // (64 * r.warpgroups)) * -(-n // r.bn)
+
+
+def residual_shapes(g):
+    """(M, K, N, act) of every conv of `g` that carries a residual once the
+    fusion passes have run (``conv_elementwise_fuse``)."""
+    PassManager(FUSION_PASSES).run(g)
+    out = []
+    for op in g.topological_order():
+        if op.op_type == "conv2d" and op.maybe_input("ResidualData"):
+            n, oh, ow, oc = g.vars[op.output("Output")].shape
+            out.append((n * oh * ow, int(np.prod(g.vars[op.input("Filter")].shape[:3])), oc,
+                        op.attrs.get("fuse_act")))
+    return out
+
+
+@pytest.mark.parametrize("path,count", [("resnet", 16), ("mobilenet_v3", 10)])
+def test_residual_plan_fits_every_residual_shape(path, count):
+    """Every residual conv of the path at the card's size: its plan with
+    the residual ring fits the block, the ring holds enough tiles for the
+    slab ring's lookahead, and the plan without a residual is the one the
+    launch had before (the stored-plan table is read only without one)."""
+    shapes = residual_shapes(PATHS[path]())
+    assert len(shapes) == count
+    assert {act for *_, act in shapes} == ({"relu"} if path == "resnet" else {None})
+    for m, k, n, _ in shapes:
+        for out in (km.OUT_I8, km.OUT_F32):
+            r = km.plan(m, k, n, out, True)
+            slots = km.res_slots(k, r.bk)
+            assert r.residual and slots * -(-k // r.bk) >= km.STAGES
+            assert r.smem_bytes == km.smem_bytes(64 * r.warpgroups, r.bn, r.bk, out, slots)
+            assert r.smem_bytes <= SMEM_BLOCK
+            assert km.plan(m, k, n, out) == km.default_plan(m, k, n, out)
+            assert not km.plan(m, k, n, out).residual
 
 
 @pytest.mark.parametrize("m,k,n,bk,width", [

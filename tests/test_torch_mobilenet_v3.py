@@ -110,23 +110,27 @@ def _optimized_pair():
 
 def test_optimized_graph_matches_reference():
     """Same op types, attrs, int8 marks, scales and int8 weights; the port
-    tags every int8 op a kernel takes "cuda": 38 GEMMs (13 relu, 11
-    hard_swish, 8 hard_sigmoid SE gates with fp32 out, 5 without an
-    activation, the fc) and all 15 depthwise convs."""
+    tags every int8 op "cuda": 48 GEMMs (13 relu, 11 hard_swish, 8
+    hard_sigmoid SE gates with fp32 out, 5 without an activation, the 10
+    residual 1x1 convs without one, the int8 residual in the GEMM's
+    epilogue, the fc) and all 15 depthwise convs."""
     gr, gp = _optimized_pair()
     _assert_same_graph(gr, gp, skip_attrs=("kernel",))
     cuda = [o for o in gp.ops if o.attrs.get("kernel") == "cuda"]
     dw = [o for o in cuda if o.op_type == "depthwise_conv2d"]
     gemm = [o for o in cuda if o.op_type != "depthwise_conv2d"]
-    assert len(gemm) == 38 and len(dw) == 15
+    assert len(gemm) == 48 and len(dw) == 15
     acts = [o.attrs.get("fuse_act") for o in gemm]
     assert (acts.count("relu"), acts.count("hard_swish"), acts.count("hard_sigmoid"),
-            acts.count(None)) == (13, 11, 8, 6)
-    # no int8 op that a kernel takes is left on the torch path
+            acts.count(None)) == (13, 11, 8, 16)
+    residual = [o for o in gemm if o.maybe_input("ResidualData")]
+    assert len(residual) == 10 and all(o.attrs.get("fuse_act") is None for o in residual)
+    assert all(o.attrs.get("out_scale") for o in residual)
+    # no int8 op is left on the torch path
     for o in gp.ops:
-        if o.attrs.get("enable_int8") and o.attrs.get("kernel") != "cuda":
-            assert o.op_type == "conv2d" and o.maybe_input("ResidualData"), o.op_type
-            assert not gemm_eligible(gp, o)
+        if o.attrs.get("enable_int8"):
+            assert o.attrs.get("kernel") == "cuda", o.op_type
+            assert o.op_type == "depthwise_conv2d" or gemm_eligible(gp, o)
     gates = [o for o in gemm if o.attrs.get("fuse_act") == "hard_sigmoid"]
     assert all(o.attrs.get("out_scale") is None for o in gates)
     assert all(o.attrs["act_attrs"] == {"slope": 0.2, "offset": 0.5} for o in gates)

@@ -86,8 +86,10 @@ DECONV_TOL = 1e-5
 MODELS = {
     "det": dict(build="build_det", kw=dict(batch=1, image_size=64), shape=(1, 64, 64, 3),
                 zoo="ppocr_det",
-                # 10 int8 1x1 convs and 5 int8 3x3 convs on the GEMM
-                cuda={"conv2d": 15}),
+                # 10 int8 1x1 convs, the FPN's 3 int8 1x1 convs with an int8
+                # residual (added in the GEMM's epilogue) and 5 int8 3x3
+                # convs on the GEMM
+                cuda={"conv2d": 18}),
     "rec": dict(build="build_rec", kw=dict(batch=2, width=64, num_chars=50),
                 shape=(2, 32, 64, 3), zoo="ppocr_rec",
                 # 3 pointwise convs, 4 GRU input projections, the CTC classifier

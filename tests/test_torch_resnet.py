@@ -120,30 +120,32 @@ def test_optimized_graph_matches_reference(pair):
 
 
 def test_kernel_tags(pair):
-    """37 GEMM ops: 16 reduce 1x1, 16 3x3 through im2col (3 at stride 2),
-    the 4 expansion convs of the projection blocks and the fc.  The shortcut
-    add fuses into the first conv that feeds it (``conv_elementwise_fuse``,
-    as in the reference): the projection conv in those 4 blocks, the
-    expansion conv in the other 12.  Those 16 residual convs and the fp32
-    stem stay on torch."""
+    """53 GEMM ops: 16 reduce 1x1, 16 3x3 through im2col (3 at stride 2),
+    the 4 expansion convs of the projection blocks, the 16 convs that carry
+    the shortcut and the fc.  The shortcut add fuses into the first conv
+    that feeds it (``conv_elementwise_fuse``, as in the reference): the
+    projection conv in those 4 blocks, the expansion conv in the other 12;
+    its int8 residual goes into the GEMM's epilogue.  Only the fp32 stem
+    stays on torch."""
     _, gp = pair
     cuda = [o for o in gp.ops if o.attrs.get("kernel") == "cuda"]
-    assert len(cuda) == 37
+    assert len(cuda) == 53
     assert all(o.op_type in ("conv2d", "fc") for o in cuda)
     convs = [o for o in cuda if o.op_type == "conv2d"]
     ks = [gp.vars[o.input("Filter")].shape[:2] for o in convs]
-    assert (ks.count((1, 1)), ks.count((3, 3))) == (20, 16)
-    strided = [o for o in convs if o.attrs["strides"] != [1, 1]]
-    assert len(strided) == 3 and all(
-        gp.vars[o.input("Filter")].shape[:2] == (3, 3) for o in strided)
-    torch_convs = [o for o in gp.ops if o.op_type == "conv2d" and "kernel" not in o.attrs]
-    residual = [o for o in torch_convs if o.maybe_input("ResidualData")]
+    assert (ks.count((1, 1)), ks.count((3, 3))) == (36, 16)
+    residual = [o for o in convs if o.maybe_input("ResidualData")]
     assert len(residual) == 16 and all(o.attrs.get("enable_int8") for o in residual)
     assert all(gp.vars[o.input("Filter")].shape[:2] == (1, 1) for o in residual)
     assert sum(o.attrs["strides"] == [2, 2] for o in residual) == 3  # projections
-    stem = [o for o in torch_convs if not o.maybe_input("ResidualData")]
-    assert len(stem) == 1 and not stem[0].attrs.get("enable_int8")
-    assert gp.vars[stem[0].input("Filter")].shape[:2] == (7, 7)
+    assert all(gp.vars[o.input("ResidualData")].precision.value == "int8" for o in residual)
+    strided = [o for o in convs if o.attrs["strides"] != [1, 1]]
+    assert len(strided) == 6 and all(
+        gp.vars[o.input("Filter")].shape[:2] == (3, 3) for o in strided
+        if not o.maybe_input("ResidualData"))
+    torch_convs = [o for o in gp.ops if o.op_type == "conv2d" and "kernel" not in o.attrs]
+    assert len(torch_convs) == 1 and not torch_convs[0].attrs.get("enable_int8")
+    assert gp.vars[torch_convs[0].input("Filter")].shape[:2] == (7, 7)
 
 
 def _optimized(model):
@@ -169,7 +171,7 @@ def test_no_int8_conv_past_the_fp32_exact_k_on_torch(model):
             and o.attrs.get("kernel") != "cuda"]
     ks = [int(np.prod(g.vars[o.input("Filter")].shape[:3])) for o in left]
     assert max(ks, default=0) <= FP32_EXACT_K, ks
-    assert all(o.maybe_input("ResidualData") for o in left)
+    assert not left  # residual convs too: their int8 residual is in the GEMM's epilogue
 
 
 # ---- the pieces ResNet-50 adds, op by op against the reference ----------------
@@ -181,11 +183,16 @@ def _ref_env(gr, feed):
     return env
 
 
-@pytest.mark.parametrize("piece", ["stem", "max_pool", "residual_conv", "global_avg_pool"])
+@pytest.mark.parametrize("piece", ["stem", "max_pool", "residual_conv", "residual_conv.cuda",
+                                   "global_avg_pool"])
 def test_pipeline_piece_vs_reference(pair, piece):
     """One op of the optimized graph in both packages ("torch" in the port,
-    "xla" in the reference) on the inputs the reference run gave it."""
+    "xla" in the reference) on the inputs the reference run gave it;
+    ``residual_conv.cuda`` runs the port's "cuda" impl of the residual
+    convs (the GEMM's plain version on the CPU, its residual in the
+    epilogue)."""
     gr, gp = pair
+    piece, impl = (piece.split(".") + ["torch"])[:2]
     ops = {
         "stem": [o for o in gp.ops if o.op_type == "conv2d" and not o.attrs.get("enable_int8")],
         "max_pool": [o for o in gp.ops if o.op_type == "pool2d"
@@ -207,7 +214,7 @@ def test_pipeline_piece_vs_reference(pair, piece):
                  for s, ns in op.inputs.items() if ns}
         ref = np.asarray(next(iter(ROPS.get(rop.op_type).impls["xla"](rctx, rop, r_ins)
                                    .values()))[0])
-        got = next(iter(OPS.get(op.op_type).impls["torch"](ctx, op, p_ins).values()))[0].numpy()
+        got = next(iter(OPS.get(op.op_type).impls[impl](ctx, op, p_ins).values()))[0].numpy()
         assert got.dtype == ref.dtype and got.shape == ref.shape, out
         if piece in ("max_pool", "residual_conv", "global_avg_pool"):
             assert got.dtype == np.int8, out
