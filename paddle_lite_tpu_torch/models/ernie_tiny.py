@@ -4,15 +4,17 @@ Port of ``paddle_lite_tpu/models/ernie_tiny.py``: the same graph, op for
 op, and the same seeded weights, drawn in the same order from the
 builder's generator.  Token and segment ids (int32) look up their
 embeddings, a position embedding is added from a weight, then ``n_layers``
-post-norm encoder layers (self-attention of ``n_heads`` heads, a GELU FFN)
-→ the first token → a tanh pooler ``fc`` → the classifier ``fc`` →
-softmax.  The GEMMs are ``mul`` / ``fc`` ops (int8 after quantization);
-the attention matmuls, softmax and layer_norm stay float unless the
-config quantizes act×act matmuls.
+post-norm encoder layers (self-attention of ``n_heads`` heads, an FFN
+whose activation is ``hidden_act``) → the first token → a tanh pooler
+``fc`` → the classifier ``fc`` → softmax.  The GEMMs are ``mul`` / ``fc``
+ops (int8 after quantization); the attention matmuls, softmax and
+layer_norm stay float unless the config quantizes act×act matmuls.
 
-ERNIE-tiny's published shape: 3 layers, hidden 1024, 16 heads, FFN 4096,
-max_len 128.  The model has no attention mask: every position attends to
-every other, padding included.
+ERNIE-tiny's published shape: 3 layers, hidden 1024, 16 heads, FFN 4096
+with ReLU, vocabulary 50,006.  The builder's defaults keep the JAX
+package's graph: vocabulary 18,000 and GELU (``hidden_act="relu"`` is the
+published FFN).  The model has no attention mask: every position attends
+to every other, padding included.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import numpy as np
 from ..core.builder import GraphBuilder
 from ..core.ir import Graph
 from ..core.types import Precision
+
+HIDDEN_ACTS = ("gelu", "relu")  # the FFN's activation
 
 
 def _layer_norm(b: GraphBuilder, x: str, name: str) -> str:
@@ -75,7 +79,9 @@ def _attention(b: GraphBuilder, x: str, n_heads: int, name: str) -> str:
 def build(batch: int = 1, seq_len: int = 128, vocab_size: int = 18000,
           hidden: int = 1024, n_layers: int = 3, n_heads: int = 16,
           ffn_dim: int = 4096, num_classes: int = 2, seed: int = 0,
-          type_vocab: int = 4) -> Graph:
+          type_vocab: int = 4, hidden_act: str = "gelu") -> Graph:
+    if hidden_act not in HIDDEN_ACTS:
+        raise ValueError(f"hidden_act must be one of {HIDDEN_ACTS}, got {hidden_act!r}")
     b = GraphBuilder("ernie_tiny", seed=seed)
 
     tok = b.input("token_ids", (batch, seq_len), precision=Precision.INT32)
@@ -97,7 +103,7 @@ def build(batch: int = 1, seq_len: int = 128, vocab_size: int = 18000,
         attn = _attention(b, x, n_heads, f"l{i}.attn")
         x = b.eltwise(x, attn, "add")
         x = _layer_norm(b, x, f"l{i}.ln1")
-        ff = _dense(b, x, ffn_dim, f"l{i}.ffn1", act="gelu")
+        ff = _dense(b, x, ffn_dim, f"l{i}.ffn1", act=hidden_act)
         ff = _dense(b, ff, hidden, f"l{i}.ffn2")
         x = b.eltwise(x, ff, "add")
         x = _layer_norm(b, x, f"l{i}.ln2")
