@@ -33,9 +33,10 @@ Phases:
    → 3 requests through the compiled predictor (one CUDA graph a request:
    the first request's eager warm-up and its capture each launch every
    kernel once through its wrapper, and a replay calls no wrapper, so the
-   counters must read twice 14 GEMM and 13 depthwise launches; the profiled
-   replay of one request must run 14 and 13).  The int8 output must reach cosine > 0.99 against the
-   port's fp32 predictor; TF32 must be off while the fp32 predictor runs;
+   counters must read twice 14 GEMM and 13 depthwise launches, none of them
+   gathering a conv's rows (``launches_conv`` 0; nor on phases 10-12's
+   paths); the profiled replay of one request must run 14 and 13).  The
+   int8 output must reach cosine > 0.99 against the port's fp32 predictor; TF32 must be off while the fp32 predictor runs;
    against the same graph with the plain ``"torch"`` ops on the card, every
    kernel op fed identical inputs must agree up to rounding ties and the
    softmax output within 1e-3 (``paddle_lite_tpu_torch/testing/``).
@@ -54,12 +55,15 @@ Phases:
    instruction rate (the FMA rate above: none of the 13 is an FMA),
    printed with its plan (shared bytes, blocks an SM, waves).  Each of the
    16 int8 3x3 convs (four extra stages, twelve heads) runs as the GEMM
-   over its im2col rows: the whole route (copy and kernel), the copy alone
-   and the old torch route (an fp32 cuDNN conv, ``round``, the epilogue)
-   are timed on the card at each shape, the route within the tie bound of
-   the torch op.  Then 3 compiled requests: twice the graph's "cuda" ops
-   of each kind (33 GEMM: 17 pointwise and the 16 3x3 convs; 13 depthwise,
-   1 NMS) over warm-up and capture, and as many in one profiled replay;
+   over its im2col rows, which its launch gathers from the conv's input:
+   the gathering launch, the explicit rows (the copy and the dense launch,
+   the route before), the copy alone and the old torch route (an fp32
+   cuDNN conv, ``round``, the epilogue) are timed on the card at each
+   shape, the gather bit-equal to the explicit rows and within the tie
+   bound of the torch op.  Then 3 compiled requests: twice the graph's
+   "cuda" ops of each kind (33 GEMM: 17 pointwise and the 16 3x3 convs; 13
+   depthwise, 1 NMS) over warm-up and capture, twice 16 ``launches_conv``,
+   and as many in one profiled replay;
    every kernel op except ``multiclass_nms`` against its torch op on
    identical inputs (tie bound);
    ``multiclass_nms`` with the kernel against the same op with the plain
@@ -121,15 +125,15 @@ Phases:
 8. ResNet-50 b32/224 INT8 (``resnet.build`` → ``create_predictor(quant=
    QuantConfig(), ...)``, the second ``bench.py`` config): the GEMM kernel
    at every shape of the path (its 53 "cuda" ops: 16 reduce 1x1, 16 3x3
-   through im2col, 4 expansion convs, the 16 convs that carry the int8
-   residual in the GEMM's epilogue, the fc) bit-exact against its plain
-   version and timed as in phase 2, the residual ones with their residual
+   gathering their im2col rows, 4 expansion convs, the 16 convs that carry
+   the int8 residual in the GEMM's epilogue, the fc) bit-exact against its
+   plain version and timed as in phase 2, the residual ones with their residual
    (int8 and fp32 out) and once more with it sliced on its channel axis
    through the "cuda" conv; the route timings of phase 4 at every
    k×k or strided conv; a saturating 3x3 conv (C = 512, K = 4608, b32 at
    7x7, x and w in 100..127, so the accumulator passes 2^25; fp32 out,
-   scale 1) whose GEMM route must equal the exact accumulator rounded
-   once to fp32, bit for bit, and so must the ``"torch"`` route (fp32
+   scale 1) whose GEMM route, explicit and gathering, must equal the exact
+   accumulator rounded once to fp32, bit for bit, and so must the ``"torch"`` route (fp32
    convs of input-channel chunks of K <= 1040, each rounded, summed in
    int32; one fp32 conv of the whole K, the route before, printed as
    information); 3 compiled requests with twice the graph's "cuda" ops, as many in one
@@ -138,15 +142,17 @@ Phases:
    ``tests/test_models.py:41``); then phase 7a's checks on this path.
    img/s (compiled, in turns with the eager loop), fp32 img/s, one
    profiled request's top device kernels are information; a first run
-   counts twice 16 ``launches_residual``; no int8 conv is left on the
-   torch route.
+   counts twice 16 ``launches_residual`` and twice 16 ``launches_conv``,
+   and the profiled request holds no ``CatArrayBatchedCopy``; no int8 conv
+   is left on the torch route.
 9. DBNet-640 b4 INT8 with its zoo config (``recommended_quant
    ("ppocr_det")``: the defaults since the card's A/B, int8 depthwise
    convs, fp32 islands; PP-OCR detection, BASELINE config 4): the GEMM and
    depthwise kernels at every shape of the path (18 GEMM ops: 10 int8 1x1
    convs, the FPN's 3 int8 1x1 convs with the int8 residual in the
-   GEMM's epilogue, 5 int8 3x3 convs through im2col at M = 102,400, K =
-   864, N = 24; 8 depthwise) bit-exact against their plain versions and timed as in
+   GEMM's epilogue, 5 int8 3x3 convs gathering their im2col rows at M =
+   102,400, K = 864, N = 24, twice 5 ``launches_conv`` over a first run; 8
+   depthwise) bit-exact against their plain versions and timed as in
    phase 2; the route timings of phase 4 at its 3x3 convs; 3 compiled requests
    with twice the graph's "cuda" ops, as many in one profiled replay;
    every kernel op within the tie bound of its torch op; the probability
@@ -927,6 +933,7 @@ def _profile_take(pred, feed, top: int, reqs: int) -> dict:
               for name, symbol in KERNEL_SYMBOLS.items()}
     return {"wall_ms": wall_ms, "device_ms": sum(r[0] for r in rows),
             "by_kernel_ms": by_kernel, "kernel_launches": counts,
+            "cat_launches": sum(r[1] for r in rows if "CatArrayBatchedCopy" in r[2]),
             "sync_wait_ms": sync_ms, "profiler_ms": prof_ms, "requests": reqs,
             "graph_launch_ms": sum(h[0] for h in host if h[2] == "cudaGraphLaunch"),
             "top": [{"ms": r[0], "count": r[1], "name": r[2][:80], "symbol": r[2]}
@@ -975,7 +982,7 @@ def _reset_counts():
     from paddle_lite_tpu_torch.ops.kernels import depthwise, dw_pw_fused, int8_matmul, nms
 
     int8_matmul.launches = depthwise.launches = dw_pw_fused.launches = nms.launches = 0
-    int8_matmul.launches_i32 = int8_matmul.launches_residual = 0
+    int8_matmul.launches_i32 = int8_matmul.launches_residual = int8_matmul.launches_conv = 0
     depthwise.launches_by_stride = {1: 0, 2: 0}
 
 
@@ -1010,6 +1017,43 @@ def _check_residual_launches(path: str, gemm: list, n: int) -> None:
     if ops != n or int8_matmul.launches_residual != n * PER_FIRST_RUN:
         fail(f"{path}: expected {n} residual GEMM ops and {n * PER_FIRST_RUN} residual "
              f"launches over the first run, got {ops} and {int8_matmul.launches_residual}")
+
+
+def gather_convs(g) -> int:
+    """The "cuda" convs of `g` whose GEMM gathers its rows from the conv's
+    input (``int8_matmul.gathers``; no residual), as the route picks them."""
+    from paddle_lite_tpu_torch.ops.kernels import int8_matmul as km
+
+    n = 0
+    for op in g.ops:
+        if (op.op_type == "conv2d" and op.attrs.get("kernel") == "cuda"
+                and not op.maybe_input("ResidualData")):
+            kh, kw = g.vars[op.input("Filter")].shape[:2]
+            n += km.gathers(km.conv_geom(g.vars[op.input("Input")].shape, kh, kw,
+                                         op.attrs.get("strides", (1, 1)),
+                                         op.attrs.get("paddings", (0, 0))))
+    return n
+
+
+def _check_conv_launches(path: str, g, n: int) -> None:
+    """The first run's gathering GEMM launches: `n` gathering convs in the
+    graph (``gather_convs``), each launched once by the warm-up and once by
+    the capture (``int8_matmul.launches_conv``)."""
+    from paddle_lite_tpu_torch.ops.kernels import int8_matmul
+
+    ops = gather_convs(g)
+    print(f"  gathering GEMM ops a request: {ops}; launches_conv over the first run: "
+          f"{int8_matmul.launches_conv}")
+    if ops != n or int8_matmul.launches_conv != n * PER_FIRST_RUN:
+        fail(f"{path}: expected {n} gathering GEMM ops and {n * PER_FIRST_RUN} gathering "
+             f"launches over the first run, got {ops} and {int8_matmul.launches_conv}")
+
+
+def _check_no_im2col_copies(path: str, prof: dict) -> None:
+    """A profiled request makes no im2col rows: no ``CatArrayBatchedCopy``."""
+    print(f"  CatArrayBatchedCopy launches in one profiled request: {prof['cat_launches']:g}")
+    if prof["cat_launches"]:
+        fail(f"{path}: a request still concatenates im2col rows")
 
 
 def sliced_residual_rows(rng) -> list:
@@ -1125,7 +1169,8 @@ def _serving_numbers(pred8, pred32, feed, batch: int, top: int = 8,
             pred, on_dev, top=top, want=want if tag == "int8" else None)
         if p["device_ms"] == 0:  # the profiler saw nothing inside the replay
             e = _device_breakdown(_Eager(pred, on_dev), on_dev, top=top)
-            p.update({k: e[k] for k in ("device_ms", "by_kernel_ms", "kernel_launches", "top")},
+            p.update({k: e[k] for k in ("device_ms", "by_kernel_ms", "kernel_launches", "top",
+                                        "cat_launches")},
                      kernels_from="an eager request")
             print(f"  {tag}: the profiler shows no kernel inside the replayed graph; the "
                   f"kernel sums below are an eager request's, wall and host time the "
@@ -1178,6 +1223,7 @@ def phase_main_path():
     torch.cuda.synchronize()
     launches = _counts()
     _check_first_run("mobilenet_v1", launches, want)
+    _check_conv_launches("mobilenet_v1", g8, 0)
     PATHS["mobilenet_v1"] = (pred8, feeds, want)
 
     out_name = g8.outputs[0]
@@ -1525,16 +1571,32 @@ def torch_route_convs(g, env, weights, path: str, timed: bool = False) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _explicit_rows():
+    """The "cuda" conv on its explicit im2col rows (``im2col_nhwc`` and the
+    dense launch), as it ran before the gather."""
+    from paddle_lite_tpu_torch.ops.kernels import int8_matmul as km
+
+    gathers, km.gathers = km.gathers, lambda geom: False
+    try:
+        yield
+    finally:
+        km.gathers = gathers
+
+
 def conv_route_rows(rng, g, weights, path: str) -> list:
-    """Every "cuda" conv2d of `g` whose GEMM rows need an im2col copy (a
-    k×k or strided conv), one row a distinct shape and epilogue, counted
-    per request: on one random int8 input of the op's shape, with the op's
-    own weights and quant attrs, the whole GEMM route (the "cuda" impl: the
-    copy and the kernel), the copy alone (``im2col_nhwc``) and the old
+    """Every "cuda" conv2d of `g` whose GEMM rows are no view of its input
+    (a k×k, strided or padded conv), one row a distinct shape and epilogue,
+    counted per request: on one random int8 input of the op's shape, with
+    the op's own weights and quant attrs (and no residual), the gathering
+    launch (the "cuda" impl), the explicit rows (``im2col_nhwc`` and the
+    dense launch: the route before the gather), the copy alone and the
     torch route (the "torch" impl: an fp32 cuDNN conv, ``round`` and the
-    epilogue), timed in turns (route, torch, torch, route; the copy
-    between) as in phase 2; the route's output against the torch op's
-    within the tie bound."""
+    epilogue), timed in turns (gather, explicit, torch, torch, explicit,
+    gather; the copy after) as in phase 2.  The gather must equal the
+    explicit rows bit for bit, and the torch op within the tie bound.  A
+    conv that carries a residual on the path keeps the explicit rows there
+    (``on_path``), and the request's totals count it so."""
     from paddle_lite_tpu_torch.core.device import fp32_exact
     from paddle_lite_tpu_torch.core.executor import ExecutionContext
     from paddle_lite_tpu_torch.core.registry import OPS
@@ -1555,8 +1617,9 @@ def conv_route_rows(rng, g, weights, path: str) -> list:
         if (kh, kw, strides, pads) == (1, 1, (1, 1), ((0, 0), (0, 0))):
             continue  # a reshape: no copy
         x_shape = tuple(g.vars[op.input("Input")].shape)
+        on_path = "explicit" if op.maybe_input("ResidualData") else "gather"
         key = (x_shape, (kh, kw, c, oc), strides, pads, a.get("out_scale") is not None,
-               a.get("fuse_act"))
+               a.get("fuse_act"), on_path)
         if key in seen:
             seen[key]["per_request"] += 1
             continue
@@ -1566,41 +1629,57 @@ def conv_route_rows(rng, g, weights, path: str) -> list:
             ins["Bias"] = [weights[op.input("Bias")]]
         geom = (kh, kw, a.get("strides", (1, 1)), a.get("paddings", (0, 0)))
 
-        def route():
+        def gather():
             return impls["cuda"](ctx, op, ins)["Output"][0]
+
+        def explicit():
+            with _explicit_rows():
+                return impls["cuda"](ctx, op, ins)["Output"][0]
 
         def old():
             return impls["torch"](ctx, op, ins)["Output"][0]
 
+        calls = {"gather": gather, "explicit": explicit, "torch": old}
         with fp32_exact():
-            n_diff, max_diff = _cmp(route(), old())
-            t = {"route": [], "torch": []}
-            for tag in ("route", "torch", "torch", "route"):
-                t[tag].append(time_ms(route if tag == "route" else old))
+            got = gather()
+            n_gather_diff = _cmp(got, explicit())[0]
+            n_diff, max_diff = _cmp(got, old())
+            t = {tag: [] for tag in calls}
+            for tag in ("gather", "explicit", "torch", "torch", "explicit", "gather"):
+                t[tag].append(time_ms(calls[tag]))
             copy_ms = time_ms(lambda: im2col_nhwc(x, *geom))
         _, oh, ow, _ = g.vars[op.output("Output")].shape
         m, k = x_shape[0] * oh * ow, kh * kw * c
         row = {"path": path, "op": op.outputs["Output"][0], "x": list(x_shape),
                "w": [kh, kw, c, oc], "strides": list(strides), "paddings": [list(p) for p in pads],
                "gemm": [m, k, oc], "out": "int8" if a.get("out_scale") is not None else "fp32",
-               "act": a.get("fuse_act"), "route_ms": sum(t["route"]) / 2,
+               "act": a.get("fuse_act"), "on_path": on_path,
+               "gather_ms": sum(t["gather"]) / 2, "explicit_ms": sum(t["explicit"]) / 2,
                "torch_ms": sum(t["torch"]) / 2, "turns": t, "copy_ms": copy_ms,
-               "copy_bytes": m * k, "n_diff": n_diff, "max_diff": max_diff,
-               "numel": m * oc, "per_request": 1}
+               "copy_bytes": m * k, "gather_vs_explicit_diff": n_gather_diff,
+               "n_diff": n_diff, "max_diff": max_diff, "numel": m * oc, "per_request": 1}
+        row["path_ms"] = row[f"{on_path}_ms"]
         seen[key] = row
         rows.append(row)
     for r in rows:
         print(f"  route {r['op']:14s} x {str(r['x']):20s} w {str(r['w']):20s} s "
-              f"{r['strides']} GEMM {r['gemm']} {r['out']:4s} {str(r['act']):5s} x{r['per_request']}: "
-              f"im2col + kernel {r['route_ms']:.4f} ms (copy alone {r['copy_ms']:.4f}, "
-              f"{r['copy_bytes'] / 1e6:.3f} MB), torch route {r['torch_ms']:.4f} ms; "
-              f"vs the torch op {r['n_diff']} differ, max {r['max_diff']:.3g}")
+              f"{r['strides']} GEMM {r['gemm']} {r['out']:4s} {str(r['act']):5s} "
+              f"x{r['per_request']} ({r['on_path']} on the path): gather {r['gather_ms']:.4f} "
+              f"ms, im2col + kernel {r['explicit_ms']:.4f} ms (copy alone {r['copy_ms']:.4f}, "
+              f"{r['copy_bytes'] / 1e6:.3f} MB), torch route {r['torch_ms']:.4f} ms; gather vs "
+              f"explicit {r['gather_vs_explicit_diff']} differ, vs the torch op {r['n_diff']} "
+              f"differ, max {r['max_diff']:.3g}")
     tot = {k: sum(r[k] * r["per_request"] for r in rows)
-           for k in ("route_ms", "copy_ms", "torch_ms", "copy_bytes")}
-    print(f"  {path}: a request's k×k and strided GEMM convs ({sum(r['per_request'] for r in rows)}): "
-          f"im2col + kernel {tot['route_ms']:.4f} ms, of it the copies {tot['copy_ms']:.4f} ms "
-          f"({tot['copy_bytes'] / 1e6:.3f} MB written), against the torch route "
-          f"{tot['torch_ms']:.4f} ms")
+           for k in ("gather_ms", "explicit_ms", "path_ms", "copy_ms", "torch_ms", "copy_bytes")}
+    print(f"  {path}: a request's k×k and strided GEMM convs ({sum(r['per_request'] for r in rows)}, "
+          f"{sum(r['per_request'] for r in rows if r['on_path'] == 'gather')} gathering on the "
+          f"path): on the path {tot['path_ms']:.4f} ms; all gathering {tot['gather_ms']:.4f} ms, "
+          f"all on explicit rows {tot['explicit_ms']:.4f} ms, of it the copies "
+          f"{tot['copy_ms']:.4f} ms ({tot['copy_bytes'] / 1e6:.3f} MB written), against the "
+          f"torch route {tot['torch_ms']:.4f} ms")
+    if any(r["gather_vs_explicit_diff"] for r in rows):
+        fail(f"{path}: a gathering launch differs from the explicit rows: "
+             f"{[r for r in rows if r['gather_vs_explicit_diff']]}")
     bad = [r for r in rows if not within_tie_bound(
         [{"numel": r["numel"], "n_diff": r["n_diff"], "max_diff": r["max_diff"]}])]
     if bad:
@@ -1689,6 +1768,7 @@ def phase_ssd(fma_per_s: float):
     torch.cuda.synchronize()
     launches = _counts()
     _check_first_run("ssd", launches, want)
+    _check_conv_launches("ssd", g8, 16)
     PATHS["ssd"] = (pred8, feeds, want)
     for i, o in enumerate(outs):
         y = o[out_name]
@@ -2304,7 +2384,7 @@ def saturating_conv(rng) -> dict:
     """A 3x3 conv at C = 512 (K = 4608), b32 at 7×7, x and w both drawn
     from 100..127 (one sign), so that the accumulator passes 2^25; fp32
     out, scale 1, no bias, no activation.  The GEMM route (im2col and the
-    kernel) and the port's ``"torch"`` route (fp32 convs of input-channel
+    kernel, and the gathering launch) and the port's ``"torch"`` route (fp32 convs of input-channel
     chunks of K <= 1040, each rounded, summed in int32) must each equal,
     bit for bit, the exact accumulator rounded once to fp32: what the
     reference's epilogue makes of its int32 accumulator, and what the
@@ -2324,6 +2404,7 @@ def saturating_conv(rng) -> dict:
     geom = ((1, 1), ((1, 1), (1, 1)), (1, 1), 1)
     cols = im2col_nhwc(x, 3, 3, (1, 1), (1, 1))
     got = km.int8_matmul(cols, w2, ones, w_nk=w2.t().contiguous())
+    gathered = km.int8_conv(x, w2, ones, kh=3, kw=3, strides=(1, 1), paddings=(1, 1))
     exact = km.int8_matmul_plain(cols, w2, ones)
     acc64 = conv_nhwc(x.double(), w.double().permute(3, 2, 0, 1).contiguous(),
                       *geom).reshape(-1, 512)
@@ -2333,6 +2414,7 @@ def saturating_conv(rng) -> dict:
         fp32 = torch.round(conv_nhwc(x.float(), w_oihw, *geom)).reshape(-1, 512)
     out = {"shape": [32, 7, 7, 512, 3, 512], "k": 4608, "max_acc": float(acc64.max()),
            "kernel_vs_exact": _cmp(got, exact)[0],
+           "gather_vs_exact": _cmp(gathered.reshape(-1, 512), exact)[0],
            "plain_vs_float64_conv": _cmp(exact, acc64.float())[0],
            "torch_route_vs_exact": _cmp(route, acc64.float())[0],
            "one_fp32_conv_vs_exact": _cmp(fp32, acc64.float())[0],
@@ -2340,6 +2422,7 @@ def saturating_conv(rng) -> dict:
     print(f"  saturating 3x3 conv, C 512 (K 4608), b32 at 7x7, x and w in 100..127: largest "
           f"accumulator {out['max_acc']:.10g} (2^25 = {2**25}); against the exact accumulator "
           f"rounded once to fp32, the GEMM route differs in {out['kernel_vs_exact']} elements "
+          f"(gathering its rows in {out['gather_vs_exact']}) "
           f"(the plain version from a float64 conv in {out['plain_vs_float64_conv']}), the "
           f"torch route (chunks of K <= 1040, int32 sum) in {out['torch_route_vs_exact']}; "
           f"information: one fp32 conv of the whole K differs in "
@@ -2347,7 +2430,8 @@ def saturating_conv(rng) -> dict:
           f"{out['one_fp32_conv_max_err']:.6g} from the exact sum")
     if not out["max_acc"] > 2 ** 25:
         fail(f"the saturating case's accumulator {out['max_acc']} does not pass 2^25")
-    if out["kernel_vs_exact"] or out["plain_vs_float64_conv"] or out["torch_route_vs_exact"]:
+    if (out["kernel_vs_exact"] or out["gather_vs_exact"] or out["plain_vs_float64_conv"]
+            or out["torch_route_vs_exact"]):
         fail(f"a route is not the exact accumulator rounded once to fp32: {out}")
     return out
 
@@ -2396,6 +2480,7 @@ def phase_resnet(fma_per_s: float):
     launches = _counts()
     _check_first_run("resnet50", launches, want)
     _check_residual_launches("resnet50", gemm, 16)
+    _check_conv_launches("resnet50", g8, 16)
     out_name = g8.outputs[0]
     coss = []
     for i, (f, o) in enumerate(zip(feeds, outs)):
@@ -2426,6 +2511,7 @@ def phase_resnet(fma_per_s: float):
     # compiled request against the eager loop, as phase 7a does
     serving = _serving_numbers(pred8, pred32, feeds[0], RESNET_BATCH, top=16, want=want)
     _check_profiled_launches("resnet50", serving["profile"]["int8"], want)
+    _check_no_im2col_copies("resnet50", serving["profile"]["int8"])
     compiled = compiled_vs_eager("resnet50", pred8, feeds, want)
     return rows, launches, dict(serving, cosine=coss, op_local_worst_fraction=worst,
                                 op_local_outputs_with_diff=n_diff,
@@ -2440,10 +2526,11 @@ DBNET_BATCH, DBNET_SIZE = 4, 640  # the reference benchmark's DBNet (tools/bench
 DBNET_MAP_MEAN_ABS = 0.05  # the reference's bar (tests/test_model_zoo_int8.py:103)
 
 
-def _path_checks(path: str, g8, pred8, feeds, want: dict) -> dict:
+def _path_checks(path: str, g8, pred8, feeds, want: dict, gathering: int = 0) -> dict:
     """Three compiled requests (launches: twice the graph's "cuda" ops of
-    each kind) and every kernel op within the tie bound of its torch op on
-    identical inputs; returns the outputs and the op-by-op numbers."""
+    each kind, and twice `gathering` gathering GEMM launches) and every
+    kernel op within the tie bound of its torch op on identical inputs;
+    returns the outputs and the op-by-op numbers."""
     from paddle_lite_tpu_torch.testing import (TIE_FRACTION, TIE_LSB, op_local_diffs,
                                                within_tie_bound)
 
@@ -2452,6 +2539,7 @@ def _path_checks(path: str, g8, pred8, feeds, want: dict) -> dict:
     torch.cuda.synchronize()
     launches = _counts()
     _check_first_run(path, launches, want)
+    _check_conv_launches(path, g8, gathering)
     local = op_local_diffs(g8, pred8._weights, feeds[0], DEV)
     n_diff = sum(1 for d in local if d["n_diff"])
     worst = max(d["n_diff"] / d["numel"] for d in local)
@@ -2498,7 +2586,7 @@ def phase_dbnet(fma_per_s: float):
     print(f"  kernel ops a request: {want}")
     if (want["int8_gemm"], want["dw_conv"], want["dw_pw_fused"], want["nms"]) != (18, 8, 0, 0):
         fail(f"expected 18 GEMM and 8 depthwise ops on the kernels, got {want}")
-    checks = _path_checks("dbnet", g8, pred8, feeds, want)
+    checks = _path_checks("dbnet", g8, pred8, feeds, want, gathering=5)
     PATHS["dbnet"] = (pred8, feeds, want)
     out_name = g8.outputs[0]
     diffs, boxes = [], []

@@ -10,10 +10,12 @@ that feeds it (the projection in a stage's first block, the expansion in
 the others) and the trailing relu into that conv's epilogue.
 
 Under ``QuantConfig()`` the 7x7 stem stays fp32 (``skip_stem_conv``) on
-the ``"torch"`` conv; the 16 reduce 1x1 convs, the 16 3x3 convs (through
-their im2col rows), the 4 expansion convs without a residual, the 16 convs
-that carry the int8 residual (added in the GEMM's epilogue) and the fc run
-on the int8 GEMM: 53 launches (``ops/kernels/select.py``).
+the ``"torch"`` conv; the 16 reduce 1x1 convs, the 16 3x3 convs (whose
+launches gather their im2col rows from the input, ``int8_matmul.int8_conv``),
+the 4 expansion convs without a residual, the 16 convs that carry the int8
+residual (added in the GEMM's epilogue; the 3 strided projections among
+them run on their explicit rows, one strided copy each) and the fc run on
+the int8 GEMM: 53 launches (``ops/kernels/select.py``).
 """
 
 from __future__ import annotations

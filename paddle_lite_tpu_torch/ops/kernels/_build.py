@@ -10,7 +10,10 @@ import every module on a machine without ``nvcc``.
 Flags: ``sm_90a`` (Hopper), ``--fmad=false`` so that ``acc*scale`` and
 ``+bias`` round separately, as in the reference epilogue (and NMS's
 ``(area_j + area_i) - ix*iy`` likewise), and ``--split-compile=0`` so that
-the depthwise kernel's 48 instantiations compile on all cores.
+the depthwise kernel's 48 instantiations compile on all cores.  The int8
+GEMM is two sources over one kernel (``int8_gemm.cuh``): its dense
+instantiations and its gathering conv ones, two libraries built by two
+``nvcc`` side by side.
 """
 
 from __future__ import annotations
@@ -32,13 +35,14 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-SOURCES = {"int8_gemm": "int8_gemm.cu", "dw_conv": "dw_conv.cu",
-           "nms": "nms.cu", "dw_pw_fused": "dw_pw_fused.cu",
+SOURCES = {"int8_gemm": "int8_gemm.cu", "int8_gemm_conv": "int8_gemm_conv.cu",
+           "dw_conv": "dw_conv.cu", "nms": "nms.cu", "dw_pw_fused": "dw_pw_fused.cu",
            "graph_cond": "graph_cond.cu"}
-HEADERS = ("epilogue.cuh", "mma_s8.cuh", "wgmma_s8.cuh")
+HEADERS = ("epilogue.cuh", "int8_gemm.cuh", "mma_s8.cuh", "wgmma_s8.cuh")
 # per-device set-up a library needs before its first launch on a device
 # (shared-memory limits of its kernels), by C function
 PREPARE = {"dw_conv": "plt_dw_conv_prepare", "int8_gemm": "plt_int8_gemm_prepare",
+           "int8_gemm_conv": "plt_int8_gemm_conv_prepare",
            "dw_pw_fused": "plt_dw_pw_fused_prepare", "nms": "plt_nms_prepare"}
 
 NVCC_FLAGS = [
@@ -157,6 +161,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         # ... act, the output kind, inv_out_scale, the residual and its scale, then
         # the plan: bn, bk, warpgroups, width, out_width, shared bytes, blocks
         fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, *act, ci, cf, vp, cf,
+                       ci, ci, ci, ci, ci, ci, ci, vp]
+    elif name == "int8_gemm_conv":
+        lib.plt_int8_gemm_conv_prepare.argtypes = []
+        lib.plt_int8_gemm_conv_prepare.restype = ci
+        lib.plt_int8_gemm_conv_occupancy.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
+        lib.plt_int8_gemm_conv_occupancy.restype = ci
+        fn = lib.plt_int8_gemm_conv
+        # x, Bt, scale, bias, out, then the conv: n, h, w, c, kh, kw, sh, sw,
+        # pt, pb, pl, pr, oc; act, the output kind, inv_out_scale, then the plan
+        fn.argtypes = [vp, vp, vp, vp, vp, *[ci] * 13, *act, ci, cf,
                        ci, ci, ci, ci, ci, ci, ci, vp]
     elif name == "dw_conv":
         lib.plt_dw_conv_prepare.argtypes = []

@@ -5,9 +5,9 @@ holds three things; here each has its counterpart:
 
 - ``_gemm_problem`` (``:31-48`` there): the (m, k, n) of an op that the
   GEMM takes.  The reference maps only 1x1 stride-1 convs; the port runs
-  every group-1 conv without a residual on the GEMM through its im2col
-  rows (``ops_cuda.im2col_nhwc``), so a conv's problem is (N·OH·OW,
-  kh·kw·C, OC), the rows the route hands the kernel.  Only an op
+  every group-1 conv on the GEMM over its im2col rows, gathered by the
+  launch or explicit (``ops_cuda.conv2d_cuda``), so a conv's problem is
+  (N·OH·OW, kh·kw·C, OC), the rows the kernel multiplies.  Only an op
   ``select.gemm_eligible`` takes has a problem.
 - ``choose_kernel`` (``:51-92``): ``select.choose_kernel``, which reads the
   measured table (``tune_cache``) bucket by bucket.
@@ -32,7 +32,7 @@ from .int8_matmul import BN_CHOICES, SMEM_LIMIT, slab_depths, smem_bytes
 
 def _gemm_problem(graph, op) -> Optional[Tuple[int, int, int]]:
     """(m, k, n) of an op the GEMM takes (``select.gemm_eligible``): an
-    ``fc`` / ``mul`` as its 2-D product, a ``conv2d`` as its im2col rows;
+    ``fc`` / ``mul`` as its 2-D product, a ``conv2d`` over its im2col rows;
     None for another op."""
     from .select import gemm_eligible
 

@@ -1,7 +1,8 @@
-"""The four kernel entry points as PyTorch custom ops: ``plt::int8_gemm``,
-``plt::dw_conv``, ``plt::dw_pw_fused`` and ``plt::nms_keep``.
+"""The kernel entry points as PyTorch custom ops: ``plt::int8_gemm``,
+``plt::int8_conv`` (the GEMM's gathering launch), ``plt::dw_conv``,
+``plt::dw_pw_fused`` and ``plt::nms_keep``.
 
-Every ``"cuda"`` impl reaches its kernel through :func:`gemm`,
+Every ``"cuda"`` impl reaches its kernel through :func:`gemm`, :func:`conv`,
 :func:`dw_conv`, :func:`fused` and :func:`nms_keep`.  Under
 ``torch.export`` (``formats/aot.py``) they emit the custom op, so the
 traced program holds each kernel as one opaque op, where the ctypes launch
@@ -13,22 +14,25 @@ H100 80GB HBM3 at 700 W; ``chip_smoke.py`` phase 15b measures it); the
 compiled path replays CUDA graphs and pays it in neither case.
 
 Each op's body is the wrapper itself (:func:`~.int8_matmul.int8_matmul`,
-:func:`~.depthwise.dw_conv_int8`, :func:`~.dw_pw_fused.fused_dw_pw_int8`,
-:func:`~.nms.nms_keep_scores`): on a CUDA tensor it launches the kernel and
-counts the launch, on a CPU tensor it runs the plain version.  Each op's
-fake (``register_fake``) gives the output's shape and dtype only, for
-tracing.  The ops register when ``paddle_lite_tpu_torch.ops`` is imported,
-so a loaded exported program finds them.
+:func:`~.int8_matmul.int8_conv`, :func:`~.depthwise.dw_conv_int8`,
+:func:`~.dw_pw_fused.fused_dw_pw_int8`, :func:`~.nms.nms_keep_scores`): on
+a CUDA tensor it launches the kernel and counts the launch, on a CPU
+tensor it runs the plain version.  Each op's fake (``register_fake``) gives
+the output's shape and dtype only, for tracing.  The ops register when
+``paddle_lite_tpu_torch.ops`` is imported, so a loaded exported program
+finds them.
 
 The schemas take tensors, numbers and strings: an activation's attributes
 travel as sorted JSON (:func:`attrs_json`), a requant scale as a float or
-None, the GEMM's residual as a tensor or None with its scale.
+None, the GEMM's residual as a tensor or None with its scale, a gathering
+conv's window as eight ints (kh, kw, the strides, the paddings top, bottom,
+left, right).
 """
 
 from __future__ import annotations
 
 import json
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -63,6 +67,28 @@ def _int8_gemm(x: torch.Tensor, w: torch.Tensor, eff_scale: torch.Tensor,
 @_int8_gemm.register_fake
 def _(x, w, eff_scale, bias, w_nk, act, act_attrs, out_scale, residual, residual_scale):
     return x.new_empty((x.shape[0], w.shape[1]),
+                       dtype=torch.float32 if out_scale is None else torch.int8)
+
+
+def _window(window: List[int]) -> dict:
+    """A gathering conv's window as :func:`~.int8_matmul.int8_conv` takes it."""
+    kh, kw, sh, sw, pt, pb, pl, pr = window
+    return dict(kh=kh, kw=kw, strides=(sh, sw), paddings=(pt, pb, pl, pr))
+
+
+@torch.library.custom_op("plt::int8_conv", mutates_args=())
+def _int8_conv(x: torch.Tensor, w: torch.Tensor, eff_scale: torch.Tensor,
+               bias: Optional[torch.Tensor], w_nk: Optional[torch.Tensor],
+               window: List[int], act: Optional[str], act_attrs: str,
+               out_scale: Optional[float]) -> torch.Tensor:
+    return int8_matmul.int8_conv(x, w, eff_scale, bias, **_window(window), act=act,
+                                 act_attrs=_attrs(act_attrs), out_scale=out_scale, w_nk=w_nk)
+
+
+@_int8_conv.register_fake
+def _(x, w, eff_scale, bias, w_nk, window, act, act_attrs, out_scale):
+    g = int8_matmul.conv_geom(x.shape, **_window(window))
+    return x.new_empty((g.n, g.oh, g.ow, w.shape[1]),
                        dtype=torch.float32 if out_scale is None else torch.int8)
 
 
@@ -127,6 +153,19 @@ def gemm(x, w, eff_scale, bias=None, *, act=None, act_attrs=None, out_scale=None
                                        residual_scale=residual_scale)
     return torch.ops.plt.int8_gemm(x, w, eff_scale, bias, w_nk, act, attrs_json(act_attrs),
                                    _scale(out_scale), residual, _scale(residual_scale))
+
+
+def conv(x, w, eff_scale, bias=None, *, kh, kw, strides, paddings, act=None,
+         act_attrs=None, out_scale=None, w_nk=None) -> torch.Tensor:
+    """``plt::int8_conv``: :func:`~.int8_matmul.int8_conv`'s arguments."""
+    if not torch.compiler.is_exporting():
+        return int8_matmul.int8_conv(x, w, eff_scale, bias, kh=kh, kw=kw, strides=strides,
+                                     paddings=paddings, act=act, act_attrs=act_attrs,
+                                     out_scale=out_scale, w_nk=w_nk)
+    g = int8_matmul.conv_geom(x.shape, kh, kw, strides, paddings)
+    return torch.ops.plt.int8_conv(x, w, eff_scale, bias, w_nk,
+                                   [g.kh, g.kw, g.sh, g.sw, g.pt, g.pb, g.pl, g.pr], act,
+                                   attrs_json(act_attrs), _scale(out_scale))
 
 
 def dw_conv(x, w, eff_scale, bias=None, *, stride=1, act=None, act_attrs=None,

@@ -35,6 +35,16 @@ orders it.  Such a launch runs the kernel's residual instantiation, whose
 block also holds a ring of residual tiles (:func:`res_slots`), and is
 planned by the heuristic alone: the stored plans were measured without
 that ring.
+
+Convs: :func:`int8_conv` is a group-1, dilation-1 conv of an NHWC int8
+input as the GEMM over its im2col rows (:func:`im2col_nhwc`), with the rows
+never made: the kernel's gathering launch (``csrc/int8_gemm_conv.cu``)
+reads each slab's pieces from the input at their rows' taps, zero where a
+tap lies in the padding.  The same products in the same K order as the
+dense launch over the explicit rows, so the two are bit-equal.  A
+gathering launch is planned by :func:`default_plan` at the
+rows' (M, K, N), its pieces as wide as C allows (:func:`copy_width` of C):
+the stored plans were measured on explicit rows.
 """
 
 from __future__ import annotations
@@ -44,16 +54,20 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..common import act_params, apply_activation, f32, gelu_approximate
+from ..common import (act_params, apply_activation, conv_out_size, f32, gelu_approximate,
+                      normalize_2d, normalize_paddings)
 from . import _build, tune_cache
 
 # launches of the CUDA kernel, counted by the wrappers (CPU calls not
-# counted): fp32 / int8 out by int8_matmul, int32 out by int8_matmul_i32;
-# launches_residual counts those of int8_matmul's that took a residual
+# counted): fp32 / int8 out by int8_matmul and int8_conv, int32 out by
+# int8_matmul_i32; launches_residual counts those of int8_matmul's that took
+# a residual, launches_conv int8_conv's, which gathered their A
 launches = 0
 launches_i32 = 0
 launches_residual = 0
+launches_conv = 0
 
 # the activations of every kernel's epilogue (``csrc/epilogue.cuh``,
 # ``plt::Act``): those whose fp32 arithmetic the kernels reproduce exactly.
@@ -157,7 +171,8 @@ class Plan(NamedTuple):
     ``smem_bytes`` of shared memory; the launch's blocks (:func:`blocks`)
     walk the problem's ``tiles`` tiles between them.  ``residual``: the
     plan of the residual instantiation, whose shared bytes hold the
-    residual ring too."""
+    residual ring too.  ``conv``: of a gathering instantiation, whose
+    pieces are as wide as the conv's C allows (:func:`copy_width` of C)."""
     bn: int
     bk: int
     warpgroups: int
@@ -166,6 +181,7 @@ class Plan(NamedTuple):
     smem_bytes: int
     tiles: int
     residual: bool = False
+    conv: bool = False
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -214,11 +230,13 @@ def _res_slots(k: int, bk: int, residual: bool) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def default_plan(m: int, k: int, n: int, out: int, residual: bool = False) -> Plan:
+def default_plan(m: int, k: int, n: int, out: int, residual: bool = False,
+                 conv_c: int = 0) -> Plan:
     """The heuristic tiling of one (M, K) · (K, N) int8 GEMM with output
     kind `out` (:data:`OUT_F32`, :data:`OUT_I8`, :data:`OUT_I32`), with a
-    residual or without: pure Python, so the CPU tests check it; the
-    kernel checks what it is given and refuses a plan it cannot take.
+    residual or without, a gathering launch of a conv of `conv_c` input
+    channels or (0) a dense one: pure Python, so the CPU tests check it;
+    the kernel checks what it is given and refuses a plan it cannot take.
     Raises ValueError for a problem it cannot take.
 
     BN is the narrowest tile width that covers N up to 256 (so A is read
@@ -246,7 +264,7 @@ def default_plan(m: int, k: int, n: int, out: int, residual: bool = False) -> Pl
         rbn, rbk = (min(bn, 64), 32 if k <= 32 else 64) if k <= 256 else (min(bn, 128), 128)
         rwgs = 2 if m > 64 else 1
         if smem_bytes(64 * rwgs, rbn, rbk, out, res_slots(k, rbk)) <= SMEM_LIMIT:
-            return plan_of(m, k, n, out, rbn, rbk, rwgs, True)
+            return plan_of(m, k, n, out, rbn, rbk, rwgs, True, conv_c)
 
     def tiles(wgs, bn):
         return _cdiv(m, 64 * wgs) * _cdiv(n, bn)
@@ -260,21 +278,25 @@ def default_plan(m: int, k: int, n: int, out: int, residual: bool = False) -> Pl
         bk = next((bk for bk in slab_depths(k) if smem_bytes(
             64 * wgs, bn, bk, out, _res_slots(k, bk, residual)) <= SMEM_LIMIT), None)
         if bk is not None:
-            return plan_of(m, k, n, out, bn, bk, wgs, residual)
+            return plan_of(m, k, n, out, bn, bk, wgs, residual, conv_c)
         wgs, bn = (1, bn) if wgs == 2 else (1, bn // 2)
 
 
 def plan_of(m: int, k: int, n: int, out: int, bn: int, bk: int, wgs: int,
-            residual: bool = False) -> Plan:
+            residual: bool = False, conv_c: int = 0) -> Plan:
     """The plan of one GEMM at tile width `bn`, slab depth `bk` and `wgs`
-    warpgroups, with a residual or without (its copy widths, shared bytes
+    warpgroups, with a residual or without, gathering the rows of a conv
+    of `conv_c` input channels or (0) not (its copy widths, shared bytes
     and tiles follow); raises ValueError for one the kernel cannot run."""
     if bn not in BN_CHOICES or bk not in (32, 64, 128) or wgs not in (1, 2):
         raise ValueError(f"int8_matmul: no instantiation takes bn={bn}, bk={bk}, "
                          f"{wgs} warpgroups")
     if residual and out == OUT_I32:
         raise ValueError("int8_matmul: the int32 output kind takes no residual")
-    width = copy_width(k)
+    if conv_c and (residual or out == OUT_I32):
+        raise ValueError("int8_matmul: a gathering launch has an fp32 or int8 output "
+                         "and no residual")
+    width = copy_width(conv_c) if conv_c else copy_width(k)
     smem = smem_bytes(64 * wgs, bn, bk, out, _res_slots(k, bk, residual))
     if smem > SMEM_LIMIT:
         raise ValueError(f"int8_matmul: bn={bn}, bk={bk}, {wgs} warpgroups take {smem} "
@@ -284,18 +306,18 @@ def plan_of(m: int, k: int, n: int, out: int, bn: int, bk: int, wgs: int,
         raise ValueError(f"int8_matmul: {(m, k, n)} has 2^31 tiles or more")
     es = 1 if out == OUT_I8 else 4
     out_width = next(w for w in (16, 8, 4, 2, 1) if (n * es) % w == 0 and (bn * es) % w == 0)
-    return Plan(bn, bk, wgs, width, out_width, smem, tiles, residual)
+    return Plan(bn, bk, wgs, width, out_width, smem, tiles, residual, bool(conv_c))
 
 
 def plan(m: int, k: int, n: int, out: int, residual: bool = False) -> Plan:
-    """The tiling of one GEMM: the plan measured fastest for its bucket and
-    output kind on the card (``tune_cache.lookup_blocks``, filled by
-    ``tune_cache.sweep_gemm_blocks``), else :func:`default_plan`.  A stored
-    plan the kernel cannot run raises (:func:`plan_of`).  A launch with a
-    residual takes :func:`default_plan`'s: no stored plan was measured with
-    the residual ring."""
+    """The tiling of one dense GEMM: the plan measured fastest for its
+    bucket and output kind on the card (``tune_cache.lookup_blocks``, filled
+    by ``tune_cache.sweep_gemm_blocks``), else :func:`default_plan`.  A
+    stored plan the kernel cannot run raises (:func:`plan_of`).  A launch
+    with a residual takes :func:`default_plan`'s: no stored plan was
+    measured with the residual ring."""
     if residual:
-        return default_plan(m, k, n, out, True)
+        return default_plan(m, k, n, out, residual)
     stored = tune_cache.lookup_blocks(m, k, n, out)
     if stored is None:
         return default_plan(m, k, n, out)
@@ -304,16 +326,20 @@ def plan(m: int, k: int, n: int, out: int, residual: bool = False) -> Plan:
 
 @functools.lru_cache(maxsize=None)
 def _resident(device: int, bn: int, wgs: int, out: int, smem: int,
-              residual: bool = False) -> int:
+              residual: bool = False, conv: bool = False) -> int:
     """Blocks of one instantiation the card `device` holds at once, as the
     built library reports its occupancy."""
     import ctypes
 
     with torch.cuda.device(device):
         per_sm = ctypes.c_int()
-        _build.check(_build.load("int8_gemm").plt_int8_gemm_occupancy(
-            bn, wgs, int(out), int(residual), smem, ctypes.byref(per_sm)),
-            "int8_gemm occupancy")
+        if conv:
+            rc = _build.load("int8_gemm_conv").plt_int8_gemm_conv_occupancy(
+                bn, wgs, int(out), smem, ctypes.byref(per_sm))
+        else:
+            rc = _build.load("int8_gemm").plt_int8_gemm_occupancy(
+                bn, wgs, int(out), int(residual), smem, ctypes.byref(per_sm))
+        _build.check(rc, "int8_gemm occupancy")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, per_sm.value) * sms
 
@@ -322,7 +348,7 @@ def blocks(p: Plan, out: int, device: int) -> int:
     """The launch's blocks: as many as the card holds at once, at most one
     a tile; each walks its tiles (csrc/int8_gemm.cu)."""
     return min(p.tiles, _resident(device, p.bn, p.warpgroups, int(out), p.smem_bytes,
-                                  p.residual))
+                                  p.residual, p.conv))
 
 
 def check_aligned(p: Plan, k: int, **operands: torch.Tensor) -> None:
@@ -374,6 +400,8 @@ def _launch(x_q, w_nk, scale, bias, out, act_c, out_kind: int, inv: float,
     if p.residual != (residual is not None):
         raise ValueError(f"int8_matmul: a plan {'with' if p.residual else 'without'} the "
                          f"residual ring for a launch {'without' if p.residual else 'with'} one")
+    if p.conv:
+        raise ValueError("int8_matmul: a gathering plan for a dense launch")
     check_aligned(p, k, x_q=x_q, w_nk=w_nk)
     lib = _build.load("int8_gemm")
     rc = lib.plt_int8_gemm(
@@ -452,3 +480,154 @@ def int8_matmul_i32(
     _check_i32_k(k)
     out = torch.empty((m, n), device=x_q.device, dtype=torch.int32)
     return _launch(x_q, w_nk, None, None, out, act_args(None), OUT_I32, 0.0, tiling)
+
+
+# ---- convs: the GEMM over the im2col rows, gathered or explicit ----------------
+
+class ConvGeom(NamedTuple):
+    """A group-1, dilation-1 conv of an (n, h, w, c) NHWC input: a kh × kw
+    window at strides (sh, sw) and paddings pt, pb (top, bottom), pl, pr
+    (left, right).  Its GEMM is over (m, k) = (n·oh·ow, kh·kw·c) im2col
+    rows."""
+    n: int
+    h: int
+    w: int
+    c: int
+    kh: int
+    kw: int
+    sh: int
+    sw: int
+    pt: int
+    pb: int
+    pl: int
+    pr: int
+
+    @property
+    def oh(self) -> int:
+        return conv_out_size(self.h, self.kh, self.sh, (self.pt, self.pb), 1)
+
+    @property
+    def ow(self) -> int:
+        return conv_out_size(self.w, self.kw, self.sw, (self.pl, self.pr), 1)
+
+    @property
+    def m(self) -> int:
+        return self.n * self.oh * self.ow
+
+    @property
+    def k(self) -> int:
+        return self.kh * self.kw * self.c
+
+
+def conv_geom(x_shape, kh: int, kw: int, strides, paddings) -> ConvGeom:
+    """The :class:`ConvGeom` of a conv of an NHWC input of `x_shape`, with
+    Paddle's strides and paddings ([h, w] or [top, bottom, left, right])."""
+    (sh, sw), ((pt, pb), (pl, pr)) = normalize_2d(strides), normalize_paddings(paddings)
+    n, h, w, c = (int(v) for v in x_shape)
+    return ConvGeom(n, h, w, c, int(kh), int(kw), sh, sw, pt, pb, pl, pr)
+
+
+def gathers(g: ConvGeom) -> bool:
+    """Whether the conv's GEMM gathers its rows (:func:`int8_conv`): they
+    are no view of the input (a window past 1x1, a stride or a padding),
+    and C is even, so that a piece of 2 bytes or more holds channels of
+    one tap only.  A 1x1, stride-1, unpadded conv's rows are its input
+    itself; a conv of odd C (its K even only through an even kh·kw) takes
+    the explicit rows."""
+    view = (g.kh, g.kw, g.sh, g.sw, g.pt, g.pb, g.pl, g.pr) == (1, 1, 1, 1, 0, 0, 0, 0)
+    return not view and g.c % 2 == 0
+
+
+def im2col_nhwc(x: torch.Tensor, kh: int, kw: int, strides, paddings) -> torch.Tensor:
+    """(N, H, W, C) int8 → its (N·OH·OW, kh·kw·C) im2col rows, each row in
+    (i, j, c) order: the row order of an HWIO filter reshaped to
+    (kh·kw·C, OC).  The input is zero-padded (zero is int8's zero point:
+    the port's quantization is symmetric) and the kh·kw strided tap slices
+    are concatenated on the last axis.  A 1x1 conv without padding has one
+    tap: at stride 1 its rows are a view of `x`, at another stride one
+    strided copy.  The plain version of a gathering launch's rows, and the
+    rows of a conv that does not gather (:func:`gathers`)."""
+    g = conv_geom(x.shape, kh, kw, strides, paddings)
+    xp = x if (g.pt, g.pb, g.pl, g.pr) == (0, 0, 0, 0) \
+        else F.pad(x, (0, 0, g.pl, g.pr, g.pt, g.pb))
+    taps = [xp[:, i:i + g.sh * (g.oh - 1) + 1:g.sh, j:j + g.sw * (g.ow - 1) + 1:g.sw]
+            for i in range(kh) for j in range(kw)]
+    cols = taps[0] if len(taps) == 1 else torch.cat(taps, dim=-1)
+    return cols.reshape(g.m, g.k)
+
+
+def int8_conv_plain(x, w_q, eff_scale, bias=None, *, kh, kw, strides, paddings, act=None,
+                    act_attrs=None, out_scale=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`int8_conv`: :func:`int8_matmul_plain`
+    over the explicit rows (:func:`im2col_nhwc`)."""
+    g = conv_geom(x.shape, kh, kw, strides, paddings)
+    y = int8_matmul_plain(im2col_nhwc(x, kh, kw, strides, paddings), w_q, eff_scale, bias,
+                          act=act, act_attrs=act_attrs, out_scale=out_scale)
+    return y.reshape(g.n, g.oh, g.ow, w_q.shape[1])
+
+
+# the kernel's 32-bit index arithmetic: x's pixels, the rows and K, each
+# with a tile's room, below 2^31 (plt_int8_gemm_conv)
+_GATHER_LIMIT = 2 ** 31 - 256
+
+
+def int8_conv(
+    x: torch.Tensor,
+    w_q: torch.Tensor,
+    eff_scale,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    kh: int,
+    kw: int,
+    strides,
+    paddings,
+    act: Optional[str] = None,
+    act_attrs: Optional[dict] = None,
+    out_scale: Optional[float] = None,
+    w_nk: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The conv of the contiguous (N, H, W, C) int8 ``x`` by ``w_q``, its
+    HWIO filter as (kh·kw·C, OC), as :func:`int8_matmul` over the im2col
+    rows: fp32 out, or int8 when ``out_scale`` is given, as (N, OH, OW,
+    OC).  On a CUDA tensor the gathering launch, which reads the rows from
+    ``x`` and makes none; the conv must gather (:func:`gathers`).
+    ``strides`` and ``paddings`` are Paddle's.  The launch takes
+    :func:`default_plan`'s tiling with ``conv_c`` = C: no stored plan was
+    measured on the gather.  On a CPU tensor :func:`int8_conv_plain`."""
+    global launches, launches_conv
+    if x.device.type == "cpu":
+        return int8_conv_plain(x, w_q, eff_scale, bias, kh=kh, kw=kw, strides=strides,
+                               paddings=paddings, act=act, act_attrs=act_attrs,
+                               out_scale=out_scale)
+    if x.ndim != 4:
+        raise ValueError(f"int8_conv: x must be NHWC, got shape {tuple(x.shape)}")
+    g = conv_geom(x.shape, kh, kw, strides, paddings)
+    if not gathers(g) or min(g.oh, g.ow) < 1 or max(g.n * g.h * g.w, g.m, g.k) >= _GATHER_LIMIT:
+        raise ValueError(f"int8_conv: the kernel does not gather the rows of {g}")
+    dev = x.device
+    _build.require_current_device(dev, "int8_conv")
+    oc = w_q.shape[1]
+    if w_nk is None:
+        _check(w_q, "w_q", torch.int8, (g.k, oc), dev)
+        w_nk = w_q.t().contiguous()
+    _check(x, "x", torch.int8, tuple(x.shape), dev)
+    _check(w_nk, "w_nk", torch.int8, (oc, g.k), dev)
+    scale = f32(eff_scale, dev).expand(oc).contiguous()
+    if bias is not None:
+        _check(bias, "bias", torch.float32, (oc,), dev)
+    kind = OUT_F32 if out_scale is None else OUT_I8
+    p = default_plan(g.m, g.k, oc, kind, conv_c=g.c)
+    check_aligned(p, g.k, x=x, w_nk=w_nk)
+    out = torch.empty((g.n, g.oh, g.ow, oc), device=dev,
+                      dtype=torch.float32 if out_scale is None else torch.int8)
+    rc = _build.load("int8_gemm_conv").plt_int8_gemm_conv(
+        x.data_ptr(), w_nk.data_ptr(), scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), *g, oc,
+        *act_args(act, act_attrs, GEMM_ACTS), kind,
+        0.0 if out_scale is None else inv_out_scale(out_scale),
+        p.bn, p.bk, p.warpgroups, p.width, p.out_width, p.smem_bytes,
+        blocks(p, kind, dev.index), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "int8_gemm_conv")
+    launches += 1
+    launches_conv += 1
+    return out

@@ -34,16 +34,16 @@ from __future__ import annotations
 import math
 from typing import Callable
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ...core.registry import OPS
-from ..common import conv_out_size, normalize_2d, normalize_paddings, upcast
+from ..common import normalize_2d, upcast
 from ..detection import (exact_candidates, nms_attrs, nms_merge, proposal_candidates,
                          proposals_out)
 from ..nn import eff_scale
-from . import custom_ops, depthwise
+from . import custom_ops, depthwise, int8_matmul
+from .int8_matmul import im2col_nhwc
 
 
 def _require(ok: bool, op, why: str) -> None:
@@ -100,38 +100,19 @@ def mul_cuda(ctx, op, ins):
     return {"Out": [y.reshape(lead + tail)]}
 
 
-def _out_hw(x: torch.Tensor, kh: int, kw: int, strides, paddings):
-    """(OH, OW) of a dilation-1 conv of the NHWC `x`."""
-    (sh, sw), (ph, pw) = normalize_2d(strides), normalize_paddings(paddings)
-    return (conv_out_size(x.shape[1], kh, sh, ph, 1),
-            conv_out_size(x.shape[2], kw, sw, pw, 1))
-
-
-def im2col_nhwc(x: torch.Tensor, kh: int, kw: int, strides, paddings) -> torch.Tensor:
-    """(N, H, W, C) int8 → its (N·OH·OW, kh·kw·C) im2col rows, each row in
-    (i, j, c) order: the row order of an HWIO filter reshaped to
-    (kh·kw·C, OC).  The input is zero-padded (zero is int8's zero point:
-    the port's quantization is symmetric) and the kh·kw strided tap slices
-    are concatenated on the last axis.  A 1x1 conv without padding has one
-    tap: at stride 1 its rows are a view of `x`, at another stride one
-    strided copy."""
-    n, _, _, c = x.shape
-    (sh, sw), ((pt, pb), (pl, pr)) = normalize_2d(strides), normalize_paddings(paddings)
-    oh, ow = _out_hw(x, kh, kw, strides, paddings)
-    xp = x if (pt, pb, pl, pr) == (0, 0, 0, 0) else F.pad(x, (0, 0, pl, pr, pt, pb))
-    taps = [xp[:, i:i + sh * (oh - 1) + 1:sh, j:j + sw * (ow - 1) + 1:sw]
-            for i in range(kh) for j in range(kw)]
-    cols = taps[0] if len(taps) == 1 else torch.cat(taps, dim=-1)
-    return cols.reshape(n * oh * ow, kh * kw * c)
-
-
 @OPS.kernel("conv2d", "cuda")
 def conv2d_cuda(ctx, op, ins):
     """Group-1 conv as the int8 GEMM over its im2col rows (the reference's
     ``conv_gemmlike`` path, ``ops_pallas.py:79-80``): int32 accumulation,
-    exact for any K.  An int8 residual goes into the GEMM's epilogue as its
-    (M, N) rows, made contiguous (``ShardedPredictor`` hands a slice of its
-    channels), with its per-tensor scale."""
+    exact for any K.  A conv whose rows are no view of its input (k×k,
+    strided or padded) and whose C is even gathers them inside the GEMM
+    (``int8_matmul.gathers``, ``int8_matmul.int8_conv``): the kernel reads
+    each piece of a row from the input at its tap, and no rows are made.
+    A conv with an int8 residual, or of odd C, takes the explicit rows
+    (``im2col_nhwc``: a view of the input at 1x1, stride 1, no padding),
+    the residual going into the GEMM's epilogue as its (M, N) rows, made
+    contiguous (``ShardedPredictor`` hands a slice of its channels), with
+    its per-tensor scale."""
     x, w = ins["Input"][0], ins["Filter"][0]
     bias = ins.get("Bias", [None])[0]
     residual = ins.get("ResidualData", [None])[0]
@@ -142,14 +123,23 @@ def conv2d_cuda(ctx, op, ins):
         and (residual is None or residual.dtype == torch.int8), op,
         "only group-1, dilation-1 convs with no residual or an int8 one run as the GEMM")
     _int8(op, x, w)
-    geom = (kh, kw, op.attrs.get("strides", (1, 1)), op.attrs.get("paddings", (0, 0)))
-    rows = im2col_nhwc(x, *geom)
+    window = dict(kh=kh, kw=kw, strides=op.attrs.get("strides", (1, 1)),
+                  paddings=op.attrs.get("paddings", (0, 0)))
+    g = int8_matmul.conv_geom(x.shape, **window)
+    w2 = w.reshape((kh * kw * c, oc))
+    if residual is None and int8_matmul.gathers(g):
+        y = custom_ops.conv(
+            x.contiguous(), w2, eff_scale(ctx, op, op.input("Input"), op.input("Filter")),
+            _bias(bias), **window, act=op.attrs.get("fuse_act"),
+            act_attrs=op.attrs.get("act_attrs"), out_scale=op.attrs.get("out_scale"),
+            w_nk=_packed(ctx, op, w2))
+        return {"Output": [y]}
+    rows = im2col_nhwc(x, **window)
     res = {} if residual is None else dict(
-        residual=residual.contiguous().reshape((rows.shape[0], oc)),
+        residual=residual.contiguous().reshape((g.m, oc)),
         residual_scale=ctx.var_quant(op.input("ResidualData")).scale[0])
-    y = _gemm(ctx, op, rows, w.reshape((kh * kw * c, oc)), op.input("Input"),
-              op.input("Filter"), bias, **res)
-    return {"Output": [y.reshape((x.shape[0], *_out_hw(x, *geom), oc))]}
+    y = _gemm(ctx, op, rows, w2, op.input("Input"), op.input("Filter"), bias, **res)
+    return {"Output": [y.reshape((g.n, g.oh, g.ow, oc))]}
 
 
 @OPS.kernel("depthwise_conv2d", "cuda")

@@ -9,9 +9,12 @@ measured on the card (below), and an int8 op that a kernel takes is tagged
 ``"torch"`` impl.  The kernels take:
 
 - ``conv2d`` with group 1 and dilation 1, of any kernel size, stride and
-  explicit paddings, through its im2col rows (``ops_cuda.im2col_nhwc``;
-  the reference's ``conv_gemmlike`` mapping, ``ops_pallas.py:79-80``),
-  ``fc`` and ``mul``, each with an even K → the int8 GEMM.  The GEMM
+  explicit paddings, as the GEMM over its im2col rows (the reference's
+  ``conv_gemmlike`` mapping, ``ops_pallas.py:79-80``): a k×k, strided or
+  padded conv's launch gathers them from its input
+  (``int8_matmul.int8_conv``), a 1x1 stride-1 conv's rows are its input,
+  and a conv with a residual or of odd C takes ``ops_cuda.im2col_nhwc``'s
+  explicit rows; ``fc`` and ``mul``; each with an even K → the int8 GEMM.  The GEMM
   accumulates in int32, exact for any K; the ``"torch"`` conv (an fp32
   conv, then ``round``) is exact only while every partial sum stays below
   2^24, which holds for every input only up to K = kh·kw·C = 1040.  A

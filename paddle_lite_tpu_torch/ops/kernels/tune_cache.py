@@ -380,7 +380,7 @@ def _op_table_key(graph, op) -> Optional[str]:
 def tune_graph(graph, *, verbose: bool = False, sweep_blocks: bool = False,
                device=None) -> Dict[str, str]:
     """Measure every table-driven bucket of an optimized graph once, on the
-    graph's first op of that bucket (a conv through its im2col route, as it
+    graph's first op of that bucket (a conv on its GEMM route, as it
     runs): the kernel against the op's ``"torch"`` impl.  With
     ``sweep_blocks`` each GEMM bucket's plans are swept first (at the op's
     output type), so the kernel is timed with its fastest plan.  Returns

@@ -2,8 +2,9 @@
 
     python3 -m paddle_lite_tpu_torch.tools.gemm_ablation
 
-Builds ``csrc/int8_gemm.cu`` and variants of it, each with one part taken
-out or replaced by a source substitution (one nvcc per variant, started
+Builds ``csrc/int8_gemm.cu``, with the kernel of ``csrc/int8_gemm.cuh``
+written into it, and variants of it, each with one part taken out or
+replaced by a source substitution (one nvcc per variant, started
 together, into ``_build/ablation/``), and times every variant at the same
 plan on shapes of the MobileNetV1, SSD and MobileNetV3 paths: ten launches
 in one CUDA graph, so the graph's launch floor is spread over them (µs a
@@ -46,6 +47,14 @@ def _sub(src: str, old: str, new: str) -> str:
     if src.count(old) != 1:
         sys.exit(f"gemm_ablation: int8_gemm.cu does not hold {old!r} once")
     return src.replace(old, new)
+
+
+def source() -> str:
+    """``int8_gemm.cu`` with ``int8_gemm.cuh`` in place of its include, so
+    that a substitution reaches the kernel."""
+    include = '#include "int8_gemm.cuh"'
+    return _sub((_build.CSRC / "int8_gemm.cu").read_text(), include,
+                (_build.CSRC / "int8_gemm.cuh").read_text())
 
 
 def variants(src: str) -> dict:
@@ -117,7 +126,7 @@ def time_us(fn, reps: int = 15, inner: int = 10) -> float:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("gemm_ablation: needs a CUDA card")
-    libs = build(variants((_build.CSRC / "int8_gemm.cu").read_text()))
+    libs = build(variants(source()))
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(0)

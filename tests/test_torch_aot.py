@@ -97,11 +97,13 @@ def _small_ssd():
 def test_ssd_exports_its_kernels_as_custom_ops():
     g, pred, feed = _small_ssd()
     run = aot.load_compiled(aot.export_compiled(g, device="cpu"))
-    assert _plt_ops(run) == {"plt.int8_gemm.default", "plt.dw_conv.default",
-                             "plt.nms_keep.default"}
+    # the 3x3 convs gather their rows inside the GEMM: one plt::int8_conv each
+    assert _plt_ops(run) == {"plt.int8_gemm.default", "plt.int8_conv.default",
+                             "plt.dw_conv.default", "plt.nms_keep.default"}
     assert _equal(run(feed), pred.run(feed))
     text = dump.dump_exported(g, device="cpu")
     assert "plt.nms_keep.default" in text and "plt.int8_gemm.default" in text
+    assert "plt.int8_conv.default" in text
 
 
 def test_residual_conv_exports_its_residual_into_the_gemm_op():
